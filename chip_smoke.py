@@ -1,21 +1,30 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch + CUDA port (diligentfx_tpu_torch) on one NVIDIA
 GPU: builds the port's CUDA kernels, holds each against its plain PyTorch
-version on the card, renders the 1080p bench frame of the first slice
-(G-buffer -> TAA -> bloom -> tone map, SSAO and SSR off) and checks it.
+version on the card, renders the 1080p bench frame with the full bench.py
+feature set (G-buffer -> half-resolution GTAO SSAO -> divisor-2 SSR ->
+composite -> TAA -> bloom -> tone map) and checks it.
 
 Phases (any failure exits non-zero; no phase is skipped):
   1. build csrc/*.cu with nvcc (one process per source, all at once);
-  2. the fused tile raster kernel vs raster_tiles_fused_plain at the bench
-     scene, bench raster config and 1920x1080 (padded to 1088x1920);
-  3. the bounded warp kernel vs warp_bilinear_plain: 1 and 4 channels,
-     halos (16, 64) and (8, 64), offsets beyond the halo, and a 128-wide
-     image (halo shrink);
+  2. K1, the fused tile raster kernel, vs raster_tiles_fused_plain at the
+     bench scene, bench raster config and 1920x1080 (padded to 1088x1920);
+  3. K2, the bounded warp kernel, vs warp_bilinear_plain: the frame's five
+     shapes (exact), halos (16, 64) and (8, 64), offsets beyond the halo,
+     and a 128-wide image (halo shrink);
   4. the main path: HnTaskManager.execute on the bench scene at 1920x1080,
      one warm-up frame, then --frames timed frames; the kernels' launch
-     counts are zeroed just before and read just after the timed frames;
-  5. the frame at 256x128 on the GPU against the port's CPU path (the plain
-     versions, which the CPU tests hold against the JAX package): PSNR.
+     counts are zeroed just before and read just after the timed frames
+     (K1 1, K2 20, K3 1 a frame);
+  5. K3, the SSR row-DDA march, vs march_dda_plain at the inputs compute_ssr
+     builds from the frame's G-buffer, and on random rays with flat ones;
+  6. K5, the fused GTAO, vs gtao_fused_plain and against the per-tap route
+     on the frame's half-resolution depth and normals; then its own path,
+     apply_ssao(use_pallas=True, fused=True) on the frame's G-buffer, with
+     the counts zeroed just before and read just after;
+  7. the bench frame and the first slice's frame (SSAO and SSR off) at
+     256x128 on the GPU against the port's CPU path (the plain versions,
+     which the CPU tests hold against the JAX package).
 
 Prints the median frame time, one JSON line with each kernel's launches,
 times and bound, the card's name and power limit, and last
@@ -76,7 +85,7 @@ def bound_ms(n_bytes: float, n_ops: float):
 
 
 # ---------------------------------------------------------------------------
-# the bench scene and frame configuration (bench.py, first-slice switches)
+# the bench scene and frame configuration (bench.py)
 # ---------------------------------------------------------------------------
 
 
@@ -112,16 +121,26 @@ def bench_raster_config():
                             big_tile_capacity=16)
 
 
-def slice_task_manager_ci():
+def bench_task_manager_ci():
+    """bench.py:149-161 without --csm: every effect on its kernel route."""
     from diligentfx_tpu_torch.hydrogent.task_manager import \
         TaskManagerCreateInfo
     from diligentfx_tpu_torch.postfx.taa import TAAFeatureFlags
     return TaskManagerCreateInfo(
-        enable_ssao=False, enable_ssr=False, enable_taa=True,
-        enable_bloom=True, enable_dof=False, fast_env_taps=True,
+        enable_ssao=True, ssao_half_resolution=True, ssao_num_slices=2,
+        ssao_num_steps=4, ssao_use_pallas=True, ssr_use_pallas=True,
+        fast_env_taps=True, enable_ssr=True, ssr_half_resolution=True,
+        ssr_resolution_divisor=2, enable_taa=True, enable_bloom=True,
+        enable_dof=False,
         taa_feature_flags=(TAAFeatureFlags.YCOCG_COLOR_SPACE
                            | TAAFeatureFlags.GAUSSIAN_WEIGHTING
                            | TAAFeatureFlags.PALLAS_WARP))
+
+
+def bench_settings():
+    from diligentfx_tpu_torch.hydrogent.task_manager import FrameSettings
+    from diligentfx_tpu_torch.postfx.ssr import SSRSettings
+    return FrameSettings(ssr=SSRSettings(max_traversal_intersections=24))
 
 
 def render_info(w, h, device):
@@ -275,15 +294,32 @@ def _grid_sample_fn(img, off):
                                  padding_mode="border", align_corners=False)
 
 
+# K2's launches in one bench frame: (h, w, channels, halo, launches, the
+# pixels the caller keeps).  SSAO and SSR warp the half-resolution 540 x 960
+# grid edge-padded to the warp's 8 x 128 and crop the result, so their
+# bound counts only the 540 x 960 pixels.
+HALF_H, HALF_W = -(-(H // 2) // 8) * 8, -(-(W // 2) // 128) * 128
+HALF_PX = (H // 2) * (W // 2)
+WARP_FRAME = (
+    (H, W, 1, (16, 64), 1, H * W),                 # disocclusion tap
+    (HALF_H, HALF_W, 1, (16, 64), 16, HALF_PX),    # SSAO: 2 x 2 sides x 4
+    (H, W, 2, (8, 64), 1, H * W),                  # SSAO history
+    (HALF_H, HALF_W, 4, (16, 64), 1, HALF_PX),     # SSR history
+    (H, W, 4, (8, 64), 1, H * W),                  # TAA history
+)
+
+
 def phase_warp():
-    """K2 vs its plain version; times at the main path's two shapes."""
+    """K2 vs its plain version at the frame's five shapes (exact) and more;
+    times summed over the frame's 20 launches."""
     import torch
     from diligentfx_tpu_torch.ops.warp import warp_bilinear, warp_bilinear_plain
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(0)
     max_err = 0.0
-    cases = [(H, W, 1, (16, 64)), (H, W, 4, (8, 64)), (H, W, 4, (16, 64)),
-             (H, W, 1, (8, 64)), (256, 128, 4, (8, 64)), (64, 384, 1, (16, 64))]
+    frame_cases = [(h, w, c, halo) for h, w, c, halo, *_ in WARP_FRAME]
+    cases = frame_cases + [(H, W, 4, (16, 64)), (H, W, 1, (8, 64)),
+                           (256, 128, 4, (8, 64)), (64, 384, 1, (16, 64))]
     for h, w, c, halo in cases:
         img, off = _warp_case(h, w, c, halo, gen)
         a = warp_bilinear(img, off, halo_r=halo[0], halo_c=halo[1])
@@ -293,40 +329,64 @@ def phase_warp():
         print(f"warp {h}x{w}x{c} halo {halo}: max err {err:.3g}", flush=True)
         check(a.shape == b.shape and bool(torch.isfinite(a).all()),
               "warp output shape / finiteness")
-        check(err <= 1e-6, f"warp kernel error {err} at {h}x{w}x{c} {halo}")
+        tol = 0.0 if (h, w, c, halo) in frame_cases else 1e-6
+        check(err <= tol, f"warp kernel error {err} at {h}x{w}x{c} {halo}")
         max_err = max(max_err, err)
 
-    # the main path's shapes: the disocclusion prev-depth tap (1 channel,
-    # halo (16, 64)) and the TAA history (4 channels, halo (8, 64))
     ms = plain_ms = lib_ms = b_ms = 0.0
     b_by = set()
-    for c, halo in ((1, (16, 64)), (4, (8, 64))):
-        img, off = _warp_case(H, W, c, halo, gen)
+    for h, w, c, halo, n, px in WARP_FRAME:
+        img, off = _warp_case(h, w, c, halo, gen)
         kw = dict(halo_r=halo[0], halo_c=halo[1])
-        ms += cuda_ms(lambda: warp_bilinear(img, off, **kw), 50, 3)
-        plain_ms += cuda_ms(lambda: warp_bilinear_plain(img, off, **kw), 10, 2)
-        lib_ms += cuda_ms(_grid_sample_fn(img, off), 50, 3)
-        # image and output (c floats a pixel) plus the offsets (2 floats);
-        # about 20 flops of tap coordinates a pixel and 9 a channel
-        b, by = bound_ms(4 * (2 * H * W * c + 2 * H * W), H * W * (20 + 9 * c))
-        b_ms += b
+        ms += n * cuda_ms(lambda: warp_bilinear(img, off, **kw), 50, 3)
+        plain_ms += n * cuda_ms(lambda: warp_bilinear_plain(img, off, **kw),
+                                10, 2)
+        lib_ms += n * cuda_ms(_grid_sample_fn(img, off), 50, 3)
+        # over the kept pixels: image and output (c floats a pixel) plus the
+        # offsets (2 floats); about 20 flops of tap coordinates a pixel and
+        # 9 a channel
+        b, by = bound_ms(4 * px * (2 * c + 2), px * (20 + 9 * c))
+        b_ms += n * b
         b_by.add(by)
     return dict(name="warp_bilinear", route="cuda",
                 source="diligentfx_tpu_torch/csrc/warp.cu",
                 replaces="diligentfx_tpu/ops/warp_pallas.py:34",
                 max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by="/".join(sorted(b_by)), library_ms=lib_ms,
-                shapes="per frame: (1080,1920) halo (16,64) + (1080,1920,4) "
-                       "halo (8,64)")
+                shapes="per frame: " + ", ".join(
+                    f"{n} x ({h},{w},{c}) halo {halo}, {px} px kept"
+                    for h, w, c, halo, n, px in WARP_FRAME))
+
+
+def _launch_counters():
+    from diligentfx_tpu_torch.ops.gtao import gtao_fused
+    from diligentfx_tpu_torch.ops.march import march_small_table
+    from diligentfx_tpu_torch.ops.raster_kernel import raster_tiles_fused
+    from diligentfx_tpu_torch.ops.warp import warp_bilinear
+    return {"raster_tiles_fused": raster_tiles_fused,
+            "warp_bilinear": warp_bilinear,
+            "march_small_table": march_small_table, "gtao_fused": gtao_fused}
+
+
+def zero_launches():
+    for fn in _launch_counters().values():
+        fn.launches = 0
+
+
+def read_launches():
+    return {name: fn.launches for name, fn in _launch_counters().items()}
+
+
+# launches a bench frame makes of each kernel (K5 is off the frame's path)
+FRAME_LAUNCHES = {"raster_tiles_fused": 1, "warp_bilinear": 20,
+                  "march_small_table": 1, "gtao_fused": 0}
 
 
 def phase_frame(scene, info, cfg, frames, out_png):
-    """The main path: the slice's frame on the bench scene at 1080p."""
+    """The main path: the bench frame on the bench scene at 1080p."""
     import torch
     from diligentfx_tpu_torch.config import PBRRendererCreateInfo
     from diligentfx_tpu_torch.hydrogent.task_manager import HnTaskManager
-    from diligentfx_tpu_torch.ops.raster_kernel import raster_tiles_fused
-    from diligentfx_tpu_torch.ops.warp import warp_bilinear
     from diligentfx_tpu_torch.pbr.renderer import PBRRenderer
     t0 = time.perf_counter()
     renderer = PBRRenderer(PBRRendererCreateInfo(), raster_cfg=cfg,
@@ -334,16 +394,16 @@ def phase_frame(scene, info, cfg, frames, out_png):
     torch.cuda.synchronize()
     print(f"renderer + IBL precompute: {time.perf_counter() - t0:.2f} s",
           flush=True)
-    tm = HnTaskManager(renderer, slice_task_manager_ci())
+    tm = HnTaskManager(renderer, bench_task_manager_ci())
+    settings = bench_settings()
     state = tm.initial_state(W, H)
-    out = tm.execute(scene, info, state, width=W, height=H)
+    out = tm.execute(scene, info, state, width=W, height=H, settings=settings)
     state = out.state
     torch.cuda.synchronize()
     check(tuple(out.color.shape) == (H, W, 3), "frame shape")
     check(bool(torch.isfinite(out.color).all()), "warm-up frame not finite")
 
-    raster_tiles_fused.launches = 0
-    warp_bilinear.launches = 0
+    zero_launches()
     host_ms, dev_ms = [], []
     for _ in range(frames):
         ev0 = torch.cuda.Event(enable_timing=True)
@@ -351,39 +411,232 @@ def phase_frame(scene, info, cfg, frames, out_png):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         ev0.record()
-        out = tm.execute(scene, info, state, width=W, height=H)
+        out = tm.execute(scene, info, state, width=W, height=H,
+                         settings=settings)
         state = out.state
         ev1.record()
         torch.cuda.synchronize()
         host_ms.append((time.perf_counter() - t0) * 1e3)
         dev_ms.append(ev0.elapsed_time(ev1))
-    launches = {"raster_tiles_fused": raster_tiles_fused.launches,
-                "warp_bilinear": warp_bilinear.launches}
+    launches = read_launches()
     color = out.color
     check(bool(torch.isfinite(color).all()), "frame not finite")
     check(float(color.min()) >= 0.0 and float(color.max()) <= 1.0,
           "sRGB output outside [0, 1]")
     hit = float(out.gbuffer.hit.float().mean())
     check(0.2 < hit < 1.0, f"hit fraction {hit}")
-    check(launches["raster_tiles_fused"] == frames,
-          f"raster kernel launched {launches['raster_tiles_fused']} times in "
-          f"{frames} frames")
-    check(launches["warp_bilinear"] == 2 * frames,
-          f"warp kernel launched {launches['warp_bilinear']} times in "
-          f"{frames} frames")
+    for name, per_frame in FRAME_LAUNCHES.items():
+        check(launches[name] == per_frame * frames,
+              f"{name} launched {launches[name]} times in {frames} frames, "
+              f"expected {per_frame} a frame")
+    ao = state.ssao.history
+    conf = state.ssr.radiance[..., 3]
+    check(bool(torch.isfinite(ao).all()) and float(ao.min()) >= 0.0
+          and float(ao.max()) <= 1.0, "SSAO history outside [0, 1]")
+    check(bool(torch.isfinite(state.ssr.radiance).all()), "SSR not finite")
     print(f"frame {W}x{H}: median {np.median(host_ms):.3f} ms host clock, "
           f"{np.median(dev_ms):.3f} ms CUDA events, min {min(host_ms):.3f}, "
           f"max {max(host_ms):.3f} ({frames} frames), hit {hit:.3f}, "
-          f"mean color {float(color.mean()):.4f}", flush=True)
+          f"mean color {float(color.mean()):.4f}, mean AO "
+          f"{float(ao.mean()):.4f}, SSR confidence > 0 on "
+          f"{float((conf > 0).float().mean()):.4f} of the march grid",
+          flush=True)
     if out_png:
         from diligentfx_tpu_torch.utils.image import write_png
         os.makedirs(os.path.dirname(os.path.abspath(out_png)), exist_ok=True)
         write_png(out_png, color.cpu().numpy())
-    return tm, launches, float(np.median(host_ms)), float(np.median(dev_ms))
+    return (tm, launches, float(np.median(host_ms)), float(np.median(dev_ms)),
+            out.gbuffer, state)
+
+
+# K3's operations for one crossed table row: the row's t-interval (2
+# divisions, 2 subtractions, 2 multiplications, min, max, 2 clamps, the
+# test, the midpoint: 14) and 2 sub-intervals of 68 (entry/exit columns 6,
+# z 4, slop and window 3, the inside test 4, t span and slack 2, and 3 plane
+# tests of 15: f0, f1, 4 comparisons, the denominator, its test, the
+# division, the clamp, t* and the running-min test)
+MARCH_OPS_PER_ROW = 14 + 2 * 68
+
+
+def _march_rows_crossed(coarse, origin, direction) -> int:
+    """Table rows with a non-empty t-interval, summed over the rays: the
+    rows the march must test on this data (march_dda_plain's `has`)."""
+    import torch
+    rows = coarse.shape[0]
+    ov, dv = origin[..., 1], direction[..., 1]
+    flat = torch.abs(dv) <= 1e-7
+    inv_dv = 1.0 / torch.where(flat, torch.full_like(dv, 1e-7), dv)
+    r = torch.arange(rows + 1, device=ov.device, dtype=torch.float32) / rows
+    crossed = flat.sum()
+    for i in range(rows):
+        ta = (r[i] - ov) * inv_dv
+        tb = (r[i + 1] - ov) * inv_dv
+        tin = torch.clamp(torch.minimum(ta, tb), 0.0, 1.0)
+        tout = torch.clamp(torch.maximum(ta, tb), 0.0, 1.0)
+        crossed = crossed + ((tout > tin) & ~flat).sum()
+    return int(crossed)
+
+
+def _flat_rays(gen, h, w, rows, cols, flat_share=0.2):
+    """A random table and rays, `flat_share` of them nearly horizontal
+    (|dv| <= 1e-7, half of those exactly 0)."""
+    import torch
+
+    def u(lo, hi, shape):
+        return lo + (hi - lo) * torch.rand(shape, generator=gen, device=DEVICE)
+    coarse = u(0.35, 0.95, (rows, cols))
+    o = torch.stack([u(0.02, 0.98, (h, w)), u(0.02, 0.98, (h, w)),
+                     u(0.05, 0.6, (h, w))], -1)
+    d = torch.stack([u(-0.6, 0.6, (h, w)), u(-0.6, 0.6, (h, w)),
+                     u(-0.1, 0.8, (h, w))], -1)
+    flat = torch.rand((h, w), generator=gen, device=DEVICE) < flat_share
+    tiny = torch.where(torch.rand((h, w), generator=gen, device=DEVICE) < 0.5,
+                       torch.zeros((h, w), device=DEVICE), u(-1e-7, 1e-7, (h, w)))
+    d[..., 1] = torch.where(flat, tiny, d[..., 1])
+    return coarse.contiguous(), o.contiguous(), d.contiguous()
+
+
+def phase_march(gb, info):
+    """K3 vs march_dda_plain at the inputs compute_ssr builds from the
+    frame's G-buffer (the kernel route: mip 3 of the divisor-2 grid, rays
+    padded to 544 x 1024), and on random rays with flat ones."""
+    import torch
+    from diligentfx_tpu_torch.ops.march import (march_dda_plain,
+                                                march_small_table)
+    from diligentfx_tpu_torch.postfx import ssr
+    st = bench_settings().ssr
+    depth_r = gb.depth[::2, ::2]
+    *_, origin, direction = ssr._ray_setup(
+        depth_r, gb.normal_view[::2, ::2], gb.material_data[::2, ::2, 1:2],
+        info.camera, 1, st)
+    coarse = ssr._coarse_table(ssr.build_min_depth_pyramid(depth_r, 4), 2,
+                               True)
+    args = ssr._kernel_march_args(coarse, origin, direction)
+    thick = ssr._thickness_ndc(st, info.camera)
+    print(f"march: table {tuple(coarse.shape)}, rays {tuple(args[1].shape)}",
+          flush=True)
+    # the walk-down to <= 128 columns lands on mip 3: 67 x 120 at 1080p
+    check(tuple(coarse.shape) == (H // 2 // 8, W // 2 // 8) and
+          tuple(args[1].shape) == (HALF_H, HALF_W, 3),
+          "the march does not take the frame's mip-3 table")
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(3)
+    max_err = 0.0
+    for name, case in (("frame", args),
+                       ("flat_rays", _flat_rays(gen, 64, 256, 67, 120))):
+        a = march_small_table(*case, thick)
+        torch.cuda.synchronize()
+        b = march_dda_plain(*case, thick)
+        flips = int((a[2] != b[2]).sum())
+        err = max(float((a[0] - b[0]).abs().max()),
+                  float((a[1] - b[1]).abs().max()))
+        print(f"march {name}: hit {float(b[2].float().mean()):.4f} of "
+              f"{b[2].numel()}, hit mismatches {flips}, t max err {err:.3g}",
+              flush=True)
+        check(flips == 0, f"march kernel hits differ from the plain version "
+                          f"({name}: {flips})")
+        check(err <= 1e-6, f"march kernel t error {err} ({name})")
+        max_err = max(max_err, err)
+    ms = cuda_ms(lambda: march_small_table(*args, thick), 20, 2)
+    plain_ms = cuda_ms(lambda: march_dda_plain(*args, thick), 3, 1)
+    # the work over the rays compute_ssr keeps (540 x 960; the edge-padded
+    # copies up to 544 x 1024 are cropped away): table and rays read once,
+    # t_lo, t_hit and hit written once
+    crossed = _march_rows_crossed(coarse, origin, direction)
+    px = origin.shape[0] * origin.shape[1]
+    n_bytes = 4 * coarse.numel() + px * (24 + 9)
+    b_ms, b_by = bound_ms(n_bytes, MARCH_OPS_PER_ROW * crossed)
+    print(f"march: {crossed / px:.2f} crossed rows a ray over {px} rays "
+          f"({args[1].shape[0] * args[1].shape[1]} launched), "
+          f"{MARCH_OPS_PER_ROW * crossed / 1e6:.1f} M ops", flush=True)
+    return dict(name="march_small_table", route="cuda",
+                source="diligentfx_tpu_torch/csrc/march.cu",
+                replaces="diligentfx_tpu/ops/march_pallas.py:95",
+                max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None,
+                shapes=f"table {tuple(coarse.shape)}, rays "
+                       f"{tuple(origin.shape)} padded to "
+                       f"{tuple(args[1].shape)}")
+
+
+def _gtao_ops(px: int, slices: int, steps: int) -> int:
+    """K5's operations: per pixel 45 (view position and vector, noise, tap
+    radius), per slice 75 (slice geometry 45, two polynomial arccos 20, the
+    arc 10, counting sqrt, division and cosine as one each), per tap 55
+    (offsets 8, window tap 17, reconstruction 12, distance and cosine 13,
+    falloff 5)."""
+    return px * (45 + slices * (75 + 2 * steps * 55))
+
+
+def phase_gtao(gb, info, frame_state):
+    """K5 vs gtao_fused_plain and against the per-tap route on the frame's
+    half-resolution depth and normals, then its own path: apply_ssao on the
+    kernel route with fused=True, on the frame's G-buffer."""
+    import torch
+    from diligentfx_tpu_torch.ops.gtao import gtao_fused, gtao_fused_plain
+    from diligentfx_tpu_torch.postfx import ssao
+    ci = bench_task_manager_ci()
+    kw = dict(num_slices=ci.ssao_num_slices, num_steps=ci.ssao_num_steps)
+    d2 = gb.depth[::2, ::2].contiguous()
+    n2 = gb.normal_view[::2, ::2].contiguous()
+    h2, w2 = d2.shape
+    sc = ssao.gtao_scalars(info.camera, 1, ssao.SSAOSettings())
+    a = gtao_fused(d2, n2, sc, **kw)
+    torch.cuda.synchronize()
+    b = gtao_fused_plain(d2, n2, sc, **kw)
+    err = float((a - b).abs().max())
+    per_tap = ssao.compute_gtao(d2, n2, info.camera, 1, ssao.SSAOSettings(),
+                                use_pallas=True, **kw)
+    dev_tap = (a - per_tap).abs()[2:-2, 2:-2]
+    p99 = float(torch.quantile(dev_tap.flatten(), 0.99))
+    print(f"gtao {h2}x{w2}: fused vs plain max err {err:.3g}; vs the per-tap "
+          f"route p99 {p99:.3g}, max {float(dev_tap.max()):.3g}; mean AO "
+          f"{float(a.mean()):.4f}", flush=True)
+    check(bool(torch.isfinite(a).all()) and float(a.min()) >= 0.0
+          and float(a.max()) <= 1.0, "gtao output outside [0, 1]")
+    check(err <= 1e-5, f"gtao kernel error {err}")
+    # tests/test_gtao_pallas.py:41's bounds for the fused against per-tap
+    check(p99 < 1e-3 and float(dev_tap.max()) < 6e-3,
+          "fused GTAO disagrees with the per-tap route")
+
+    ms = cuda_ms(lambda: gtao_fused(d2, n2, sc, **kw), 20, 2)
+    plain_ms = cuda_ms(lambda: gtao_fused_plain(d2, n2, sc, **kw), 3, 1)
+    per_tap_ms = cuda_ms(lambda: ssao.compute_gtao(
+        d2, n2, info.camera, 1, ssao.SSAOSettings(), use_pallas=True, **kw),
+        10, 2)
+    # over the pixels the caller keeps (the kernel runs the grid padded to
+    # 32 x 128 and crops): depth, normal and output once, the 8 scalars
+    b_ms, b_by = bound_ms(4 * (h2 * w2 * (1 + 3 + 1)) + 32,
+                          _gtao_ops(h2 * w2, kw["num_slices"], kw["num_steps"]))
+    print(f"gtao: fused {ms:.4f} ms, per-tap route (16 warp launches and "
+          f"glue) {per_tap_ms:.4f} ms", flush=True)
+
+    # K5's path: the SSAO entry point with the fused kernel selected
+    hist = frame_state.ssao
+    zero_launches()
+    ao, _ = ssao.apply_ssao(gb.depth, gb.normal_view, info.camera, 1,
+                            state=hist, motion=gb.motion,
+                            half_resolution=True, use_pallas=True, fused=True,
+                            **kw)
+    launches = read_launches()
+    torch.cuda.synchronize()
+    check(tuple(ao.shape) == (H, W) and bool(torch.isfinite(ao).all()),
+          "fused apply_ssao output")
+    check(launches["gtao_fused"] == 1 and launches["warp_bilinear"] == 1,
+          f"apply_ssao(fused=True) launched {launches}")
+    return dict(name="gtao_fused", route="cuda",
+                source="diligentfx_tpu_torch/csrc/gtao.cu",
+                replaces="diligentfx_tpu/ops/gtao_pallas.py:63",
+                launches=launches["gtao_fused"], max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None, per_tap_route_ms=per_tap_ms,
+                path="apply_ssao(use_pallas=True, fused=True) on the 1080p "
+                     "G-buffer, once (the frame takes the per-tap route)",
+                shapes=f"depth ({h2},{w2}) padded to 544x1024")
 
 
 STAGES = ("dfx.gbuffer", "dfx.raster_inputs", "dfx.context_composite",
-          "dfx.taa_bloom_tonemap")
+          "dfx.ssao", "dfx.ssr", "dfx.taa_bloom_tonemap")
 
 
 def _device_us(event, field):
@@ -398,8 +651,9 @@ def phase_profile(tm, scene, info, cfg, frames, path):
     stage, setup and binning (fused_raster_inputs) alone, which synchronise
     the host with the device.  Then torch.profiler over `frames` frames of
     HnTaskManager.execute: device time of each stage (the dfx.* ranges that
-    execute marks; dfx.raster_inputs lies inside dfx.gbuffer) and of each
-    kernel, and the device's idle share."""
+    execute marks; dfx.raster_inputs lies inside dfx.gbuffer, dfx.ssao and
+    dfx.ssr inside dfx.context_composite) and of each kernel, and the
+    device's idle share."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -417,14 +671,16 @@ def phase_profile(tm, scene, info, cfg, frames, path):
           f"median {np.median(host):.3f} ms host clock, device synchronised",
           flush=True)
 
+    settings = bench_settings()
     state = tm.execute(scene, info, tm.initial_state(W, H), width=W,
-                       height=H).state
+                       height=H, settings=settings).state
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(frames):
-            state = tm.execute(scene, info, state, width=W, height=H).state
+            state = tm.execute(scene, info, state, width=W, height=H,
+                               settings=settings).state
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     per_frame = wall_ms / frames
@@ -457,39 +713,57 @@ def phase_profile(tm, scene, info, cfg, frames, path):
                                           row_limit=80))
 
 
-def phase_reference():
-    """The frame at 256x128 on the GPU against the port's CPU path."""
-    import torch
+def slice_task_manager_ci():
+    """The first slice's frame: the bench effects less SSAO and SSR (the
+    composite then applies no AO and blends no reflection)."""
+    import dataclasses
+    return dataclasses.replace(bench_task_manager_ci(), enable_ssao=False,
+                               enable_ssr=False)
+
+
+def small_frames(task_ci, device):
+    """Two 256x128 frames of the small bench scene under `task_ci`, on the
+    CPU path (the plain versions) and on `device`: (cpu colour, colour)."""
     from diligentfx_tpu_torch.config import PBRRendererCreateInfo
     from diligentfx_tpu_torch.hydrogent.task_manager import HnTaskManager
     from diligentfx_tpu_torch.pbr.renderer import PBRRenderer
-    from diligentfx_tpu_torch.utils.image import psnr
     ci = PBRRendererCreateInfo(brdf_lut_dim=32, num_brdf_samples=16,
                                irradiance_cube_dim=16,
                                prefiltered_env_map_dim=32,
                                num_specular_env_samples=16)
     cfg = bench_raster_config()
     ref = PBRRenderer(ci, raster_cfg=cfg, device="cpu")
-    colors = {}
-    for dev in ("cpu", DEVICE):
+    colors = []
+    for dev in ("cpu", device):
         ren = (ref if dev == "cpu" else
                PBRRenderer(ci, raster_cfg=cfg, device=dev,
                            env_oct=ref.env_oct, ibl_maps=ref.ibl_maps.to(dev)))
-        tm = HnTaskManager(ren, slice_task_manager_ci())
+        tm = HnTaskManager(ren, task_ci)
         scene = bench_scene(2, 2, 12, dev)
         info = render_info(SMALL_W, SMALL_H, dev)
         state = tm.initial_state(SMALL_W, SMALL_H)
         for _ in range(2):
             out = tm.execute(scene, info, state, width=SMALL_W,
-                             height=SMALL_H)
+                             height=SMALL_H, settings=bench_settings())
             state = out.state
-        colors[dev] = out.color.cpu().numpy()
-    p = psnr(colors["cpu"], colors[DEVICE])
-    print(f"256x128 frame, GPU vs the port's CPU path: PSNR {p:.2f} dB, "
-          f"max abs diff {np.abs(colors['cpu'] - colors[DEVICE]).max():.3g}",
-          flush=True)
-    check(np.isfinite(colors[DEVICE]).all(), "small frame not finite")
-    check(p > 50.0, f"GPU frame disagrees with the CPU path: {p:.2f} dB")
+        colors.append(out.color.cpu().numpy())
+    return colors[0], colors[1]
+
+
+def phase_reference():
+    """The first slice's frame and the bench frame at 256x128 on the GPU
+    against the port's CPU path."""
+    from diligentfx_tpu_torch.utils.image import psnr
+    for name, task_ci in (("slice-1", slice_task_manager_ci()),
+                          ("bench", bench_task_manager_ci())):
+        cpu, gpu = small_frames(task_ci, DEVICE)
+        p = psnr(cpu, gpu)
+        print(f"256x128 {name} frame, GPU vs the port's CPU path: PSNR "
+              f"{p:.2f} dB, max abs diff {np.abs(cpu - gpu).max():.3g}",
+              flush=True)
+        check(np.isfinite(gpu).all(), f"small {name} frame not finite")
+        check(p > 50.0, f"GPU {name} frame disagrees with the CPU path: "
+                        f"{p:.2f} dB")
 
 
 def card_line() -> str:
@@ -527,20 +801,24 @@ def main() -> int:
     info = render_info(W, H, DEVICE)
     k1 = phase_raster(scene, info, cfg)
     k2 = phase_warp()
-    tm, launches, frame_ms, frame_dev_ms = phase_frame(
+    tm, launches, frame_ms, frame_dev_ms, gb, state = phase_frame(
         scene, info, cfg, args.frames, args.out_png)
+    k3 = phase_march(gb, info)
+    k5 = phase_gtao(gb, info, state)
     if args.profile:
         phase_profile(tm, scene, info, cfg, 3, args.profile)
     phase_reference()
-    for k in (k1, k2):
+    for k in (k1, k2, k3):
         k["launches"] = launches[k["name"]]
         k["frames"] = args.frames
         k["launches_per_frame"] = launches[k["name"]] / args.frames
+    k5["frame_launches"] = launches["gtao_fused"]
+    k5["launches_per_frame"] = 0.0
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{**{key: k[key] for key in order},
                 **{key: v for key, v in k.items() if key not in order}}
-               for k in (k1, k2)]
+               for k in (k1, k2, k3, k5)]
     print(f"frame_ms_median {frame_ms:.3f} (CUDA events {frame_dev_ms:.3f}) "
           f"over {args.frames} frames at {W}x{H}; total run "
           f"{time.perf_counter() - t_start:.1f} s")

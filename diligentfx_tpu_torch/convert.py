@@ -16,10 +16,13 @@ from diligentfx_tpu_torch.attribs import (CameraAttribs, PBRLightAttribs,
                                           PBRMaterialBasicAttribs,
                                           PBRRendererShaderParameters)
 from diligentfx_tpu_torch.config import RasterizerConfig
-from diligentfx_tpu_torch.hydrogent.task_manager import (FrameState,
+from diligentfx_tpu_torch.hydrogent.task_manager import (FrameSettings,
+                                                         FrameState,
                                                          TaskManagerCreateInfo)
 from diligentfx_tpu_torch.pbr.renderer import RenderInfo, ScenePrimitives
 from diligentfx_tpu_torch.pbr.shading import IBLMaps
+from diligentfx_tpu_torch.postfx.ssao import SSAOState
+from diligentfx_tpu_torch.postfx.ssr import SSRState
 from diligentfx_tpu_torch.postfx.taa import TAAState
 
 
@@ -85,19 +88,46 @@ def render_info_from_jax(info, device=None) -> RenderInfo:
                           info.renderer_params, device), **opt)
 
 
+def _settings(obj, cls):
+    """A settings NamedTuple of Python numbers, field by field, each of the
+    type of the port's default (the JAX package keeps float32 scalars)."""
+    return cls(**{f: type(d)(np.asarray(getattr(obj, f)).item())
+                  for f, d in zip(cls._fields, cls())})
+
+
+def frame_settings_from_jax(settings) -> FrameSettings:
+    """FrameSettings of the ported effects (SSR, SSAO, TAA, bloom, tone
+    mapping); the JAX package's selection and bound-box inputs must be
+    unset."""
+    for name in ("selected_ids", "bound_box"):
+        if getattr(settings, name) is not None:
+            raise NotImplementedError(f"FrameSettings.{name} is not ported yet")
+    port = FrameSettings()
+    return FrameSettings(**{f: _settings(getattr(settings, f), type(d))
+                            for f, d in zip(FrameSettings._fields, port)})
+
+
 def frame_state_from_jax(state, device=None) -> FrameState:
-    """FrameState of the slice's effects (TAA + previous depth)."""
-    for name in ("ssr", "ssao", "dof", "average_log_lum"):
+    """FrameState of the ported effects (TAA, SSR, SSAO, previous depth)."""
+    for name in ("dof", "average_log_lum"):
         if getattr(state, name) is not None:
             raise NotImplementedError(f"FrameState.{name} is not ported yet")
+
+    def opt(x):
+        return tensor(x, device) if x is not None else None
+
     taa = (TAAState(color=tensor(state.taa.color, device),
                     sample_count=tensor(state.taa.sample_count, device))
            if state.taa is not None else None)
+    ssr = (SSRState(radiance=tensor(state.ssr.radiance, device))
+           if state.ssr is not None else None)
+    ssao = (SSAOState(history=tensor(state.ssao.history, device),
+                      depth_history=opt(state.ssao.depth_history))
+            if state.ssao is not None else None)
     return FrameState(frame_index=int(np.asarray(state.frame_index)),
                       prev_view_proj=tensor(state.prev_view_proj, device),
-                      taa=taa,
-                      prev_depth=(tensor(state.prev_depth, device)
-                                  if state.prev_depth is not None else None))
+                      taa=taa, ssr=ssr, ssao=ssao,
+                      prev_depth=opt(state.prev_depth))
 
 
 def raster_config_from_jax(cfg) -> RasterizerConfig:

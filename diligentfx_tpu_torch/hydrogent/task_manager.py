@@ -1,6 +1,6 @@
-"""Frame task graph (the port of diligentfx_tpu/hydrogent/task_manager.py,
-first slice): BeginFrame (TAA jitter) -> G-buffer main pass -> PostFX
-context + history disocclusion -> composite -> TAA -> bloom -> tone map ->
+"""Frame task graph (the port of diligentfx_tpu/hydrogent/task_manager.py):
+BeginFrame (TAA jitter) -> G-buffer main pass -> PostFX context + history
+disocclusion -> SSAO -> SSR -> composite -> TAA -> bloom -> tone map ->
 sRGB.
 
 `FrameState` carries the temporal history between frames.  Every task
@@ -22,6 +22,8 @@ from diligentfx_tpu_torch.pbr.deferred import GBufferData, render_gbuffer
 from diligentfx_tpu_torch.pbr.renderer import (PBRRenderer, RenderInfo,
                                                ScenePrimitives)
 from diligentfx_tpu_torch.postfx import bloom as fx_bloom
+from diligentfx_tpu_torch.postfx import ssao as fx_ssao
+from diligentfx_tpu_torch.postfx import ssr as fx_ssr
 from diligentfx_tpu_torch.postfx import taa as fx_taa
 from diligentfx_tpu_torch.postfx.context import (PostFXResources,
                                                  apply_jitter_to_proj,
@@ -33,7 +35,6 @@ from diligentfx_tpu_torch.postfx.tonemap import ToneMappingAttribs, tone_map
 
 Tensor = torch.Tensor
 
-SLICE_2 = "slice 2 (SSAO, SSR and the SSR march kernel)"
 LATER = "a later slice"
 
 
@@ -94,7 +95,6 @@ class TaskManagerCreateInfo:
 
 
 _UNPORTED = (
-    ("enable_ssao", SLICE_2), ("enable_ssr", SLICE_2),
     ("enable_shadows", LATER + " (shadows + textures, the --csm metric)"),
     ("enable_dof", LATER + " (DoF)"),
     ("enable_light_scattering", LATER + " (epipolar light scattering)"),
@@ -119,23 +119,31 @@ def _check_ci(ci: TaskManagerCreateInfo) -> None:
     if not ci.emit_aovs:
         raise NotImplementedError(
             f"emit_aovs=False is not ported yet: {LATER}")
+    if ci.ssr_stage_cut or ci.ssr_march_sweep != "dyn":
+        raise NotImplementedError(
+            "ssr_stage_cut and ssr_march_sweep are TPU profiling knobs and "
+            "are not ported (every march sweep computes the same result)")
 
 
 class FrameSettings(NamedTuple):
-    """Dynamic per-frame effect parameters (the effects of this slice)."""
+    """Dynamic per-frame effect parameters (the ported effects)."""
+    ssr: fx_ssr.SSRSettings = fx_ssr.SSRSettings()
+    ssao: fx_ssao.SSAOSettings = fx_ssao.SSAOSettings()
     taa: fx_taa.TAASettings = fx_taa.TAASettings()
     bloom: fx_bloom.BloomSettings = fx_bloom.BloomSettings()
     tone_mapping: ToneMappingAttribs = ToneMappingAttribs()
 
 
 class FrameState(NamedTuple):
-    """Temporal history carried between frames: the slice's part of the JAX
-    package's FrameState (the SSR, SSAO, DoF and exposure histories come
-    with those effects).  frame_index is a host integer: the TAA jitter
-    index and the first-frame test need no device round trip."""
+    """Temporal history carried between frames: the ported part of the JAX
+    package's FrameState (the DoF and exposure histories come with those
+    effects).  frame_index is a host integer: the TAA jitter index, the
+    effects' noise and the first-frame test need no device round trip."""
     frame_index: int
     prev_view_proj: Tensor
     taa: Optional[fx_taa.TAAState] = None
+    ssr: Optional[fx_ssr.SSRState] = None
+    ssao: Optional[fx_ssao.SSAOState] = None
     prev_depth: Optional[Tensor] = None
 
 
@@ -161,6 +169,8 @@ class FrameFx(NamedTuple):
     resources: PostFXResources
     first_frame: bool
     disocclusion: Optional[Tensor] = None
+    new_ssao: Optional[fx_ssao.SSAOState] = None
+    new_ssr: Optional[fx_ssr.SSRState] = None
 
 
 class HnTaskManager:
@@ -180,15 +190,24 @@ class HnTaskManager:
         self.jitter_seq = taa_jitter_sequence(16, self.device)
 
     def initial_state(self, width: int, height: int) -> FrameState:
-        dev = self.device
+        ci, dev = self.ci, self.device
         z1 = torch.zeros((height, width), dtype=torch.float32, device=dev)
         z3 = torch.zeros((height, width, 3), dtype=torch.float32, device=dev)
+        ssr_shape = fx_ssr.ssr_state_shape(height, width,
+                                           ci.ssr_resolution_divisor,
+                                           ci.ssr_half_resolution)
         return FrameState(
             frame_index=0,
             prev_view_proj=torch.eye(4, dtype=torch.float32, device=dev),
             taa=(fx_taa.TAAState(color=z3, sample_count=z1)
-                 if self.ci.enable_taa else None),
-            prev_depth=z1 + 1.0 if self.ci.enable_taa else None)
+                 if ci.enable_taa else None),
+            ssr=(fx_ssr.SSRState(radiance=torch.zeros(
+                ssr_shape + (4,), dtype=torch.float32, device=dev))
+                 if ci.enable_ssr else None),
+            ssao=(fx_ssao.SSAOState(history=z1 + 1.0, depth_history=z1 + 1.0)
+                  if ci.enable_ssao else None),
+            prev_depth=(z1 + 1.0 if (ci.enable_taa or ci.enable_ssr
+                                     or ci.enable_ssao) else None))
 
     def execute(self, scene: ScenePrimitives, info: RenderInfo,
                 state: FrameState, *, width: int, height: int,
@@ -201,7 +220,7 @@ class HnTaskManager:
             begin = _frame_begin(scene, info, state, self.renderer,
                                  self.jitter_seq, self.ci, width, height)
         with torch.profiler.record_function("dfx.context_composite"):
-            fx = _frame_fx(begin, state, self.ci)
+            fx = _frame_fx(begin, state, settings, self.ci)
         with torch.profiler.record_function("dfx.taa_bloom_tonemap"):
             return _frame_post(fx, state, settings, self.ci)
 
@@ -235,9 +254,9 @@ def _frame_begin(scene, info: RenderInfo, state: FrameState,
     return FrameBegin(gb=gb, info=info, first_frame=first_frame)
 
 
-def _frame_fx(begin: FrameBegin, state: FrameState,
+def _frame_fx(begin: FrameBegin, state: FrameState, settings: FrameSettings,
               ci: TaskManagerCreateInfo) -> FrameFx:
-    """PostFX context + history disocclusion + composite."""
+    """PostFX context + history disocclusion + SSAO + SSR + composite."""
     gb, info, first_frame = begin.gb, begin.info, begin.first_frame
     prev_depth = state.prev_depth if state.prev_depth is not None else gb.depth
     resources = prepare_postfx_resources(
@@ -252,11 +271,50 @@ def _frame_fx(begin: FrameBegin, state: FrameState,
             state.prev_view_proj, use_pallas=use_pl)
         if first_frame:
             disocclusion = torch.ones_like(disocclusion)
-    # composite with no SSAO / SSR: AO = 1 and the specular IBL stays
-    color = gb.direct + gb.ambient_diffuse + gb.ambient_specular
+
+    ao = None
+    new_ssao = state.ssao
+    if ci.enable_ssao:
+        with torch.profiler.record_function("dfx.ssao"):
+            ao, new_ssao = fx_ssao.apply_ssao(
+                gb.depth, gb.normal_view, info.camera, state.frame_index,
+                settings.ssao, state=state.ssao, motion=gb.motion,
+                half_resolution=ci.ssao_half_resolution,
+                num_slices=ci.ssao_num_slices, num_steps=ci.ssao_num_steps,
+                use_pallas=ci.ssao_use_pallas, disocclusion=disocclusion)
+            ao = 1.0 - (1.0 - ao) * ci.ssao_scale
+
+    ssr_rad = None
+    new_ssr = state.ssr
+    if ci.enable_ssr:
+        with torch.profiler.record_function("dfx.ssr"):
+            # reflect the lit scene (direct + ambient + background)
+            refl_src = torch.where(
+                gb.hit[..., None],
+                gb.direct + gb.ambient_diffuse + gb.ambient_specular,
+                gb.background)
+            ssr_rad, new_ssr = fx_ssr.compute_ssr(
+                refl_src, gb.depth, gb.normal_view,
+                gb.material_data[..., 1:2], info.camera, state.frame_index,
+                settings.ssr, state=state.ssr, motion=gb.motion,
+                half_resolution=ci.ssr_half_resolution,
+                resolution_divisor=ci.ssr_resolution_divisor,
+                disocclusion=disocclusion, use_pallas=ci.ssr_use_pallas,
+                enable_spatial=ci.ssr_enable_spatial,
+                enable_bilateral=ci.ssr_enable_bilateral)
+
+    # composite (HnPostProcess.psh analogue): AO on both ambient terms, the
+    # SSR confidence blend into the specular term
+    spec = gb.ambient_specular
+    if ssr_rad is not None:
+        conf = torch.clamp(ssr_rad[..., 3:4] * ci.ssr_scale, 0.0, 1.0)
+        spec = spec + (ssr_rad[..., :3] * gb.spec_env_factor - spec) * conf
+    ao1 = ao[..., None] if ao is not None else 1.0
+    color = gb.direct + ao1 * gb.ambient_diffuse + ao1 * spec
     color = torch.where(gb.hit[..., None], color, gb.background)
     return FrameFx(color=color, gb=gb, info=info, resources=resources,
-                   first_frame=first_frame, disocclusion=disocclusion)
+                   first_frame=first_frame, disocclusion=disocclusion,
+                   new_ssao=new_ssao, new_ssr=new_ssr)
 
 
 def _frame_post(fx: FrameFx, state: FrameState, settings: FrameSettings,
@@ -281,6 +339,7 @@ def _frame_post(fx: FrameFx, state: FrameState, settings: FrameSettings,
         color = m3.linear_to_srgb(color)
     new_state = FrameState(
         frame_index=state.frame_index + 1,
-        prev_view_proj=info.camera.view_proj, taa=new_taa,
+        prev_view_proj=info.camera.view_proj, taa=new_taa, ssr=fx.new_ssr,
+        ssao=fx.new_ssao,
         prev_depth=gb.depth if state.prev_depth is not None else None)
     return FrameOutput(color=color, gbuffer=gb, state=new_state)

@@ -14,7 +14,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Callable, Dict, Iterable, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -22,9 +22,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
-KERNELS = ("raster_fused", "warp")   # csrc/<name>.cu
+KERNELS = ("raster_fused", "warp", "march", "gtao")   # csrc/<name>.cu
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_bound: Dict[Tuple[str, str], Callable[..., int]] = {}
 
 
 def _nvcc() -> str:
@@ -83,6 +84,18 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(library_path(name)))
         _loaded[name] = lib
     return lib
+
+
+def bind(name: str, symbol: str, argtypes: Sequence) -> Callable[..., int]:
+    """csrc/<name>.cu's launcher `symbol`, returning a cudaError_t: built
+    and loaded at first use, prototyped once and cached."""
+    fn = _bound.get((name, symbol))
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.restype = ctypes.c_int
+        fn.argtypes = list(argtypes)
+        _bound[(name, symbol)] = fn
+    return fn
 
 
 def check(err: int, what: str) -> None:

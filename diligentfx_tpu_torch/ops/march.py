@@ -1,0 +1,187 @@
+"""SSR row-DDA march against a small min-depth table (the port of
+diligentfx_tpu/ops/march_pallas.py `march_small_table_pallas`).
+
+The ray's v(t) is linear in t, so it crosses each table row in at most one
+t-interval [tin, tout] with a closed form.  Each crossed row is split into
+two sub-intervals; each sub-interval samples the row at its entry and exit
+columns and tests the ray against the entry texel's depth plane, the exit
+texel's, and the mixed entry->exit secant, inside a thickness window with
+half a sub-interval of slack at the entry.  The first crossing over all
+rows is the hit bracket (t_lo, t_hit) that the fine-buffer secant refines.
+
+`march_small_table` launches the hand-written kernel csrc/march.cu on a
+CUDA tensor and runs `march_dda_plain` (the port of `march_dda_reference`,
+same operation order) on a CPU tensor.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from diligentfx_tpu_torch.ops import cuda_build
+
+Tensor = torch.Tensor
+
+TILE_H = 8
+TILE_W = 128
+# the kernel stages the whole (8-row padded, 128-column) table in shared
+# memory; 48 KB is what a block gets without opting in to more
+MAX_TABLE_BYTES = 48 * 1024
+
+
+def _row_plain(row_vals: Tensor, t0: Tensor, t1: Tensor, has: Tensor,
+               ou, du, oz, dz, thick, cols: int, t_lo_b: Tensor,
+               t_hit_b: Tensor) -> Tuple[Tensor, Tensor]:
+    """One sub-interval [t0, t1] against one table row, folded into the
+    running first hit: entry-plane, exit-plane and mixed-secant tests."""
+    u0 = ou + du * t0
+    u1 = ou + du * t1
+    x0 = torch.clamp(torch.floor(u0 * cols).long(), 0, cols - 1)
+    x1 = torch.clamp(torch.floor(u1 * cols).long(), 0, cols - 1)
+    d0 = row_vals[x0]
+    d1 = row_vals[x1]
+    z0 = oz + dz * t0
+    z1 = oz + dz * t1
+    slop = torch.abs(dz) * (t1 - t0)
+    win = thick + slop
+    inside = (u0 > 0.0) & (u0 < 1.0) & (u1 > 0.0) & (u1 < 1.0)
+    ok = has & inside
+    t_span = t1 - t0
+    eps0 = 0.5 * slop      # row-boundary slack (march_pallas.py _dda_body)
+
+    def fold(f0, f1, t_lo_b, t_hit_b):
+        cross = ok & (f0 <= eps0) & (f1 > 0.0) & (f1 < win)
+        denom = f1 - f0
+        frac = torch.where(torch.abs(denom) > 1e-12, -f0 / denom, 1.0)
+        t_star = t0 + torch.clamp(frac, 0.0, 1.0) * t_span
+        upd = cross & (t_star < t_hit_b)
+        return (torch.where(upd, t0, t_lo_b), torch.where(upd, t_star, t_hit_b))
+
+    t_lo_b, t_hit_b = fold(z0 - d0, z1 - d0, t_lo_b, t_hit_b)
+    t_lo_b, t_hit_b = fold(z0 - d1, z1 - d1, t_lo_b, t_hit_b)
+    return fold(z0 - d0, z1 - d1, t_lo_b, t_hit_b)
+
+
+def march_dda_plain(coarse: Tensor, origin_uvz: Tensor, dir_uvz: Tensor,
+                    thickness_ndc) -> Tuple[Tensor, Tensor, Tensor]:
+    """Plain PyTorch row-DDA (march_pallas.py:230 `march_dda_reference`, in
+    the same operation order): every table row, ascending.  coarse
+    (rows, cols); origin/dir (..., 3) in (u, v, ndc z).  Returns (t_lo,
+    t_hit, hit bool)."""
+    rows, cols = coarse.shape
+    ou, ov, oz = (origin_uvz[..., i] for i in range(3))
+    du, dv, dz = (dir_uvz[..., i] for i in range(3))
+    thick = torch.as_tensor(thickness_ndc, dtype=torch.float32,
+                            device=coarse.device)
+    eps = 1e-7
+    safe_dv = torch.where(torch.abs(dv) > eps, dv, eps)
+    inv_dv = 1.0 / safe_dv
+    flat = torch.abs(dv) <= eps
+    home_row = torch.clamp(torch.floor(ov * rows).long(), 0, rows - 1)
+    t_lo_b = torch.full(ou.shape, 2.0, dtype=torch.float32, device=ou.device)
+    t_hit_b = torch.full(ou.shape, 2.0, dtype=torch.float32,
+                         device=ou.device)
+    for r in range(rows):
+        # r / rows in float32 (equal to the reference's double quotient
+        # rounded to float32 for every table the march takes)
+        ra = float(np.float32(r) / np.float32(rows))
+        rb = float((np.float32(r) + np.float32(1.0)) / np.float32(rows))
+        ta = (ra - ov) * inv_dv
+        tb = (rb - ov) * inv_dv
+        tin = torch.clamp(torch.minimum(ta, tb), 0.0, 1.0)
+        tout = torch.clamp(torch.maximum(ta, tb), 0.0, 1.0)
+        has = (tout > tin) & ~flat
+        in_home = flat & (home_row == r)
+        tin = torch.where(in_home, 0.0, tin)
+        tout = torch.where(in_home, 1.0, tout)
+        has = has | in_home
+        tm = 0.5 * (tin + tout)
+        t_lo_b, t_hit_b = _row_plain(coarse[r], tin, tm, has, ou, du, oz, dz,
+                                     thick, cols, t_lo_b, t_hit_b)
+        t_lo_b, t_hit_b = _row_plain(coarse[r], tm, tout, has, ou, du, oz, dz,
+                                     thick, cols, t_lo_b, t_hit_b)
+    found = t_hit_b < 1.5
+    return (torch.where(found, t_lo_b, 0.0), torch.where(found, t_hit_b, 1.0),
+            found)
+
+
+def _check_inputs(coarse: Tensor, origin_uvz: Tensor, dir_uvz: Tensor
+                  ) -> Tuple[int, int, int, int]:
+    if coarse.dim() != 2:
+        raise ValueError(f"coarse table must be 2-D, got {tuple(coarse.shape)}")
+    rows, cols = coarse.shape
+    if cols > TILE_W:
+        raise ValueError(f"coarse table has {cols} columns; the march takes "
+                         f"at most {TILE_W}")
+    if origin_uvz.dim() != 3 or origin_uvz.shape[-1] != 3 \
+            or dir_uvz.shape != origin_uvz.shape:
+        raise ValueError(f"origin/dir must be (h, w, 3), got "
+                         f"{tuple(origin_uvz.shape)}, {tuple(dir_uvz.shape)}")
+    h, w = origin_uvz.shape[:2]
+    if h % TILE_H or w % TILE_W:
+        raise ValueError(f"march grid {h}x{w} is not a multiple of "
+                         f"{TILE_H}x{TILE_W}; pad it")
+    return rows, cols, h, w
+
+
+# dfx_march_small_table(coarse, origin, dir, thickness, t_lo, t_hit, hit,
+#                       rows, cols, h, w, stream)
+_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+
+
+def _launch(coarse: Tensor, origin_uvz: Tensor, dir_uvz: Tensor,
+            thickness_ndc) -> Tuple[Tensor, Tensor, Tensor]:
+    rows, cols, h, w = _check_inputs(coarse, origin_uvz, dir_uvz)
+    dev = coarse.device
+    if any(t.dtype != torch.float32 for t in (coarse, origin_uvz, dir_uvz)):
+        raise TypeError("march_small_table takes float32 tensors")
+    if origin_uvz.device != dev or dir_uvz.device != dev:
+        raise ValueError("coarse, origin and dir must be on the same device")
+    if not (coarse.is_contiguous() and origin_uvz.is_contiguous()
+            and dir_uvz.is_contiguous()):
+        raise ValueError("march_small_table takes contiguous tensors")
+    rows_pad = -(-rows // TILE_H) * TILE_H
+    smem = rows_pad * TILE_W * 4
+    if smem > MAX_TABLE_BYTES:
+        raise ValueError(f"coarse table {rows}x{cols} needs {smem} bytes of "
+                         f"shared memory; the kernel is built for at most "
+                         f"{MAX_TABLE_BYTES}")
+    thick = torch.as_tensor(thickness_ndc, dtype=torch.float32,
+                            device=dev).reshape(1).contiguous()
+    fn = cuda_build.bind("march", "dfx_march_small_table", _ARGTYPES)
+    t_lo = torch.empty((h, w), dtype=torch.float32, device=dev)
+    t_hit = torch.empty((h, w), dtype=torch.float32, device=dev)
+    hit = torch.empty((h, w), dtype=torch.bool, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(coarse.data_ptr(), origin_uvz.data_ptr(), dir_uvz.data_ptr(),
+                 thick.data_ptr(), t_lo.data_ptr(), t_hit.data_ptr(),
+                 hit.data_ptr(), rows, cols, h, w, stream)
+    cuda_build.check(err, "march kernel launch")
+    march_small_table.launches += 1
+    return t_lo, t_hit, hit
+
+
+def march_small_table(coarse: Tensor, origin_uvz: Tensor, dir_uvz: Tensor,
+                      thickness_ndc) -> Tuple[Tensor, Tensor, Tensor]:
+    """Row-DDA SSR march: coarse (rows, cols <= 128) min-depth table,
+    origin/dir (h, w, 3) in (u, v, ndc z) with h % 8 == 0 and w % 128 == 0,
+    thickness_ndc a scalar (a tensor stays on its device).  Returns
+    (t_lo (h, w), t_hit (h, w), hit (h, w) bool).
+
+    A CUDA tensor goes to the kernel (or this raises); a CPU tensor runs
+    the plain version.  `march_small_table.launches` counts kernel
+    launches."""
+    if coarse.device.type == "cuda":
+        return _launch(coarse, origin_uvz, dir_uvz, thickness_ndc)
+    if coarse.device.type != "cpu":
+        raise ValueError(f"march_small_table: unsupported device "
+                         f"{coarse.device}")
+    _check_inputs(coarse, origin_uvz, dir_uvz)
+    return march_dda_plain(coarse, origin_uvz, dir_uvz, thickness_ndc)
+
+
+march_small_table.launches = 0

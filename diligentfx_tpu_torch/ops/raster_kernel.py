@@ -158,6 +158,15 @@ def raster_tiles_fused_plain(setup: Tensor, planes: Tensor, candidates: Tensor,
     return z_img, id_img, out
 
 
+# dfx_raster_fused(setup, planes, n_planes, cand, cap, counts, counts_stride,
+#                  mat, n_mrow, n_mat, z_out, id_out, ch_out, 13 ints, stream)
+_ARGTYPES = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+              ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+              ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+             + [ctypes.c_int] * 13 + [ctypes.c_void_p])
+
+
 def _launch(setup, planes, candidates, counts, mat_table, *, th, tw, tiles_x,
             n_ch, n_const, deriv_channels, depth_less, sub, cap_sub, big_cap,
             screen_offset):
@@ -206,14 +215,7 @@ def _launch(setup, planes, candidates, counts, mat_table, *, th, tw, tiles_x,
     z = torch.empty((h, w), dtype=torch.float32, device=dev)
     tid = torch.empty((h, w), dtype=torch.int32, device=dev)
     out = torch.empty((out_ch, h, w), dtype=torch.float32, device=dev)
-    lib = cuda_build.load("raster_fused")
-    fn = lib.dfx_raster_fused
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                    ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-                   + [ctypes.c_int] * 13 + [ctypes.c_void_p])
+    fn = cuda_build.bind("raster_fused", "dfx_raster_fused", _ARGTYPES)
     deriv_mask = sum(1 << c for c in set(deriv_channels))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

@@ -84,6 +84,12 @@ def warp_bilinear_plain(img: Tensor, offset_px: Tensor, *, halo_r: int = 16,
     return out[..., 0] if squeeze else out
 
 
+# dfx_warp_bilinear(img, offset, out, h, w, c, halo_r, halo_c, win_h, win_w,
+#                   cx, cy, stream)
+_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [
+    ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+
+
 def _launch(img: Tensor, offset_px: Tensor, halo_r: int, halo_c: int) -> Tensor:
     squeeze = img.dim() == 2
     img3 = img[..., None] if squeeze else img
@@ -97,11 +103,7 @@ def _launch(img: Tensor, offset_px: Tensor, halo_r: int, halo_c: int) -> Tensor:
     if not (img3.is_contiguous() and offset_px.is_contiguous()):
         raise ValueError("warp_bilinear takes contiguous tensors")
     halo_r, halo_c, win_h, win_w, cx, cy = warp_geometry(h, w, halo_r, halo_c)
-    lib = cuda_build.load("warp")
-    fn = lib.dfx_warp_bilinear
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [
-        ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+    fn = cuda_build.bind("warp", "dfx_warp_bilinear", _ARGTYPES)
     out = torch.empty_like(img3)
     with torch.cuda.device(img.device):
         stream = torch.cuda.current_stream(img.device).cuda_stream

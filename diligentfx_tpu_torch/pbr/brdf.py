@@ -104,6 +104,36 @@ def sample_ggx_half_vector(u1, u2, alpha_roughness: Tensor) -> Tensor:
                         cos_theta], dim=-1)
 
 
+def smith_ggx_sample_visible_normal(view_ts: Tensor, ax, ay, u1: Tensor,
+                                    u2: Tensor) -> Tensor:
+    """VNDF sampling (Heitz 2018), PBR_Common.fxh:222-268.  view_ts: (..., 3)
+    tangent-space view, z-up; ax, ay broadcast against u1."""
+    ax = torch.broadcast_to(torch.as_tensor(ax, dtype=u1.dtype,
+                                            device=u1.device), u1.shape)
+    ay = torch.broadcast_to(torch.as_tensor(ay, dtype=u1.dtype,
+                                            device=u1.device), u1.shape)
+    v = normalize(view_ts * torch.stack([ax, ay, torch.ones_like(u1)], dim=-1))
+    lensq = v[..., 0] ** 2 + v[..., 1] ** 2
+    inv = torch.rsqrt(torch.clamp(lensq, min=1e-12))
+    t1 = torch.where(lensq[..., None] > 1e-9,
+                     torch.stack([-v[..., 1] * inv, v[..., 0] * inv,
+                                  torch.zeros_like(inv)], dim=-1),
+                     torch.tensor([1.0, 0.0, 0.0], dtype=v.dtype,
+                                  device=v.device))
+    t2 = torch.linalg.cross(v, t1, dim=-1)
+    r = torch.sqrt(u1)
+    phi = 2.0 * PI * u2
+    p1 = r * torch.cos(phi)
+    p2 = r * torch.sin(phi)
+    s = 0.5 * (1.0 + v[..., 2])
+    p2 = (1.0 - s) * torch.sqrt(torch.clamp(1.0 - p1 * p1, min=0.0)) + s * p2
+    p3 = torch.sqrt(torch.clamp(1.0 - p1 * p1 - p2 * p2, min=0.0))
+    n = p1[..., None] * t1 + p2[..., None] * t2 + p3[..., None] * v
+    n = torch.stack([ax * n[..., 0], ay * n[..., 1],
+                     torch.clamp(n[..., 2], min=0.0)], dim=-1)
+    return normalize(n)
+
+
 def _cheb_list(x: Tensor, k: int) -> list:
     """T_0..T_{k-1} of 2x-1 as a list of per-pixel planes."""
     t = 2.0 * x - 1.0

@@ -29,7 +29,8 @@ class PostFXResources(NamedTuple):
     frame_index: int
 
 
-def _iota(h: int, w: int, device):
+def pixel_grid(h: int, w: int, device):
+    """(y, x) float32 pixel indices of an (h, w) grid."""
     y = torch.arange(h, dtype=torch.float32, device=device)[:, None].expand(h, w)
     x = torch.arange(w, dtype=torch.float32, device=device)[None, :].expand(h, w)
     return y, x
@@ -38,7 +39,7 @@ def _iota(h: int, w: int, device):
 def interleaved_gradient_noise(height: int, width: int, frame_index: int,
                                device=None) -> Tensor:
     """Jimenez interleaved gradient noise, temporally scrambled."""
-    y, x = _iota(height, width, device)
+    y, x = pixel_grid(height, width, device)
     f = float(frame_index % 64)
     x = x + 5.588238 * f
     y = y + 5.588238 * f
@@ -50,7 +51,7 @@ def interleaved_gradient_noise(height: int, width: int, frame_index: int,
 def r2_noise_pair(height: int, width: int, frame_index: int,
                   device=None) -> Tensor:
     """(H, W, 2) R2-sequence pair per pixel."""
-    y, x = _iota(height, width, device)
+    y, x = pixel_grid(height, width, device)
     n = y * width + x + float(frame_index) * (width * height)
     g = 1.32471795724474602596
     a1, a2 = 1.0 / g, 1.0 / (g * g)
@@ -67,7 +68,7 @@ def depth_to_camera_z(depth: Tensor, camera: CameraAttribs,
 
 
 def _ndc_grid(h: int, w: int, full_h: int, device):
-    y, x = _iota(h, w, device)
+    y, x = pixel_grid(h, w, device)
     x = (x + 0.5) / w * 2.0 - 1.0
     y = 1.0 - (y + 0.5) / (full_h or h) * 2.0
     return x, y
@@ -93,7 +94,7 @@ def compute_camera_motion(depth: Tensor, camera: CameraAttribs,
     pw = prev_clip[..., 3:4]
     prev_ndc = prev_clip[..., :2] / torch.where(torch.abs(pw) < 1e-9,
                                                 torch.full_like(pw, 1e-9), pw)
-    y, x = _iota(h, w, depth.device)
+    y, x = pixel_grid(h, w, depth.device)
     cur_uv = torch.stack([(x + 0.5) / w, (y + 0.5) / h], dim=-1)
     prev_uv = torch.stack([prev_ndc[..., 0] * 0.5 + 0.5,
                            0.5 - prev_ndc[..., 1] * 0.5], dim=-1)
@@ -186,7 +187,7 @@ def reprojected_depth(depth: Tensor, camera: CameraAttribs,
     return prev_clip[..., 2] / torch.clamp(prev_clip[..., 3], min=1e-6)
 
 
-def _edge_pad(x: Tensor, pad_h: int, pad_w: int) -> Tensor:
+def edge_pad(x: Tensor, pad_h: int, pad_w: int) -> Tensor:
     """Pad the two leading dims at the bottom/right by edge replication."""
     if not pad_h and not pad_w:
         return x
@@ -207,16 +208,16 @@ def disocclusion_mask(depth: Tensor, prev_depth: Tensor, motion: Tensor,
     the bounded warp kernel (ops/warp.py), as the TPU path does."""
     h, w = depth.shape
     zexp = reprojected_depth(depth, camera, prev_view_proj)
-    y, x = _iota(h, w, depth.device)
+    y, x = pixel_grid(h, w, depth.device)
     prev_uv = torch.stack([(x + 0.5) / w, (y + 0.5) / h], dim=-1) - motion
     if use_pallas:
         from diligentfx_tpu_torch.ops.warp import (TILE_H, TILE_W,
                                                    warp_bilinear)
         pad_h, pad_w = (-h) % TILE_H, (-w) % TILE_W
-        dpad = _edge_pad(prev_depth, pad_h, pad_w)
+        dpad = edge_pad(prev_depth, pad_h, pad_w)
         off = -motion * torch.tensor([w, h], dtype=torch.float32,
                                      device=depth.device)
-        off = _edge_pad(off, pad_h, pad_w).contiguous()
+        off = edge_pad(off, pad_h, pad_w).contiguous()
         zprev = warp_bilinear(dpad.contiguous(), off, halo_r=16,
                               halo_c=64)[:h, :w]
     else:

@@ -1,6 +1,7 @@
-"""The port's CUDA kernels on the card: each kernel against its plain
-PyTorch version, the wrappers' checks and launch counts, and a small frame
-on the GPU against the port's CPU path.
+"""The port's CUDA kernels on the card: each kernel (K1 raster, K2 warp, K3
+march, K5 fused GTAO) against its plain PyTorch version, the wrappers'
+checks and launch counts, and a small bench frame on the GPU against the
+port's CPU path.
 
 These tests need an NVIDIA GPU (sm_90a) and nvcc; elsewhere they skip.  Run
 them on the card with
@@ -15,6 +16,8 @@ import pytest
 import torch
 
 from diligentfx_tpu_torch.config import RasterizerConfig
+from diligentfx_tpu_torch.ops import gtao as tg
+from diligentfx_tpu_torch.ops import march as tm
 from diligentfx_tpu_torch.ops import raster as tr
 from diligentfx_tpu_torch.ops import raster_kernel as trk
 from diligentfx_tpu_torch.ops import warp as tw
@@ -121,29 +124,91 @@ def test_warp_wrapper_rejects_bad_inputs(cuda):
                          torch.zeros((8, 100, 2), device=cuda))
 
 
-def test_small_frame_matches_cpu_path(cuda):
-    """Two 256x128 frames of the first slice on the GPU (both kernels) vs
-    the port's CPU path (plain versions): 50 dB."""
+@pytest.mark.parametrize("case", [(67, 120, 544, 1024, 0.05),
+                                  (16, 32, 64, 128, 0.0),
+                                  (24, 100, 64, 256, 0.4)])
+def test_march_kernel_matches_plain(cuda, case):
+    """K3 vs march_dda_plain: the same hits and t (the bench frame's table
+    size, a small table, and 40% nearly horizontal rays)."""
     import chip_smoke as cs
-    from diligentfx_tpu_torch.config import PBRRendererCreateInfo
-    from diligentfx_tpu_torch.hydrogent.task_manager import HnTaskManager
-    from diligentfx_tpu_torch.pbr.renderer import PBRRenderer
+    rows, cols, h, w, flat = case
+    g = torch.Generator(device=cuda)
+    g.manual_seed(rows)
+    coarse, o, d = cs._flat_rays(g, h, w, rows, cols, flat_share=flat)
+    thick = torch.tensor(0.03, device=cuda)
+    before = tm.march_small_table.launches
+    got = tm.march_small_table(coarse, o, d, thick)
+    torch.cuda.synchronize()
+    assert tm.march_small_table.launches == before + 1
+    want = tm.march_dda_plain(coarse, o, d, thick)
+    assert torch.equal(got[2], want[2])
+    assert 0.05 < float(want[2].float().mean()) < 0.95
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=1e-6)
+    torch.testing.assert_close(got[1], want[1], rtol=0, atol=1e-6)
+
+
+def test_march_wrapper_rejects_bad_inputs(cuda):
+    o = torch.zeros((8, 128, 3), device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        tm.march_small_table(torch.zeros((100, 128), device=cuda), o, o, 0.1)
+    with pytest.raises(TypeError):
+        tm.march_small_table(torch.zeros((8, 64), device=cuda).double(), o,
+                             o, 0.1)
+    with pytest.raises(ValueError):
+        tm.march_small_table(torch.zeros((8, 64), device=cuda), o.cpu(), o,
+                             0.1)
+
+
+@pytest.mark.parametrize("shape", [(540, 960), (64, 256), (100, 700)])
+def test_gtao_kernel_matches_plain(cuda, shape):
+    """K5 vs gtao_fused_plain within 1e-5: the bench frame's half-resolution
+    grid (padded to 544 x 1024), the smallest open-halo grid, and a grid
+    whose window widens and whose origin rounds down."""
+    h, w = shape
+    g = torch.Generator(device=cuda)
+    g.manual_seed(h)
+    yy = torch.arange(h, device=cuda, dtype=torch.float32)[:, None]
+    xx = torch.arange(w, device=cuda, dtype=torch.float32)[None, :]
+    depth = (0.55 + 0.25 * torch.sin(yy * 0.11) * torch.cos(xx * 0.05)
+             + 0.05 * torch.rand((h, w), generator=g, device=cuda))
+    n = torch.stack([0.15 * torch.sin(xx * 0.07).expand(h, w),
+                     0.15 * torch.cos(yy * 0.09).expand(h, w),
+                     torch.ones((h, w), device=cuda)], -1)
+    n = n / torch.linalg.vector_norm(n, dim=-1, keepdim=True)
+    sc = torch.tensor([3.0, 1.0, 0.385, 0.615, 0.8, 1.4, 0.1, 100.0],
+                      device=cuda)
+    before = tg.gtao_fused.launches
+    got = tg.gtao_fused(depth, n.contiguous(), sc, num_slices=2, num_steps=4)
+    torch.cuda.synchronize()
+    assert tg.gtao_fused.launches == before + 1
+    want = tg.gtao_fused_plain(depth, n.contiguous(), sc, num_slices=2,
+                               num_steps=4)
+    assert got.shape == (h, w)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
+def test_gtao_wrapper_rejects_bad_inputs(cuda):
+    sc = torch.ones(8, device=cuda)
+    with pytest.raises(ValueError, match="collapses"):
+        tg.gtao_fused(torch.zeros((32, 256), device=cuda),
+                      torch.zeros((32, 256, 3), device=cuda), sc,
+                      num_slices=2, num_steps=4)
+    with pytest.raises(TypeError):
+        tg.gtao_fused(torch.zeros((64, 256), device=cuda).double(),
+                      torch.zeros((64, 256, 3), device=cuda), sc,
+                      num_slices=2, num_steps=4)
+
+
+@pytest.mark.parametrize("config", ["slice", "bench"])
+def test_small_frame_matches_cpu_path(cuda, config):
+    """Two 256x128 frames on the GPU vs the port's CPU path (plain
+    versions): 50 dB.  "bench" is the full bench feature set (K1, K2, K3);
+    "slice" the first slice's frame (K1, K2; SSAO and SSR off, so the
+    composite applies no AO and blends no reflection)."""
+    import chip_smoke as cs
     from diligentfx_tpu_torch.utils.image import psnr
-    ci = PBRRendererCreateInfo(brdf_lut_dim=32, num_brdf_samples=16,
-                               irradiance_cube_dim=16,
-                               prefiltered_env_map_dim=32,
-                               num_specular_env_samples=16)
-    ref = PBRRenderer(ci, raster_cfg=cs.bench_raster_config(), device="cpu")
-    colors = []
-    for dev in ("cpu", cuda):
-        ren = PBRRenderer(ci, raster_cfg=cs.bench_raster_config(), device=dev,
-                          env_oct=ref.env_oct, ibl_maps=ref.ibl_maps.to(dev))
-        tm = HnTaskManager(ren, cs.slice_task_manager_ci())
-        scene = cs.bench_scene(2, 2, 12, dev)
-        info = cs.render_info(256, 128, dev)
-        state = tm.initial_state(256, 128)
-        for _ in range(2):
-            out = tm.execute(scene, info, state, width=256, height=128)
-            state = out.state
-        colors.append(out.color.cpu().numpy())
-    assert psnr(colors[0], colors[1]) > 50.0
+    task_ci = (cs.bench_task_manager_ci() if config == "bench"
+               else cs.slice_task_manager_ci())
+    cpu, gpu = cs.small_frames(task_ci, cuda)
+    assert np.isfinite(gpu).all()
+    assert psnr(cpu, gpu) > 50.0

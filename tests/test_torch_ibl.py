@@ -20,6 +20,7 @@ from diligentfx_tpu_torch.ops import sampling as ts
 from diligentfx_tpu_torch.pbr import brdf as tbrdf
 from diligentfx_tpu_torch.pbr.ibl import precompute_ibl_maps
 from diligentfx_tpu_torch.pbr.renderer import default_env_oct
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # bench.py --smoke (bench.py:117-120)
 SMOKE = dict(brdf_lut_dim=32, num_brdf_samples=16, irradiance_dim=16,

@@ -27,6 +27,7 @@ from diligentfx_tpu_torch.postfx import bloom as tbloom
 from diligentfx_tpu_torch.postfx import context as tctx
 from diligentfx_tpu_torch.postfx import taa as ttaa
 from diligentfx_tpu_torch.postfx import tonemap as ttm
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 H, W = 32, 256
 

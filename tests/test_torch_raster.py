@@ -33,6 +33,7 @@ from diligentfx_tpu.pbr.renderer import RenderInfo
 from diligentfx_tpu_torch import convert as cv
 from diligentfx_tpu_torch.ops import raster as tr
 from diligentfx_tpu_torch.ops import raster_kernel as trk
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 W, H = 256, 128
 # the JAX package's test config (tests/test_raster_fused.py:25: 8x128

@@ -14,6 +14,7 @@ import torch
 
 from diligentfx_tpu.ops.warp_pallas import warp_bilinear_pallas
 from diligentfx_tpu_torch.ops import warp as tw
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(autouse=True)
