@@ -24,9 +24,22 @@ Phases (any failure exits non-zero; no phase is skipped):
      the counts zeroed just before and read just after;
   7. the bench frame and the first slice's frame (SSAO and SSR off) at
      256x128 on the GPU against the port's CPU path (the plain versions,
-     which the CPU tests hold against the JAX package).
+     which the CPU tests hold against the JAX package);
+  8. K1 again at the --csm frame's G-buffer inputs (the textured bench
+     scene: UV-derivative channels); K4, the two-pass tile raster, vs
+     raster_tiles_plain on the bench's four 2048^2 shadow cascades of the
+     textured bench scene, with each cascade's raster statistics (equal to
+     the reference's), and reversed depth on one cascade;
+  9. the --csm frame: the textured bench scene with four-cascade EVSM2
+     shadows re-rendered every frame (HnTaskManager.render_shadows, then
+     execute, as bench.py --csm runs them), one warm-up frame, then
+     --frames timed frames with the counts zeroed just before and read just
+     after (K1 1, K2 20, K3 1, K4 4 a frame);
+ 10. a 256x128 csm frame (2 cascades at 256^2, a small atlas) and the
+     forward renderer PBRRenderer.render on the csm_256 golden scene (fused
+     K1 and two-pass K4 branches) on the GPU against the port's CPU path.
 
-Prints the median frame time, one JSON line with each kernel's launches,
+Prints the median frame times, one JSON line with each kernel's launches,
 times and bound, the card's name and power limit, and last
 {"ok": true, "device": {...}}.
 
@@ -50,6 +63,8 @@ FP32_FLOPS_PER_S = 67e12
 DEVICE = "cuda"
 W, H = 1920, 1080
 SMALL_W, SMALL_H = 256, 128
+SUN = [-0.5, -0.7, -0.5]
+SHADOW_SIZE, NUM_CASCADES = 2048, 4      # bench.py --csm
 
 
 def fail(msg: str) -> None:
@@ -143,7 +158,9 @@ def bench_settings():
     return FrameSettings(ssr=SSRSettings(max_traversal_intersections=24))
 
 
-def render_info(w, h, device):
+def render_info(w, h, device, csm=False):
+    """The bench camera and lights; with csm the sun casts the cascaded
+    shadows (shadow map index 0), as in bench.py --csm."""
     from diligentfx_tpu_torch import math3d as m3
     from diligentfx_tpu_torch.attribs import (CameraAttribs, PBRLightAttribs,
                                               PBRRendererShaderParameters)
@@ -154,7 +171,8 @@ def render_info(w, h, device):
     cam = CameraAttribs.create(view, proj, eye, 0.1, 100.0, w, h,
                                device=device)
     lights = PBRLightAttribs.concat([
-        PBRLightAttribs.directional([-0.5, -0.7, -0.5], [3.0, 3.0, 3.0],
+        PBRLightAttribs.directional(SUN, [3.0, 3.0, 3.0],
+                                    shadow_map_index=0 if csm else -1,
                                     device=device),
         PBRLightAttribs.point([2.0, 2.0, 2.0], [8.0, 7.0, 6.0], range=30.0,
                               device=device)])
@@ -221,17 +239,20 @@ def _raster_work(k, z, tid, out):
     return n_bytes, tests
 
 
-def phase_raster(scene, info, cfg):
-    """K1 vs its plain version at the main path's shapes."""
+def phase_raster(scene, info, cfg, use_textures=False):
+    """K1 vs its plain version at the main path's shapes: the bench frame's
+    inputs, or with use_textures the csm frame's (UV-derivative channels)."""
     import torch
     from diligentfx_tpu_torch.ops import raster as rz
     from diligentfx_tpu_torch.ops.raster_kernel import (
         raster_tiles_fused, raster_tiles_fused_plain)
     from diligentfx_tpu_torch.pbr.deferred import fused_raster_inputs
+    label = "csm" if use_textures else "bench"
     pad_w, pad_h = rz.pad_viewport(W, H, cfg)
-    k = fused_raster_inputs(scene, info, pad_w=pad_w, pad_h=pad_h, cfg=cfg)
+    k = fused_raster_inputs(scene, info, pad_w=pad_w, pad_h=pad_h, cfg=cfg,
+                            use_textures=use_textures)
     st = {f: int(v) for f, v in zip(k.stats._fields, k.stats)}
-    print(f"raster stats at {pad_w}x{pad_h}: {st}", flush=True)
+    print(f"{label} raster stats at {pad_w}x{pad_h}: {st}", flush=True)
     args = (k.setup, k.planes, k.candidates, k.counts, k.mat_table)
     z, tid, out = raster_tiles_fused(*args, **k.kernel_kw)
     torch.cuda.synchronize()
@@ -243,13 +264,24 @@ def phase_raster(scene, info, cfg):
     z_err = float((z - zp).abs()[hit].max()) if bool(hit.any()) else 0.0
     ch_err = float((out - outp).abs()[:, hit].max())
     ch_tol = float(1e-5 * torch.clamp(outp[:, hit].abs().max(), min=1.0))
-    print(f"raster_fused vs plain: id mismatches {id_mismatch} of "
-          f"{tid.numel()}, hit px {int(hit.sum())}, z max err {z_err:.3g}, "
-          f"channel max err {ch_err:.3g} (tol {ch_tol:.3g})", flush=True)
+    # the derivative channels (after the n_ch values) are small, so they are
+    # also held to 1e-5 of their own largest magnitude
+    n_ch, n_d = k.kernel_kw["n_ch"], 2 * len(k.kernel_kw["deriv_channels"])
+    d_err = d_tol = 0.0
+    if n_d:
+        d_ref = outp[n_ch:n_ch + n_d][:, hit]
+        d_err = float((out[n_ch:n_ch + n_d][:, hit] - d_ref).abs().max())
+        d_tol = float(1e-5 * d_ref.abs().max())
+    print(f"{label} raster_fused vs plain: {out.shape[0]} channels ({n_d} "
+          f"derivatives), id mismatches {id_mismatch} of {tid.numel()}, hit "
+          f"px {int(hit.sum())}, z max err {z_err:.3g}, channel max err "
+          f"{ch_err:.3g} (tol {ch_tol:.3g}), derivative max err {d_err:.3g} "
+          f"(tol {d_tol:.3g})", flush=True)
     check(id_mismatch == 0, "raster kernel tri ids differ from the plain "
           "version")
     check(z_err <= 1e-6, f"raster kernel depth error {z_err}")
     check(ch_err <= ch_tol, f"raster kernel channel error {ch_err}")
+    check(d_err <= d_tol, f"raster kernel derivative error {d_err}")
     check(bool(hit.any()), "raster kernel covered no pixel")
 
     ms = cuda_ms(lambda: raster_tiles_fused(*args, **k.kernel_kw), 20, 2)
@@ -257,16 +289,19 @@ def phase_raster(scene, info, cfg):
                        3, 1)
     n_bytes, tests = _raster_work(k, z, tid, out)
     # operations: 15 flops a candidate-pixel test (two edge planes, the third
-    # edge, the depth plane and its sign), 5 + 5 a channel in the epilogue
-    n_ops = 15 * tests + (5 + 5 * k.kernel_kw["n_ch"]) * z.numel()
+    # edge, the depth plane and its sign), 5 + 5 a channel in the epilogue,
+    # 3 a derivative
+    n_ops = 15 * tests + (5 + 5 * n_ch + 3 * n_d) * z.numel()
     b_ms, b_by = bound_ms(n_bytes, n_ops)
-    print(f"raster_fused: {tests / 1e6:.1f} M candidate-pixel tests, "
-          f"{n_bytes / 1e6:.1f} MB the function needs", flush=True)
+    print(f"{label} raster_fused: {tests / 1e6:.1f} M candidate-pixel tests, "
+          f"{n_bytes / 1e6:.1f} MB the function needs; {ms:.4f} ms, plain "
+          f"{plain_ms:.2f} ms, bound {b_ms:.4f} ms ({b_by})", flush=True)
     return dict(name="raster_tiles_fused", route="cuda",
                 source="diligentfx_tpu_torch/csrc/raster_fused.cu",
                 replaces="diligentfx_tpu/ops/raster_pallas.py:261",
-                max_abs_err=max(z_err, ch_err), ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                max_abs_err=max(z_err, ch_err, d_err), ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None)
 
 
 def _warp_case(h, w, c, halo, gen):
@@ -362,10 +397,12 @@ def _launch_counters():
     from diligentfx_tpu_torch.ops.gtao import gtao_fused
     from diligentfx_tpu_torch.ops.march import march_small_table
     from diligentfx_tpu_torch.ops.raster_kernel import raster_tiles_fused
+    from diligentfx_tpu_torch.ops.raster_tiles import raster_tiles
     from diligentfx_tpu_torch.ops.warp import warp_bilinear
     return {"raster_tiles_fused": raster_tiles_fused,
             "warp_bilinear": warp_bilinear,
-            "march_small_table": march_small_table, "gtao_fused": gtao_fused}
+            "march_small_table": march_small_table, "gtao_fused": gtao_fused,
+            "raster_tiles": raster_tiles}
 
 
 def zero_launches():
@@ -377,9 +414,77 @@ def read_launches():
     return {name: fn.launches for name, fn in _launch_counters().items()}
 
 
-# launches a bench frame makes of each kernel (K5 is off the frame's path)
+# launches a bench frame makes of each kernel (K5 is off the frame's path;
+# K4 runs only in the --csm frame's shadow pass)
 FRAME_LAUNCHES = {"raster_tiles_fused": 1, "warp_bilinear": 20,
-                  "march_small_table": 1, "gtao_fused": 0}
+                  "march_small_table": 1, "gtao_fused": 0, "raster_tiles": 0}
+# and a --csm frame: K4 once per shadow cascade
+CSM_FRAME_LAUNCHES = {**FRAME_LAUNCHES, "raster_tiles": 4}
+
+
+def timed_frames(tm, scene, frame_info, frames, expected, label):
+    """One warm-up frame of tm.execute on frame_info(), then `frames` timed
+    frames (host clock ending in a synchronise, CUDA events beside it),
+    with the launch counts zeroed just before and read just after and held
+    to `expected` a frame.  Returns (last output, state, host ms list,
+    device ms list, launches)."""
+    import torch
+    settings = bench_settings()
+    state = tm.initial_state(W, H)
+    out = tm.execute(scene, frame_info(), state, width=W, height=H,
+                     settings=settings)
+    state = out.state
+    torch.cuda.synchronize()
+    check(tuple(out.color.shape) == (H, W, 3), f"{label} frame shape")
+    check(bool(torch.isfinite(out.color).all()),
+          f"{label} warm-up frame not finite")
+
+    zero_launches()
+    host_ms, dev_ms = [], []
+    for _ in range(frames):
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev0.record()
+        out = tm.execute(scene, frame_info(), state, width=W, height=H,
+                         settings=settings)
+        state = out.state
+        ev1.record()
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        dev_ms.append(ev0.elapsed_time(ev1))
+    launches = read_launches()
+    color = out.color
+    check(bool(torch.isfinite(color).all()), f"{label} frame not finite")
+    check(float(color.min()) >= 0.0 and float(color.max()) <= 1.0,
+          f"{label} sRGB output outside [0, 1]")
+    hit = float(out.gbuffer.hit.float().mean())
+    check(0.2 < hit < 1.0, f"{label} hit fraction {hit}")
+    for name, per_frame in expected.items():
+        check(launches[name] == per_frame * frames,
+              f"{label}: {name} launched {launches[name]} times in {frames} "
+              f"frames, expected {per_frame} a frame")
+    ao = state.ssao.history
+    conf = state.ssr.radiance[..., 3]
+    check(bool(torch.isfinite(ao).all()) and float(ao.min()) >= 0.0
+          and float(ao.max()) <= 1.0, f"{label} SSAO history outside [0, 1]")
+    check(bool(torch.isfinite(state.ssr.radiance).all()),
+          f"{label} SSR not finite")
+    print(f"{label} frame {W}x{H}: median {np.median(host_ms):.3f} ms host "
+          f"clock, {np.median(dev_ms):.3f} ms CUDA events, min "
+          f"{min(host_ms):.3f}, max {max(host_ms):.3f} ({frames} frames), "
+          f"hit {hit:.3f}, mean color {float(color.mean()):.4f}, mean AO "
+          f"{float(ao.mean()):.4f}, SSR confidence > 0 on "
+          f"{float((conf > 0).float().mean()):.4f} of the march grid",
+          flush=True)
+    return out, state, host_ms, dev_ms, launches
+
+
+def _write_png(path, color):
+    from diligentfx_tpu_torch.utils.image import write_png
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    write_png(path, color.cpu().numpy())
 
 
 def phase_frame(scene, info, cfg, frames, out_png):
@@ -395,56 +500,10 @@ def phase_frame(scene, info, cfg, frames, out_png):
     print(f"renderer + IBL precompute: {time.perf_counter() - t0:.2f} s",
           flush=True)
     tm = HnTaskManager(renderer, bench_task_manager_ci())
-    settings = bench_settings()
-    state = tm.initial_state(W, H)
-    out = tm.execute(scene, info, state, width=W, height=H, settings=settings)
-    state = out.state
-    torch.cuda.synchronize()
-    check(tuple(out.color.shape) == (H, W, 3), "frame shape")
-    check(bool(torch.isfinite(out.color).all()), "warm-up frame not finite")
-
-    zero_launches()
-    host_ms, dev_ms = [], []
-    for _ in range(frames):
-        ev0 = torch.cuda.Event(enable_timing=True)
-        ev1 = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        ev0.record()
-        out = tm.execute(scene, info, state, width=W, height=H,
-                         settings=settings)
-        state = out.state
-        ev1.record()
-        torch.cuda.synchronize()
-        host_ms.append((time.perf_counter() - t0) * 1e3)
-        dev_ms.append(ev0.elapsed_time(ev1))
-    launches = read_launches()
-    color = out.color
-    check(bool(torch.isfinite(color).all()), "frame not finite")
-    check(float(color.min()) >= 0.0 and float(color.max()) <= 1.0,
-          "sRGB output outside [0, 1]")
-    hit = float(out.gbuffer.hit.float().mean())
-    check(0.2 < hit < 1.0, f"hit fraction {hit}")
-    for name, per_frame in FRAME_LAUNCHES.items():
-        check(launches[name] == per_frame * frames,
-              f"{name} launched {launches[name]} times in {frames} frames, "
-              f"expected {per_frame} a frame")
-    ao = state.ssao.history
-    conf = state.ssr.radiance[..., 3]
-    check(bool(torch.isfinite(ao).all()) and float(ao.min()) >= 0.0
-          and float(ao.max()) <= 1.0, "SSAO history outside [0, 1]")
-    check(bool(torch.isfinite(state.ssr.radiance).all()), "SSR not finite")
-    print(f"frame {W}x{H}: median {np.median(host_ms):.3f} ms host clock, "
-          f"{np.median(dev_ms):.3f} ms CUDA events, min {min(host_ms):.3f}, "
-          f"max {max(host_ms):.3f} ({frames} frames), hit {hit:.3f}, "
-          f"mean color {float(color.mean()):.4f}, mean AO "
-          f"{float(ao.mean()):.4f}, SSR confidence > 0 on "
-          f"{float((conf > 0).float().mean()):.4f} of the march grid",
-          flush=True)
+    out, state, host_ms, dev_ms, launches = timed_frames(
+        tm, scene, lambda: info, frames, FRAME_LAUNCHES, "bench")
     if out_png:
-        from diligentfx_tpu_torch.utils.image import write_png
-        os.makedirs(os.path.dirname(os.path.abspath(out_png)), exist_ok=True)
-        write_png(out_png, color.cpu().numpy())
+        _write_png(out_png, out.color)
     return (tm, launches, float(np.median(host_ms)), float(np.median(dev_ms)),
             out.gbuffer, state)
 
@@ -635,8 +694,9 @@ def phase_gtao(gb, info, frame_state):
                 shapes=f"depth ({h2},{w2}) padded to 544x1024")
 
 
-STAGES = ("dfx.gbuffer", "dfx.raster_inputs", "dfx.context_composite",
-          "dfx.ssao", "dfx.ssr", "dfx.taa_bloom_tonemap")
+STAGES = ("dfx.shadows", "dfx.gbuffer", "dfx.raster_inputs",
+          "dfx.context_composite", "dfx.ssao", "dfx.ssr",
+          "dfx.taa_bloom_tonemap")
 
 
 def _device_us(event, field):
@@ -646,17 +706,11 @@ def _device_us(event, field):
     return getattr(event, field.replace("device", "cuda"))
 
 
-def phase_profile(tm, scene, info, cfg, frames, path):
-    """Where the frame's time goes.  First the host time of the vertex
-    stage, setup and binning (fused_raster_inputs) alone, which synchronise
-    the host with the device.  Then torch.profiler over `frames` frames of
-    HnTaskManager.execute: device time of each stage (the dfx.* ranges that
-    execute marks; dfx.raster_inputs lies inside dfx.gbuffer, dfx.ssao and
-    dfx.ssr inside dfx.context_composite) and of each kernel, and the
-    device's idle share."""
+def phase_raster_inputs_host(scene, info, cfg, frames):
+    """Host time of the vertex stage, setup and binning
+    (fused_raster_inputs) alone, which synchronise the host with the
+    device."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from diligentfx_tpu_torch.ops import raster as rz
     from diligentfx_tpu_torch.pbr.deferred import fused_raster_inputs
     pad_w, pad_h = rz.pad_viewport(W, H, cfg)
@@ -671,15 +725,26 @@ def phase_profile(tm, scene, info, cfg, frames, path):
           f"median {np.median(host):.3f} ms host clock, device synchronised",
           flush=True)
 
+
+def phase_profile(tm, scene, frame_info, frames, path, label):
+    """Where a frame's time goes: torch.profiler over `frames` frames of
+    HnTaskManager.execute on frame_info() (the csm frame's shadow pass
+    included): device time of each stage (the dfx.* ranges; dfx.raster_inputs
+    lies inside dfx.gbuffer, dfx.ssao and dfx.ssr inside
+    dfx.context_composite, dfx.shadows before them all) and of each kernel,
+    and the device's idle share."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
     settings = bench_settings()
-    state = tm.execute(scene, info, tm.initial_state(W, H), width=W,
+    state = tm.execute(scene, frame_info(), tm.initial_state(W, H), width=W,
                        height=H, settings=settings).state
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(frames):
-            state = tm.execute(scene, info, state, width=W, height=H,
+            state = tm.execute(scene, frame_info(), state, width=W, height=H,
                                settings=settings).state
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
@@ -698,15 +763,15 @@ def phase_profile(tm, scene, info, cfg, frames, path):
             rows.append((dev_us / 1e3 / frames, e.count // frames, e.key))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    print(f"profile: {per_frame:.3f} ms a frame under the profiler, device "
-          f"busy {busy:.3f} ms ({100 * busy / per_frame:.1f}%), idle "
+    print(f"profile {label}: {per_frame:.3f} ms a frame under the profiler, "
+          f"device busy {busy:.3f} ms ({100 * busy / per_frame:.1f}%), idle "
           f"{100 * (1 - busy / per_frame):.1f}%, "
           f"{sum(r[1] for r in rows)} kernel launches a frame", flush=True)
     for name, (cpu_ms, dev_ms) in stage_ms.items():
-        print(f"profile stage {name}: device {dev_ms:.3f} ms, host "
+        print(f"profile {label} stage {name}: device {dev_ms:.3f} ms, host "
               f"{cpu_ms:.3f} ms under the profiler", flush=True)
     for ms, n, key in rows[:12]:
-        print(f"profile kernel {ms:.4f} ms x{n}/frame {key[:90]}")
+        print(f"profile {label} kernel {ms:.4f} ms x{n}/frame {key[:90]}")
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "w") as f:
         f.write(prof.key_averages().table(sort_by="self_cuda_time_total",
@@ -766,6 +831,362 @@ def phase_reference():
                         f"{p:.2f} dB")
 
 
+# ---------------------------------------------------------------------------
+# the --csm configuration (bench.py --csm)
+# ---------------------------------------------------------------------------
+
+
+def bench_atlas(num_materials, device, tex_size=256):
+    """The bench's procedural material textures (bench.py `_bench_atlas`,
+    its own numpy copy): a checker base colour, a bumpy tangent-space
+    normal map and a phys-desc map, 6 box-filtered mips, bound to every
+    material with a x4 uv tiling and wrap mode 1 in both directions.
+    Returns (atlas, tex_ids, tex_uv_transform, tex_wraps)."""
+    import torch
+    from diligentfx_tpu_torch.gltf.model import (NUM_SLOTS, SLOT_BASE_COLOR,
+                                                 SLOT_NORMAL, SLOT_PHYS_DESC)
+    from diligentfx_tpu_torch.ops.texture import AtlasBuilder
+    rng = np.random.default_rng(42)
+    b = AtlasBuilder(size=tex_size)
+    yy, xx = np.mgrid[0:tex_size, 0:tex_size].astype(np.float32) / tex_size
+    checker = ((np.floor(yy * 8) + np.floor(xx * 8)) % 2)[..., None]
+    base = (0.35 + 0.5 * checker * np.ones((1, 1, 3), np.float32)
+            + 0.08 * rng.random((tex_size, tex_size, 3), dtype=np.float32))
+    bc_id = b.add(np.clip(base, 0.0, 1.0).astype(np.float32))
+    h_field = np.sin(yy * 40.0) * np.cos(xx * 40.0) * 0.5
+    nx, ny = np.gradient(h_field)
+    nrm = np.stack([-nx * 4, -ny * 4, np.ones_like(nx)], axis=-1)
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+    n_id = b.add((nrm * 0.5 + 0.5).astype(np.float32))
+    pd = np.stack([np.zeros_like(yy), 0.4 + 0.5 * checker[..., 0],
+                   0.2 + 0.3 * (1 - checker[..., 0])], axis=-1)
+    pd_id = b.add(pd.astype(np.float32))
+    atlas = b.build(num_mips=6, device=device)
+    tex_ids = np.full((num_materials, NUM_SLOTS), -1, np.int32)
+    tex_ids[:, SLOT_BASE_COLOR] = bc_id
+    tex_ids[:, SLOT_NORMAL] = n_id
+    tex_ids[:, SLOT_PHYS_DESC] = pd_id
+    xform = np.tile(np.array([4, 0, 0, 4, 0, 0], np.float32),
+                    (num_materials, NUM_SLOTS, 1))
+    wraps = np.ones((num_materials, NUM_SLOTS, 2), np.int32)
+    return (atlas, torch.from_numpy(tex_ids).to(device),
+            torch.from_numpy(xform).to(device),
+            torch.from_numpy(wraps).to(device))
+
+
+def csm_scene(rows, cols, sphere_res, device, tex_size=256):
+    """The bench scene with the bench's textures: (scene, atlas)."""
+    scene = bench_scene(rows, cols, sphere_res, device)
+    atlas, ids, xform, wraps = bench_atlas(
+        scene.materials.base_color_factor.shape[0], device, tex_size)
+    return scene._replace(tex_ids=ids, tex_uv_transform=xform,
+                          tex_wraps=wraps), atlas
+
+
+def csm_attribs(info, num_cascades, size):
+    """bench.py --csm's cascades for the (unjittered) bench camera."""
+    from diligentfx_tpu_torch import math3d as m3
+    from diligentfx_tpu_torch.components.shadow_map_manager import \
+        distribute_cascades
+    cam = info.camera
+    return distribute_cascades(cam.view, m3.inverse(cam.view),
+                               float(cam.proj[0, 0]), float(cam.proj[1, 1]),
+                               0.1, 100.0, SUN, num_cascades=num_cascades,
+                               shadow_map_size=size)
+
+
+def csm_task_manager_ci():
+    """bench.py:149-161 with --csm: the bench effects plus EVSM2 shadows."""
+    import dataclasses
+    from diligentfx_tpu_torch.config import ShadowMode
+    return dataclasses.replace(bench_task_manager_ci(), enable_shadows=True,
+                               shadow_mode=ShadowMode.EVSM2)
+
+
+# the reference's raster statistics of the bench's four cascades (the JAX
+# package's _triangle_setup + _bin_triangles on the CPU): valid triangles,
+# the sum of the per-tile candidate counts, bin_overflow, big_overflow
+CASCADE_STATS_JAX = ((6, 6144, 0, 0), (100996, 151552, 6582, 0),
+                     (111683, 122238, 81384, 15), (111722, 4461, 109256, 0))
+
+
+def kernel_device_ms(fn, key, iters):
+    """Device time a call of the kernels whose name contains `key`, from
+    torch.profiler's kernel rows over `iters` calls of fn."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(_device_us(e, "self_device_time_total")
+             for e in prof.key_averages() if key in e.key)
+    return us / 1e3 / iters
+
+
+def phase_shadow_raster(cfg, scene):
+    """K4 vs raster_tiles_plain on the bench's four 2048^2 cascades of the
+    textured bench scene, as the shadow pass builds their inputs; each
+    cascade's raster statistics against the reference's; reversed depth
+    (depth_less=False) on cascade 1."""
+    import torch
+    from diligentfx_tpu_torch.components import shadow_map_manager as smm
+    from diligentfx_tpu_torch.ops import raster as rz
+    from diligentfx_tpu_torch.ops.raster_tiles import (raster_tiles,
+                                                       raster_tiles_plain)
+    from diligentfx_tpu_torch.pbr.renderer import transform_vertices
+    info = render_info(W, H, DEVICE, csm=True)
+    att = csm_attribs(info, NUM_CASCADES, SHADOW_SIZE)
+    wp, _, _ = transform_vertices(scene)
+    both = torch.ones((scene.num_triangles,), dtype=torch.bool,
+                      device=DEVICE)
+    s = SHADOW_SIZE
+    th, tw = cfg.tile_h, cfg.tile_w
+    cases, max_err, stats = [], 0.0, []
+    for i in range(NUM_CASCADES):
+        clip = smm.cascade_clip(wp, att, i)
+        setup, valid, bbox, _, clip_ovf = rz._triangle_setup(
+            clip, scene.indices, s, s, both, True, 1e-3)
+        cand, counts, max_count, ovf, big_ovf = rz._bin_triangles(
+            valid, bbox, s, s, cfg)
+        kw = dict(th=th, tw=tw, tiles_x=s // tw)
+        st = (int(valid.sum()), int(counts.sum()), int(ovf + clip_ovf),
+              int(big_ovf))
+        exp = CASCADE_STATS_JAX[i]
+        print(f"cascade {i}: valid {st[0]}, sum of tile counts {st[1]}, "
+              f"max tile count {int(counts.max())} (cap {cand.shape[1]}), "
+              f"max bin count {int(max_count)}, bin_overflow {st[2]}, "
+              f"big_overflow {st[3]} (the reference: {exp})", flush=True)
+        check(st == exp, f"cascade {i} raster stats {st} are not the "
+                         f"reference's {exp}")
+        stats.append(dict(cascade=i, valid=st[0], counts=st[1],
+                          max_count=int(counts.max()),
+                          max_bin_count=int(max_count), bin_overflow=st[2],
+                          big_overflow=st[3]))
+        for depth_less in ((False, True) if i == 1 else (True,)):
+            a = raster_tiles(setup, cand, counts, depth_less=depth_less, **kw)
+            torch.cuda.synchronize()
+            b = raster_tiles_plain(setup, cand, counts, depth_less=depth_less,
+                                   **kw)
+            ids = int((a[1] != b[1]).sum())
+            hit = b[1] >= 0
+            errs = [float((x - y).abs()[hit].max()) if bool(hit.any())
+                    else 0.0 for x, y in ((a[0], b[0]), (a[2], b[2]),
+                                          (a[3], b[3]))]
+            clear = float("inf") if depth_less else float("-inf")
+            misses_ok = bool((a[0][~hit] == clear).all()
+                             and (a[2][~hit] == 0).all()
+                             and (a[3][~hit] == 0).all())
+            print(f"raster_tiles cascade {i} depth_less={depth_less}: id "
+                  f"mismatches {ids} of {b[1].numel()}, covered "
+                  f"{float(hit.float().mean()):.4f}, max err z "
+                  f"{errs[0]:.3g} b0 {errs[1]:.3g} b1 {errs[2]:.3g}",
+                  flush=True)
+            check(ids == 0, f"K4 ids differ from the plain version "
+                            f"(cascade {i}, depth_less={depth_less})")
+            check(max(errs) <= 1e-6, f"K4 error {errs} (cascade {i})")
+            check(misses_ok, f"K4 clear values wrong (cascade {i})")
+            max_err = max(max_err, *errs)
+        cases.append((setup, cand, counts, kw, b))
+
+    def k4_all():
+        for setup, cand, counts, kw, _ in cases:
+            raster_tiles(setup, cand, counts, **kw)
+
+    def plain_all():
+        for setup, cand, counts, kw, _ in cases:
+            raster_tiles_plain(setup, cand, counts, **kw)
+
+    ms = cuda_ms(k4_all, 10, 2)
+    dev_ms = kernel_device_ms(k4_all, "raster_tiles_kernel", 5)
+    plain_ms = cuda_ms(plain_all, 1, 1)
+    # the work of the 4 cascades: each used candidate tested on its tile's
+    # pixels; the setup rows the loop reads (9 floats) and the winners'
+    # (7 more), the candidate ids and counts read once, 16 B a pixel out
+    tests = n_bytes = 0
+    for setup, cand, counts, kw, b in cases:
+        used = (torch.arange(cand.shape[1], device=DEVICE)[None, :]
+                < torch.clamp(counts.long(), max=cand.shape[1])[:, None])
+        tests += int(used.sum()) * th * tw
+        rows = torch.unique(cand[used].long()).numel()
+        winners = torch.unique(b[1][b[1] >= 0]).numel()
+        n_bytes += 4 * (9 * rows + 7 * winners + int(used.sum())
+                        + counts.numel()) + 16 * b[1].numel()
+    # 15 flops a candidate-pixel test (as K1's), 8 a covered pixel for the
+    # two barycentric planes
+    covered = sum(int((c[4][1] >= 0).sum()) for c in cases)
+    b_ms, b_by = bound_ms(n_bytes, 15 * tests + 8 * covered)
+    print(f"raster_tiles: 4 cascades {ms:.4f} ms CUDA events, device "
+          f"{dev_ms:.4f} ms; {tests / 1e9:.4f} G candidate-pixel tests, "
+          f"{n_bytes / 1e6:.1f} MB; bound {b_ms:.4f} ms ({b_by}); plain "
+          f"{plain_ms:.2f} ms", flush=True)
+    return dict(name="raster_tiles", route="cuda",
+                source="diligentfx_tpu_torch/csrc/raster_tiles.cu",
+                replaces="diligentfx_tpu/ops/raster_pallas.py:35",
+                max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None, device_ms=dev_ms,
+                candidate_pixel_tests=tests, cascade_stats=stats,
+                shapes=f"{NUM_CASCADES} cascades of {s}x{s}, tiles "
+                       f"{th}x{tw}, cap {cases[0][1].shape[1]}")
+
+
+def phase_csm_frame(cfg, scene, atlas, frames, out_png, ibl_source):
+    """The --csm frame: the textured bench scene, four-cascade EVSM2 shadows
+    re-rendered every frame (render_shadows, then execute)."""
+    import torch
+    from diligentfx_tpu_torch.config import PBRRendererCreateInfo
+    from diligentfx_tpu_torch.hydrogent.task_manager import HnTaskManager
+    from diligentfx_tpu_torch.pbr.renderer import PBRRenderer
+    info = render_info(W, H, DEVICE, csm=True)
+    att = csm_attribs(info, NUM_CASCADES, SHADOW_SIZE)
+    renderer = PBRRenderer(PBRRendererCreateInfo(enable_shadows=True),
+                           raster_cfg=cfg, device=DEVICE,
+                           env_oct=ibl_source.env_oct,
+                           ibl_maps=ibl_source.ibl_maps)
+    tm = HnTaskManager(renderer, csm_task_manager_ci(), atlas=atlas)
+
+    def frame_info():
+        return tm.render_shadows(scene, info, att,
+                                 shadow_map_size=SHADOW_SIZE)
+
+    out, state, host_ms, dev_ms, launches = timed_frames(
+        tm, scene, frame_info, frames, CSM_FRAME_LAUNCHES, "csm")
+    sinfo = frame_info()
+    maps = sinfo.shadow_maps
+    check(tuple(maps.shape) == (NUM_CASCADES, SHADOW_SIZE, SHADOW_SIZE)
+          and bool(torch.isfinite(sinfo.shadow_moments).all())
+          and float(maps.min()) >= 0.0 and float(maps.max()) <= 1.0,
+          "shadow maps outside [0, 1] or moments not finite")
+    cover = [round(float((m < 1.0).float().mean()), 4) for m in maps]
+    print(f"csm shadow maps: caster coverage by cascade {cover}", flush=True)
+    if out_png:
+        root, ext = os.path.splitext(out_png)
+        _write_png(f"{root}_csm{ext or '.png'}", out.color)
+    return (tm, scene, frame_info, launches, float(np.median(host_ms)),
+            float(np.median(dev_ms)))
+
+
+def small_csm_frames(device):
+    """Two 256x128 csm frames of the small textured bench scene (2 cascades
+    at 256^2, a 64^2 atlas) on the CPU path and on `device`: (cpu colour,
+    colour)."""
+    import dataclasses
+    from diligentfx_tpu_torch.config import PBRRendererCreateInfo
+    from diligentfx_tpu_torch.hydrogent.task_manager import HnTaskManager
+    from diligentfx_tpu_torch.pbr.renderer import PBRRenderer
+    ci = PBRRendererCreateInfo(enable_shadows=True, brdf_lut_dim=32,
+                               num_brdf_samples=16, irradiance_cube_dim=16,
+                               prefiltered_env_map_dim=32,
+                               num_specular_env_samples=16)
+    cfg = bench_raster_config()
+    ref = PBRRenderer(ci, raster_cfg=cfg, device="cpu")
+    task_ci = dataclasses.replace(csm_task_manager_ci(), num_cascades=2,
+                                  shadow_map_size=256)
+    colors = []
+    for dev in ("cpu", device):
+        ren = (ref if dev == "cpu" else
+               PBRRenderer(ci, raster_cfg=cfg, device=dev,
+                           env_oct=ref.env_oct, ibl_maps=ref.ibl_maps.to(dev)))
+        scene, atlas = csm_scene(2, 2, 12, dev, tex_size=64)
+        tm = HnTaskManager(ren, task_ci, atlas=atlas)
+        info = render_info(SMALL_W, SMALL_H, dev, csm=True)
+        att = csm_attribs(info, 2, 256)
+        state = tm.initial_state(SMALL_W, SMALL_H)
+        for _ in range(2):
+            out = tm.execute(scene, tm.render_shadows(scene, info, att,
+                                                      shadow_map_size=256),
+                             state, width=SMALL_W, height=SMALL_H,
+                             settings=bench_settings())
+            state = out.state
+        colors.append(out.color.cpu().numpy())
+    return colors[0], colors[1]
+
+
+def forward_csm_frame(device, fuse):
+    """PBRRenderer.render of the csm_256 golden scene (tests/golden/
+    generate.py render_csm_golden: a sphere on a ground plane, 2-cascade
+    EVSM2 shadows at 256^2, 256x128) on `device`."""
+    from diligentfx_tpu_torch import math3d as m3
+    from diligentfx_tpu_torch.attribs import (CameraAttribs, PBRLightAttribs,
+                                              PBRMaterialBasicAttribs,
+                                              PBRRendererShaderParameters)
+    from diligentfx_tpu_torch.components import shadow_map_manager as smm
+    from diligentfx_tpu_torch.config import (PBRRendererCreateInfo,
+                                             RasterizerConfig, ShadowMode)
+    from diligentfx_tpu_torch.gltf.primitives import plane, uv_sphere
+    from diligentfx_tpu_torch.pbr.renderer import (PBRRenderer, RenderInfo,
+                                                   build_scene,
+                                                   transform_vertices)
+    w, h = 256, 128
+    gn = np.eye(4, dtype=np.float32)
+    gn[3, 1] = -1.0
+    scene = build_scene([
+        (uv_sphere(0.9, 24, 32), np.eye(4, dtype=np.float32),
+         PBRMaterialBasicAttribs.create(base_color_factor=(0.7, 0.55, 0.35, 1),
+                                        metallic_factor=0.6,
+                                        roughness_factor=0.35)),
+        (plane(20.0), gn, PBRMaterialBasicAttribs.create(
+            base_color_factor=(0.45, 0.45, 0.5, 1.0), roughness_factor=0.7)),
+    ], device=device)
+    cfg = RasterizerConfig(tile_h=8, tile_w=128, bin_capacity=512,
+                           max_tiles_per_tri=16, big_tri_capacity=32, chunk=8)
+    ren = PBRRenderer(PBRRendererCreateInfo(
+        enable_shadows=True, brdf_lut_dim=32, num_brdf_samples=16,
+        irradiance_cube_dim=16, prefiltered_env_map_dim=32,
+        num_specular_env_samples=16), raster_cfg=cfg, device=device)
+    eye = [0.0, 1.2, 4.0]
+    cam = CameraAttribs.create(
+        m3.look_at(eye, [0, 0, 0], device=device),
+        m3.perspective(0.8, w / h, 0.1, 100.0, device=device), eye, 0.1,
+        100.0, w, h, device=device)
+    sun = [-0.5, -1.0, -0.4]
+    att = smm.distribute_cascades(cam.view, m3.inverse(cam.view),
+                                  float(cam.proj[0, 0]),
+                                  float(cam.proj[1, 1]), 0.1, 100.0, sun,
+                                  num_cascades=2, shadow_map_size=256)
+    wp, _, _ = transform_vertices(scene)
+    maps = smm.render_cascade_shadow_maps(wp, scene.indices, att,
+                                          shadow_map_size=256, cfg=cfg)
+    moments = smm.gaussian_blur_separable(
+        smm.convert_to_filterable(maps, ShadowMode.EVSM2))
+    info = RenderInfo(camera=cam, lights=PBRLightAttribs.directional(
+        sun, [4, 4, 4], shadow_map_index=0, device=device),
+        renderer_params=PBRRendererShaderParameters.create(device=device),
+        shadow_attribs=att, shadow_maps=maps, shadow_moments=moments)
+    return ren.render(scene, info, width=w, height=h,
+                      shadow_mode=ShadowMode.EVSM2, fuse=fuse).cpu().numpy()
+
+
+def phase_csm_reference():
+    """The 256x128 csm frame and the forward csm_256 frame (two-pass K4 and
+    fused K1 branches) on the GPU against the port's CPU path."""
+    from diligentfx_tpu_torch.utils.image import psnr
+    cpu, gpu = small_csm_frames(DEVICE)
+    p = psnr(cpu, gpu)
+    print(f"256x128 csm frame, GPU vs the port's CPU path: PSNR {p:.2f} dB, "
+          f"max abs diff {np.abs(cpu - gpu).max():.3g}", flush=True)
+    check(np.isfinite(gpu).all(), "small csm frame not finite")
+    check(p > 50.0, f"GPU csm frame disagrees with the CPU path: {p:.2f} dB")
+    cpu = forward_csm_frame("cpu", "auto")
+    for fuse, kernel in (("off", "raster_tiles"), ("on", "raster_tiles_fused")):
+        zero_launches()
+        gpu = forward_csm_frame(DEVICE, fuse)
+        launches = read_launches()
+        p = psnr(cpu, gpu)
+        print(f"forward csm_256 frame, fuse={fuse}, GPU vs the port's CPU "
+              f"path: PSNR {p:.2f} dB; launches {launches}", flush=True)
+        check(np.isfinite(gpu).all(), f"forward frame ({fuse}) not finite")
+        check(p > 50.0, f"forward frame ({fuse}) disagrees with the CPU path: "
+                        f"{p:.2f} dB")
+        # the two shadow cascades run K4 either way; the frame K4 or K1
+        expect = {"raster_tiles": 3 if fuse == "off" else 2,
+                  "raster_tiles_fused": 1 if fuse == "on" else 0}
+        check(all(launches[k] == v for k, v in expect.items()),
+              f"forward frame ({fuse}) launched {launches}")
+
+
 def card_line() -> str:
     r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,
@@ -806,20 +1227,47 @@ def main() -> int:
     k3 = phase_march(gb, info)
     k5 = phase_gtao(gb, info, state)
     if args.profile:
-        phase_profile(tm, scene, info, cfg, 3, args.profile)
+        phase_raster_inputs_host(scene, info, cfg, 3)
+        phase_profile(tm, scene, lambda: info, 3, args.profile, "bench")
     phase_reference()
+    del gb, state
+    scene_csm, atlas = csm_scene(5, 9, 32, DEVICE)
+    k1_csm = phase_raster(scene_csm, render_info(W, H, DEVICE, csm=True), cfg,
+                          use_textures=True)
+    k1["max_abs_err"] = max(k1["max_abs_err"], k1_csm["max_abs_err"])
+    k1["csm_inputs"] = {key: k1_csm[key] for key in (
+        "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}
+    k4 = phase_shadow_raster(cfg, scene_csm)
+    csm_tm, csm_scene_, csm_info, csm_launches, csm_ms, csm_dev_ms = \
+        phase_csm_frame(cfg, scene_csm, atlas, args.frames, args.out_png,
+                        tm.renderer)
+    if args.profile:
+        root, ext = os.path.splitext(args.profile)
+        phase_profile(csm_tm, csm_scene_, csm_info, 3,
+                      f"{root}_csm{ext or '.txt'}", "csm")
+    phase_csm_reference()
     for k in (k1, k2, k3):
         k["launches"] = launches[k["name"]]
         k["frames"] = args.frames
         k["launches_per_frame"] = launches[k["name"]] / args.frames
+    for k in (k1, k2, k3, k5):
+        k["csm_frame_launches"] = csm_launches[k["name"]]
+    k4["launches"] = csm_launches["raster_tiles"]
+    k4["frames"] = args.frames
+    k4["launches_per_frame"] = csm_launches["raster_tiles"] / args.frames
+    k4["path"] = ("HnTaskManager.render_shadows (the --csm frame's shadow "
+                  "pass: one launch per cascade); bench frame launches "
+                  f"{launches['raster_tiles']}")
     k5["frame_launches"] = launches["gtao_fused"]
     k5["launches_per_frame"] = 0.0
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{**{key: k[key] for key in order},
                 **{key: v for key, v in k.items() if key not in order}}
-               for k in (k1, k2, k3, k5)]
+               for k in (k1, k2, k3, k4, k5)]
     print(f"frame_ms_median {frame_ms:.3f} (CUDA events {frame_dev_ms:.3f}) "
+          f"over {args.frames} frames at {W}x{H}")
+    print(f"csm_frame_ms_median {csm_ms:.3f} (CUDA events {csm_dev_ms:.3f}) "
           f"over {args.frames} frames at {W}x{H}; total run "
           f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -1,5 +1,5 @@
 """Static configuration (the port's own copy of diligentfx_tpu/config.py,
-limited to what the first slice uses).
+limited to what the ported slices use).
 
 Frozen dataclasses and IntEnums select code paths; dynamic per-frame values
 travel as tensors (attribs.py).
@@ -9,6 +9,20 @@ from __future__ import annotations
 import dataclasses
 import enum
 from dataclasses import dataclass
+
+
+class PSOFlags(enum.IntFlag):
+    """The per-draw feature flags that PBRRenderer.render reads, at their
+    PBR_Renderer.hpp:538-616 bit positions.  The texture and vertex flags
+    of the JAX package's copy select nothing there and are left out."""
+    NONE = 0
+    USE_IBL = 1 << 29
+    USE_LIGHTS = 1 << 30
+    ENABLE_TONE_MAPPING = 1 << 35
+
+    @classmethod
+    def DEFAULT(cls):
+        return cls.USE_IBL | cls.USE_LIGHTS | cls.ENABLE_TONE_MAPPING
 
 
 class DebugViewType(enum.IntEnum):
@@ -64,6 +78,9 @@ class ToneMappingMode(enum.IntEnum):
     AGX_CUSTOM = 9
     PBR_NEUTRAL = 10
     COMMERCE = 11
+
+
+MAX_CASCADES = 8  # BasicStructures.fxh:27
 
 
 class ShadowMode(enum.IntEnum):

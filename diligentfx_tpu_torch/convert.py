@@ -15,10 +15,13 @@ import torch
 from diligentfx_tpu_torch.attribs import (CameraAttribs, PBRLightAttribs,
                                           PBRMaterialBasicAttribs,
                                           PBRRendererShaderParameters)
+from diligentfx_tpu_torch.components.shadow_map_manager import \
+    ShadowMapAttribs
 from diligentfx_tpu_torch.config import RasterizerConfig
 from diligentfx_tpu_torch.hydrogent.task_manager import (FrameSettings,
                                                          FrameState,
                                                          TaskManagerCreateInfo)
+from diligentfx_tpu_torch.ops.texture import TextureAtlas
 from diligentfx_tpu_torch.pbr.renderer import RenderInfo, ScenePrimitives
 from diligentfx_tpu_torch.pbr.shading import IBLMaps
 from diligentfx_tpu_torch.postfx.ssao import SSAOState
@@ -36,8 +39,9 @@ def _fields(obj, cls, device):
 
 
 def scene_from_jax(scene, device=None) -> ScenePrimitives:
-    """ScenePrimitives (untextured, opaque, unskinned scenes)."""
-    for name in ("tex_ids", "mask_indices", "blend_indices", "joints",
+    """ScenePrimitives of opaque, unskinned scenes, with their texture
+    bindings (tex_ids, tex_uv_transform, tex_wraps) when present."""
+    for name in ("mask_indices", "blend_indices", "joints",
                  "materials_sheen", "materials_anisotropy",
                  "materials_iridescence", "materials_transmission",
                  "materials_volume"):
@@ -47,6 +51,9 @@ def scene_from_jax(scene, device=None) -> ScenePrimitives:
             for f in ("positions", "normals", "uvs", "tangents", "indices",
                       "vertex_node", "tri_material", "tri_double_sided",
                       "node_matrices", "prev_node_matrices")}
+    for f in ("tex_ids", "tex_uv_transform", "tex_wraps"):
+        if getattr(scene, f) is not None:
+            base[f] = tensor(getattr(scene, f), device)
     return ScenePrimitives(
         materials=_fields(scene.materials, PBRMaterialBasicAttribs, device),
         **base)
@@ -75,17 +82,36 @@ def shader_params_from_jax(params, device=None) -> PBRRendererShaderParameters:
     return _fields(params, PBRRendererShaderParameters, device)
 
 
+def atlas_from_jax(atlas, device=None) -> TextureAtlas:
+    """TextureAtlas (mips, scale_bias, layer)."""
+    return TextureAtlas(mips=tuple(tensor(m, device) for m in atlas.mips),
+                        scale_bias=tensor(atlas.scale_bias, device),
+                        layer=tensor(atlas.layer, device))
+
+
+def shadow_attribs_from_jax(attribs, device=None) -> ShadowMapAttribs:
+    """ShadowMapAttribs of distribute_cascades."""
+    return _fields(attribs, ShadowMapAttribs, device)
+
+
 def render_info_from_jax(info, device=None) -> RenderInfo:
-    """RenderInfo without shadow inputs."""
-    if info.shadow_attribs is not None or info.light_shadow_maps is not None:
-        raise NotImplementedError("shadow inputs are not ported yet")
+    """RenderInfo with the cascaded shadow inputs (attribs, maps,
+    moments); the per-light shadow inputs must be unset."""
+    if info.light_shadow_maps is not None or \
+            info.light_shadow_view_projs is not None:
+        raise NotImplementedError("per-light shadow inputs are not ported "
+                                  "yet")
     opt = {f: (tensor(getattr(info, f), device)
                if getattr(info, f) is not None else None)
-           for f in ("model_transform", "prev_view_proj")}
+           for f in ("model_transform", "prev_view_proj", "shadow_maps",
+                     "shadow_moments")}
+    att = (shadow_attribs_from_jax(info.shadow_attribs, device)
+           if info.shadow_attribs is not None else None)
     return RenderInfo(camera=camera_from_jax(info.camera, device),
                       lights=lights_from_jax(info.lights, device),
                       renderer_params=shader_params_from_jax(
-                          info.renderer_params, device), **opt)
+                          info.renderer_params, device), shadow_attribs=att,
+                      **opt)
 
 
 def _settings(obj, cls):

@@ -1,5 +1,6 @@
 """Frame task graph (the port of diligentfx_tpu/hydrogent/task_manager.py):
-BeginFrame (TAA jitter) -> G-buffer main pass -> PostFX context + history
+[shadow pass] -> BeginFrame (TAA jitter) -> G-buffer main pass (textured
+from the atlas, shadowed by the cascades) -> PostFX context + history
 disocclusion -> SSAO -> SSR -> composite -> TAA -> bloom -> tone map ->
 sRGB.
 
@@ -16,11 +17,14 @@ import torch
 
 from diligentfx_tpu_torch import math3d as m3
 from diligentfx_tpu_torch.attribs import CameraAttribs
+from diligentfx_tpu_torch.components import shadow_map_manager as smm
 from diligentfx_tpu_torch.config import (DebugViewType, ShadowMode,
                                          ToneMappingMode)
+from diligentfx_tpu_torch.ops.texture import TextureAtlas
 from diligentfx_tpu_torch.pbr.deferred import GBufferData, render_gbuffer
 from diligentfx_tpu_torch.pbr.renderer import (PBRRenderer, RenderInfo,
-                                               ScenePrimitives)
+                                               ScenePrimitives,
+                                               transform_vertices)
 from diligentfx_tpu_torch.postfx import bloom as fx_bloom
 from diligentfx_tpu_torch.postfx import ssao as fx_ssao
 from diligentfx_tpu_torch.postfx import ssr as fx_ssr
@@ -95,7 +99,6 @@ class TaskManagerCreateInfo:
 
 
 _UNPORTED = (
-    ("enable_shadows", LATER + " (shadows + textures, the --csm metric)"),
     ("enable_dof", LATER + " (DoF)"),
     ("enable_light_scattering", LATER + " (epipolar light scattering)"),
     ("enable_auto_exposure", LATER + " (auto exposure)"),
@@ -178,14 +181,15 @@ class HnTaskManager:
 
     def __init__(self, renderer: PBRRenderer,
                  ci: TaskManagerCreateInfo = TaskManagerCreateInfo(),
-                 atlas=None):
+                 atlas: Optional[TextureAtlas] = None):
         _check_ci(ci)
-        if atlas is not None:
+        if atlas is not None and not isinstance(atlas, TextureAtlas):
             raise NotImplementedError(
-                f"texture atlases are not ported yet: {LATER} (the --csm "
-                "metric)")
+                f"only the texture atlas binding mode is ported: {LATER} "
+                "(the texture heap)")
         self.renderer = renderer
         self.ci = ci
+        self.atlas = atlas
         self.device = renderer.device
         self.jitter_seq = taa_jitter_sequence(16, self.device)
 
@@ -209,16 +213,41 @@ class HnTaskManager:
             prev_depth=(z1 + 1.0 if (ci.enable_taa or ci.enable_ssr
                                      or ci.enable_ssao) else None))
 
+    def render_shadows(self, scene: ScenePrimitives, info: RenderInfo,
+                       attribs: smm.ShadowMapAttribs, *,
+                       shadow_map_size: int) -> RenderInfo:
+        """The cascaded shadow pass of a frame, as bench.py's frame_info
+        runs it before `execute` (bench.py:190-206): the cascade depth maps
+        (K4 once per cascade), and for the filterable modes the moments,
+        blurred.  Returns `info` carrying attribs, maps and moments.  The
+        range dfx.shadows marks it for torch.profiler."""
+        with torch.profiler.record_function("dfx.shadows"):
+            wp, _, _ = transform_vertices(scene, info.model_transform)
+            maps = smm.render_cascade_shadow_maps(
+                wp, scene.indices, attribs, shadow_map_size=shadow_map_size,
+                cfg=self.renderer.raster_cfg)
+            moments = None
+            if self.ci.shadow_mode != ShadowMode.PCF:
+                moments = smm.gaussian_blur_separable(
+                    smm.convert_to_filterable(maps, self.ci.shadow_mode))
+        return info._replace(shadow_attribs=attribs, shadow_maps=maps,
+                             shadow_moments=moments)
+
     def execute(self, scene: ScenePrimitives, info: RenderInfo,
                 state: FrameState, *, width: int, height: int,
-                settings: FrameSettings = FrameSettings()) -> FrameOutput:
+                settings: FrameSettings = FrameSettings(),
+                light_shadow_kinds: tuple = ()) -> FrameOutput:
         if scene.blend_indices is not None and self.ci.oit_layer_count > 0:
             raise NotImplementedError(f"OIT is not ported yet: {LATER} (OIT)")
+        if light_shadow_kinds:
+            raise NotImplementedError(
+                f"per-light (spot / point) shadows are not ported yet: {LATER}")
         # named ranges: torch.profiler attributes host and device time to
         # the frame's three stages (a few microseconds a frame otherwise)
         with torch.profiler.record_function("dfx.gbuffer"):
             begin = _frame_begin(scene, info, state, self.renderer,
-                                 self.jitter_seq, self.ci, width, height)
+                                 self.jitter_seq, self.ci, width, height,
+                                 self.atlas)
         with torch.profiler.record_function("dfx.context_composite"):
             fx = _frame_fx(begin, state, settings, self.ci)
         with torch.profiler.record_function("dfx.taa_bloom_tonemap"):
@@ -227,7 +256,9 @@ class HnTaskManager:
 
 def _begin_camera(info: RenderInfo, state: FrameState, jitter_seq: Tensor,
                   ci: TaskManagerCreateInfo, width: int, height: int):
-    """BeginFrame: TAA camera jitter + previous view-projection."""
+    """BeginFrame: TAA camera jitter + previous view-projection + the
+    shadow mode (the configured one when shadows are on and the frame
+    carries shadow attribs, else None)."""
     cam = info.camera
     first_frame = state.frame_index == 0
     if ci.enable_taa:
@@ -238,19 +269,25 @@ def _begin_camera(info: RenderInfo, state: FrameState, jitter_seq: Tensor,
                                    cam.far_z, width, height, jitter=j_ndc)
         info = info._replace(camera=cam)
     prev_vp = info.camera.view_proj if first_frame else state.prev_view_proj
-    return info._replace(prev_view_proj=prev_vp), first_frame
+    shadow_mode = (ci.shadow_mode if ci.enable_shadows
+                   and info.shadow_attribs is not None else None)
+    return info._replace(prev_view_proj=prev_vp), first_frame, shadow_mode
 
 
 def _frame_begin(scene, info: RenderInfo, state: FrameState,
                  renderer: PBRRenderer, jitter_seq, ci: TaskManagerCreateInfo,
-                 width: int, height: int) -> FrameBegin:
+                 width: int, height: int, atlas=None) -> FrameBegin:
     """BeginFrame (TAA jitter) + the G-buffer main pass."""
-    info, first_frame = _begin_camera(info, state, jitter_seq, ci, width,
-                                      height)
+    info, first_frame, shadow_mode = _begin_camera(info, state, jitter_seq,
+                                                   ci, width, height)
     gb = render_gbuffer(scene, info, renderer.ibl_maps, renderer.env_oct,
                         width=width, height=height, cfg=renderer.raster_cfg,
                         use_ibl=renderer.ci.enable_ibl,
-                        use_lights=ci.use_lights, fast_env=ci.fast_env_taps)
+                        use_lights=ci.use_lights, shadow_mode=shadow_mode,
+                        pcf_kernel_size=renderer.ci.pcf_kernel_size,
+                        atlas=atlas, use_textures=atlas is not None,
+                        enable_clearcoat=renderer.ci.enable_clear_coat,
+                        fast_env=ci.fast_env_taps)
     return FrameBegin(gb=gb, info=info, first_frame=first_frame)
 
 

@@ -1,5 +1,5 @@
-"""Tile rasterizer -> visibility buffer, fused path (the port of
-diligentfx_tpu/ops/raster.py).
+"""Tile rasterizer -> visibility buffer (the port of
+diligentfx_tpu/ops/raster.py): the fused path and the two-pass path.
 
   1. Triangle setup (vectorized over triangles): near-plane clipping with a
      compacted overflow region for second sub-triangles, screen mapping,
@@ -10,8 +10,10 @@ diligentfx_tpu/ops/raster.py).
      packed (bin << tri_bits | tri) key and cut into fixed-capacity
      per-bin candidate lists; big triangles go to per-tile lists (exact
      bbox overlap) or to one global list.
-  3. The fused tile kernel (ops/raster_kernel.py): z-loop + interpolation
-     + material fetch.
+  3. Either the fused tile kernel (ops/raster_kernel.py, K1): z-loop +
+     interpolation + material fetch; or the two-pass tile kernel
+     (ops/raster_tiles.py, K4): z-loop -> depth, original triangle id and
+     barycentrics, which `interpolate_all` turns into attributes.
 
 Candidate order within a bin is submission order, so winners (nearest,
 first in submission order on ties) match the JAX package's.
@@ -24,6 +26,7 @@ import torch
 
 from diligentfx_tpu_torch.config import RasterizerConfig
 from diligentfx_tpu_torch.ops.raster_kernel import raster_tiles_fused
+from diligentfx_tpu_torch.ops.raster_tiles import raster_tiles
 
 Tensor = torch.Tensor
 
@@ -35,10 +38,12 @@ Tensor = torch.Tensor
 
 
 class VisibilityBuffer(NamedTuple):
-    """Per-pixel visibility of the fused path (the JAX package's also
-    carries barycentrics, which the fused kernel interpolates away)."""
+    """Per-pixel visibility.  The two-pass path also carries the original
+    triangle's screen barycentrics; the fused path interpolates them away
+    in its kernel and leaves `bary` None."""
     depth: Tensor               # (H, W) f32, NDC z; background = depth_clear
     tri_id: Tensor              # (H, W) int32, -1 = background
+    bary: Optional[Tensor] = None   # (H, W, 2) l0, l1 of the original tri
 
 
 class RasterStats(NamedTuple):
@@ -126,23 +131,29 @@ def _clip_near_plane(corner_clip: Tensor, eps: float,
 
 def _triangle_setup(clip: Tensor, indices: Tensor, width: int, height: int,
                     double_sided: Optional[Tensor], front_ccw: bool,
-                    near_eps: float, attrs: Tensor, winv_vert: Tensor,
+                    near_eps: float, attrs: Optional[Tensor] = None,
+                    winv_vert: Optional[Tensor] = None,
                     tri_consts: Optional[Tensor] = None,
                     screen_size=None, screen_offset=(0, 0)):
-    """Near-clip + raster setup + attribute planes (JAX raster.py:190).
+    """Near-clip + raster setup [+ attribute planes] (JAX raster.py:190).
 
-    Perspective-correct interpolation is N_c(x,y)/D(x,y) with N_c, D affine
-    per triangle; planes are laid out [D(3), (A,B,C) per channel,
-    tri_consts (K)] -> (P, 3*(C+1)+K), P = T + clip-overflow capacity.
+    With `attrs` (V, C) and `winv_vert` (V,), also the fused kernel's
+    attribute planes: perspective-correct interpolation is N_c(x,y)/D(x,y)
+    with N_c, D affine per triangle; planes are laid out [D(3), (A,B,C) per
+    channel, tri_consts (K)] -> (P, 3*(C+1)+K), P = T + clip-overflow
+    capacity.
 
-    Returns (setup (P, 16), valid (P,), bbox (P, 4), orig_id (P,), planes,
+    Returns (setup (P, 16), valid (P,), bbox (P, 4), orig_id (P,)[, planes],
     clip_ovf ())."""
     idx = indices.long()
-    aw_v = attrs * winv_vert[:, None]
-    vdata = torch.cat([clip, winv_vert[:, None], aw_v], dim=-1)
-    vd = vdata[idx]                                         # (T, 3, 5+C)
-    corner_clip = vd[..., :4]
-    corner_attr = vd[..., 4:]
+    if attrs is not None:
+        aw_v = attrs * winv_vert[:, None]
+        vdata = torch.cat([clip, winv_vert[:, None], aw_v], dim=-1)
+        vd = vdata[idx]                                     # (T, 3, 5+C)
+        corner_clip = vd[..., :4]
+        corner_attr = vd[..., 4:]
+    else:
+        corner_clip = clip[idx]
     verts, barys, alive, orig, clip_ovf = _clip_near_plane(corner_clip,
                                                            near_eps)
     t_in = idx.shape[0]
@@ -212,6 +223,8 @@ def _triangle_setup(clip: Tensor, indices: Tensor, width: int, height: int,
     valid = valid & on_screen
     bbox = torch.stack([xmin - fox, ymin - foy, xmax - fox, ymax - foy],
                        dim=-1)
+    if attrs is None:
+        return setup, valid, bbox, orig, clip_ovf
 
     # attribute planes: values of N_c (and D in column 0) at each corner
     corner2 = torch.cat([corner_attr, corner_attr[orig2]], dim=0)
@@ -523,6 +536,113 @@ def rasterize_fused(clip: Tensor, indices: Tensor, attrs: Tensor,
     z, tid, out = raster_tiles_fused(k.setup, k.planes, k.candidates,
                                      k.counts, k.mat_table, **k.kernel_kw)
     return VisibilityBuffer(depth=z, tri_id=tid), out, k.stats
+
+
+def _untile(x: Tensor, tiles_x: int, th: int, tw: int) -> Tensor:
+    """(tiles, th, tw) tile layout -> (H, W) image."""
+    tiles_y = x.shape[0] // tiles_x
+    return (x.reshape(tiles_y, tiles_x, th, tw).permute(0, 2, 1, 3)
+            .reshape(tiles_y * th, tiles_x * tw))
+
+
+def rasterize(clip: Tensor, indices: Tensor, *, width: int, height: int,
+              cfg: RasterizerConfig = RasterizerConfig(),
+              double_sided: Optional[Tensor] = None,
+              front_ccw: bool = True, depth_less: bool = True,
+              near_eps: float = 1e-3, screen_size=None,
+              screen_offset=(0, 0)) -> Tuple[VisibilityBuffer, RasterStats]:
+    """Rasterize triangles to a visibility buffer with barycentrics, the
+    two-pass path (JAX raster.py:743): triangle setup, unsegmented binning
+    (the compact per-tile lists; `sub_bins` does not apply) and the
+    two-pass tile kernel K4 (`raster_tiles`, its plain version on the CPU).
+
+    Args:
+      clip: (V, 4) clip-space positions; indices: (T, 3) int32.
+      width, height: framebuffer size, multiples of the tile size.
+      double_sided: optional (T,) bool, rasterize back faces too.
+      front_ccw: counter-clockwise front faces (glTF).
+      depth_less: True for standard z (near = 0), False for reversed z.
+    """
+    if width % cfg.tile_w or height % cfg.tile_h:
+        raise ValueError(
+            f"framebuffer {width}x{height} must be a multiple of the tile "
+            f"size {cfg.tile_w}x{cfg.tile_h}; pad the viewport")
+    setup, valid, bbox, _orig, clip_ovf = _triangle_setup(
+        clip, indices, width, height, double_sided, front_ccw, near_eps,
+        screen_size=screen_size, screen_offset=screen_offset)
+    compact, counts, max_count, overflow, big_overflow = _bin_triangles(
+        valid, bbox, width, height, cfg)
+    tiles_x = width // cfg.tile_w
+    th, tw = cfg.tile_h, cfg.tile_w
+    zt, idt, b0t, b1t = raster_tiles(setup, compact, counts, th=th, tw=tw,
+                                     tiles_x=tiles_x, depth_less=depth_less,
+                                     chunk=cfg.chunk,
+                                     screen_offset=screen_offset)
+    vb = VisibilityBuffer(
+        depth=_untile(zt, tiles_x, th, tw), tri_id=_untile(idt, tiles_x, th, tw),
+        bary=torch.stack([_untile(b0t, tiles_x, th, tw),
+                          _untile(b1t, tiles_x, th, tw)], dim=-1))
+    stats = RasterStats(max_bin_count=max_count,
+                        bin_overflow=overflow + clip_ovf,
+                        big_overflow=big_overflow, num_culled=(~valid).sum())
+    return vb, stats
+
+
+# ---------------------------------------------------------------------------
+# Attribute interpolation (the deferred half of the two-pass path)
+# ---------------------------------------------------------------------------
+
+
+def _screen_lambdas(vb: VisibilityBuffer) -> Tensor:
+    l0 = vb.bary[..., 0]
+    l1 = vb.bary[..., 1]
+    return torch.stack([l0, l1, 1.0 - l0 - l1], dim=-1)
+
+
+def _perspective(lam: Tensor, wi: Tensor) -> Tensor:
+    """Screen barycentrics (H, W, 3) -> perspective-correct ones."""
+    num = lam * wi
+    den = (num[..., 0:1] + num[..., 1:2]) + num[..., 2:3]
+    return num / torch.where(torch.abs(den) < 1e-20, torch.ones_like(den), den)
+
+
+def perspective_bary(vb: VisibilityBuffer, indices: Tensor,
+                     winv: Tensor) -> Tensor:
+    """Screen-space barycentrics -> perspective-correct ones, (H, W, 3)
+    (JAX raster.py:929)."""
+    vidx = indices.long()[torch.clamp(vb.tri_id, min=0).long()]
+    return _perspective(_screen_lambdas(vb), winv[vidx])
+
+
+def _weighted_corners(a: Tensor, pb: Tensor) -> Tensor:
+    """sum_k a[..., k, :] * pb[..., k] over the three corners, in order."""
+    return ((a[..., 0, :] * pb[..., 0:1] + a[..., 1, :] * pb[..., 1:2])
+            + a[..., 2, :] * pb[..., 2:3])
+
+
+def interpolate(vb: VisibilityBuffer, indices: Tensor, attr: Tensor,
+                pbary: Tensor, background=0.0) -> Tensor:
+    """Perspective-correct interpolation of a per-vertex attribute (V, C)
+    with `perspective_bary`'s weights -> (H, W, C) (JAX raster.py:943)."""
+    vidx = indices.long()[torch.clamp(vb.tri_id, min=0).long()]
+    out = _weighted_corners(attr[vidx], pbary)
+    return torch.where((vb.tri_id >= 0)[..., None], out,
+                       torch.as_tensor(background, dtype=out.dtype,
+                                       device=out.device))
+
+
+def interpolate_all(vb: VisibilityBuffer, indices: Tensor, attrs: Tensor,
+                    winv: Tensor, background=0.0) -> Tensor:
+    """One-gather perspective-correct interpolation of a packed (V, C)
+    attribute matrix -> (H, W, C) (JAX raster.py:959): attributes and 1/w
+    ride the same per-corner gather."""
+    vidx = indices.long()[torch.clamp(vb.tri_id, min=0).long()]
+    packed = torch.cat([attrs, winv[:, None]], dim=-1)[vidx]   # (H,W,3,C+1)
+    pb = _perspective(_screen_lambdas(vb), packed[..., -1])
+    out = _weighted_corners(packed[..., :-1], pb)
+    return torch.where((vb.tri_id >= 0)[..., None], out,
+                       torch.as_tensor(background, dtype=out.dtype,
+                                       device=out.device))
 
 
 def pad_viewport(width: int, height: int, cfg: RasterizerConfig

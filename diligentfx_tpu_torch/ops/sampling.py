@@ -11,6 +11,11 @@ import torch
 
 Tensor = torch.Tensor
 
+# texture wrap modes (the JAX package's sampling.py:22-24)
+WRAP_REPEAT = 0
+WRAP_MIRROR = 1
+WRAP_CLAMP = 2
+
 
 def _clamp_idx(i: Tensor, size) -> Tensor:
     return torch.clamp(i, 0, size - 1)

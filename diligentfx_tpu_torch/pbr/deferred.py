@@ -2,25 +2,34 @@
 diligentfx_tpu/pbr/deferred.py).
 
   1. visibility: the fused raster kernel rasterizes, interpolates the
-     per-vertex attributes and fetches the material row per pixel
-     (rasterize_fused, channel-first output);
-  2. shading, split into the layers the post chain composites: direct
-     (punctual + emissive), ambient diffuse, ambient specular and the
-     split-sum environment factor.
+     per-vertex attributes (with UV derivatives when textured) and fetches
+     the material row per pixel (rasterize_fused, channel-first output);
+  2. material textures (atlas binding mode: base colour, normal map,
+     phys-desc, emissive, occlusion with the LOD from the derivatives);
+  3. shading, split into the layers the post chain composites: direct
+     (punctual, shadowed by the cascaded shadow factor, + emissive),
+     ambient diffuse, ambient specular and the split-sum environment
+     factor.
 
 World position is reconstructed from the raster depth (the JAX package's
 default DFX_RECON=on behaviour; the port reads no environment).
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import torch
 
 from diligentfx_tpu_torch import math3d as m3
+from diligentfx_tpu_torch.components.shadow_map_manager import \
+    cascaded_shadow_factors
 from diligentfx_tpu_torch.config import RasterizerConfig
 from diligentfx_tpu_torch.ops import raster as rz
 from diligentfx_tpu_torch.ops.raster_kernel import raster_tiles_fused
+from diligentfx_tpu_torch.ops.texture import (TextureHeap, apply_uv_transform,
+                                              sample_material_texture,
+                                              texture_base_size)
 from diligentfx_tpu_torch.ops.sampling import (bilinear_sample, dir_to_oct_uv,
                                                point_sample, sample_env_oct,
                                                upsample_bilinear)
@@ -72,10 +81,13 @@ def _material_table(mats) -> Tensor:
     ], dim=-1)
 
 
-def _vertex_inputs(scene: ScenePrimitives, info: RenderInfo):
+def _vertex_inputs(scene: ScenePrimitives, info: RenderInfo,
+                   use_textures: bool = False):
     """Per-vertex data of the fused path: (clip, winv, packed attrs (V, C),
-    n_ch) with attrs = [world normal (3), previous clip x, y, w (3)] (world
-    position is reconstructed from depth instead of interpolated)."""
+    n_ch) with attrs = [world normal (3), previous clip x, y, w (3)] and,
+    when textured, [uv (2), node-transformed tangent (3), tangent sign (1)]
+    (JAX deferred.py:72; world position is reconstructed from depth
+    instead of interpolated)."""
     world_pos, world_nrm, _ = transform_vertices(scene, info.model_transform)
     clip = m3.transform_points(world_pos, info.camera.view_proj)
     w = clip[:, 3]
@@ -89,53 +101,96 @@ def _vertex_inputs(scene: ScenePrimitives, info: RenderInfo):
     # divide breaks for triangles crossing the previous near plane)
     prev_cxyw = torch.stack([prev_clip[:, 0], prev_clip[:, 1],
                              prev_clip[:, 3]], dim=-1)
-    packed = torch.cat([world_nrm, prev_cxyw], dim=-1)
+    attrs = [world_nrm, prev_cxyw]
+    if use_textures:
+        # tangents transform like normals (rigid / uniform scale), by the
+        # node matrices alone as in the JAX package
+        vm = scene.node_matrices[scene.vertex_node.long()]
+        t = scene.tangents
+        tan3 = m3.normalize(t[:, 0:1] * vm[:, 0, :3] + t[:, 1:2] * vm[:, 1, :3]
+                            + t[:, 2:3] * vm[:, 2, :3])
+        attrs += [scene.uvs, tan3, t[:, 3:4]]
+    packed = torch.cat(attrs, dim=-1)
     return clip, winv, packed, packed.shape[1]
 
 
+UV0 = 6     # channel of u in the packed attributes (after normal, prev clip)
+
+
 def fused_raster_inputs(scene: ScenePrimitives, info: RenderInfo, *,
-                        pad_w: int, pad_h: int, cfg: RasterizerConfig
-                        ) -> rz.FusedKernelInputs:
+                        pad_w: int, pad_h: int, cfg: RasterizerConfig,
+                        use_textures: bool = False) -> rz.FusedKernelInputs:
     """Vertex stage + triangle setup + binning: the fused tile kernel's
     inputs for this scene and camera (per-triangle consts = material id,
-    node id; the material table rides transposed)."""
-    clip, winv, packed, n_ch = _vertex_inputs(scene, info)
+    node id; the material table rides transposed; textured scenes add the
+    UV derivative channels)."""
+    clip, winv, packed, n_ch = _vertex_inputs(scene, info, use_textures)
     tri_node = scene.vertex_node[scene.indices[:, 0].long()]
     consts = torch.stack([scene.tri_material.to(torch.float32),
                           tri_node.to(torch.float32)], dim=-1)
     mat_table_t = _material_table(scene.materials).t().contiguous()
     return rz.prepare_fused(clip, scene.indices, packed, winv, consts,
                             mat_table_t, width=pad_w, height=pad_h, cfg=cfg,
-                            n_ch=n_ch, double_sided=scene.tri_double_sided)
+                            n_ch=n_ch,
+                            deriv_channels=((UV0, UV0 + 1) if use_textures
+                                            else ()),
+                            double_sided=scene.tri_double_sided)
 
 
 def _fused_raster(scene: ScenePrimitives, info: RenderInfo, *, pad_w: int,
-                  pad_h: int, cfg: RasterizerConfig):
+                  pad_h: int, cfg: RasterizerConfig, use_textures: bool):
     """Raster + in-kernel interpolation + material fetch.  Returns (vb,
     fused channels (C, H, W), stats)."""
     with torch.profiler.record_function("dfx.raster_inputs"):
         k = fused_raster_inputs(scene, info, pad_w=pad_w, pad_h=pad_h,
-                                cfg=cfg)
+                                cfg=cfg, use_textures=use_textures)
     z, tid, out = raster_tiles_fused(k.setup, k.planes, k.candidates,
                                      k.counts, k.mat_table, **k.kernel_kw)
     return rz.VisibilityBuffer(depth=z, tri_id=tid), out, k.stats
 
 
 def _check_supported(scene: ScenePrimitives):
-    for name in ("mask_indices", "blend_indices", "tex_ids", "joints",
+    for name in ("mask_indices", "blend_indices", "joints",
                  "materials_sheen", "materials_anisotropy",
                  "materials_iridescence", "materials_transmission",
                  "materials_volume"):
         if getattr(scene, name) is not None:
             raise NotImplementedError(
-                f"scene.{name} is not ported yet (later slices: textures, "
-                "material extensions, OIT / alpha mask, skinning)")
+                f"scene.{name} is not ported yet (later slices: material "
+                "extensions, OIT / alpha mask, skinning)")
+
+
+def _slot_sample(scene: ScenePrimitives, info: RenderInfo, atlas,
+                 mat_id: Tensor, uv_px: Tensor, duv_dx: Tensor,
+                 duv_dy: Tensor, slot: int):
+    """(texel (H, W, 4), bound (H, W, 1)) of each pixel's material texture
+    in `slot`, with the LOD from the UV derivatives scaled to the texture's
+    base size (JAX deferred.py:342-365).  Unbound slots (-1) sample texture
+    0 and are masked by `bound`."""
+    s_tid = scene.tex_ids[mat_id, slot]
+    bound = (s_tid >= 0)[..., None]
+    xf = scene.tex_uv_transform[mat_id, slot]
+    wraps = scene.tex_wraps[mat_id, slot]
+    uv_t = apply_uv_transform(uv_px, xf[..., :4], xf[..., 4:6])
+    safe = torch.clamp(s_tid, min=0)
+    eff_w, eff_h = texture_base_size(atlas, safe)
+    size = torch.stack([eff_w, eff_h], dim=-1)
+    dx = duv_dx * size
+    dy = duv_dy * size
+    rho2 = torch.maximum(dx[..., 0] * dx[..., 0] + dx[..., 1] * dx[..., 1],
+                         dy[..., 0] * dy[..., 0] + dy[..., 1] * dy[..., 1])
+    lod = 0.5 * torch.log2(torch.clamp(rho2, min=1e-12))
+    lod = lod + info.renderer_params.mip_bias
+    val = sample_material_texture(atlas, safe, uv_t, lod, wrap_u=wraps[..., 0],
+                                  wrap_v=wraps[..., 1])
+    return val, bound
 
 
 def _shade_band(scene: ScenePrimitives, info: RenderInfo, ibl_maps, env_oct,
                 vb, fused_px: Tensor, *, pad_w: int, pad_h: int,
-                use_ibl: bool, use_lights: bool,
-                fast_env: bool) -> GBufferData:
+                use_ibl: bool, use_lights: bool, fast_env: bool,
+                atlas=None, use_textures: bool = False, shadow_mode=None,
+                pcf_kernel_size: int = 3) -> GBufferData:
     """Deferred shading of the whole padded frame from the fused kernel's
     channel-first output (the fused_px branch of JAX deferred.py:224).
     Returns the PADDED G-buffer."""
@@ -148,10 +203,17 @@ def _shade_band(scene: ScenePrimitives, info: RenderInfo, ibl_maps, env_oct,
         return torch.where(hit_m, torch.stack([fused_px[c] for c in
                                                range(a, b)], dim=-1), zero)
 
-    n_ch = 6                                # normal (3) + previous clip (3)
-    node_id = torch.where(hit, fused_px[n_ch + 1].to(torch.int32),
-                          torch.zeros((), dtype=torch.int32, device=dev))
-    m0 = n_ch + 2                           # material-table row channels
+    # channels: normal (3) + previous clip (3) [+ uv (2), tangent (3), sign]
+    n_ch = UV0 + 6 if use_textures else UV0
+    o = n_ch
+    if use_textures:
+        duv_dx = grp(o, o + 2)              # the kernel's derivative pairs,
+        duv_dy = grp(o + 2, o + 4)          # grouped as the JAX package does
+        o += 4
+    izero = torch.zeros((), dtype=torch.int32, device=dev)
+    mat_id = torch.where(hit, fused_px[o].to(torch.int32), izero)
+    node_id = torch.where(hit, fused_px[o + 1].to(torch.int32), izero)
+    m0 = o + 2                              # material-table row channels
 
     def mgrp(a, b):
         return grp(m0 + a, m0 + b)
@@ -176,6 +238,37 @@ def _shade_band(scene: ScenePrimitives, info: RenderInfo, ibl_maps, env_oct,
     roughness = mgrp(8, 9)
     occlusion = torch.ones_like(metallic)
 
+    if use_textures and atlas is not None:
+        uv_px = grp(UV0, UV0 + 2)
+        tan_px = grp(UV0 + 2, UV0 + 5)
+        tan_sign = grp(UV0 + 5, UV0 + 6)
+        slot_sample = functools.partial(_slot_sample, scene, info, atlas,
+                                        mat_id.long(), uv_px, duv_dx, duv_dy)
+        bc_t, bc_on = slot_sample(0)
+        base_color = torch.where(
+            bc_on, base_color * m3.srgb_to_linear(bc_t[..., :3]), base_color)
+        n_t, n_on = slot_sample(1)
+        # tangent-space normal perturbation (PerturbNormal analogue)
+        t_b = m3.normalize(tan_px - nrm_px * m3.dot(tan_px, nrm_px))
+        b_b = m3.cross(nrm_px, t_b) * tan_sign
+        nscale = mgrp(9, 10)
+        n_ts = n_t[..., :3] * 2.0 - 1.0
+        n_ts = n_ts * torch.cat([nscale, nscale, torch.ones_like(nscale)],
+                                dim=-1)
+        n_mapped = m3.normalize(n_ts[..., 0:1] * t_b + n_ts[..., 1:2] * b_b
+                                + n_ts[..., 2:3] * nrm_px)
+        nrm_px = torch.where(n_on, n_mapped, nrm_px)
+        pd_t, pd_on = slot_sample(2)
+        roughness = torch.where(pd_on, roughness * pd_t[..., 1:2], roughness)
+        metallic = torch.where(pd_on, metallic * pd_t[..., 2:3], metallic)
+        em_t, em_on = slot_sample(3)
+        emissive = torch.where(
+            em_on, emissive * m3.srgb_to_linear(em_t[..., :3]), emissive)
+        ao_t, ao_on = slot_sample(4)
+        occl_strength = mgrp(10, 11)
+        occlusion = torch.where(
+            ao_on, 1.0 + occl_strength * (ao_t[..., 0:1] - 1.0), occlusion)
+
     view = m3.normalize(info.camera.position - pos_px)
     srf = sh.get_surface_reflectance_mr(base_color, metallic, roughness)
     workflow = mgrp(11, 12)
@@ -194,7 +287,13 @@ def _shade_band(scene: ScenePrimitives, info: RenderInfo, ibl_maps, env_oct,
         ibl_scale=rp.ibl_scale[:3])
     lighting = sh.default_lighting(pos_px)
     if use_lights:
-        lighting = sh.apply_punctual_lights(shading, info.lights, lighting)
+        shadow_factors = None
+        if shadow_mode is not None:
+            shadow_factors = cascaded_shadow_factors(pos_px, info,
+                                                     shadow_mode,
+                                                     pcf_kernel_size)
+        lighting = sh.apply_punctual_lights(shading, info.lights, lighting,
+                                            shadow_factors=shadow_factors)
 
     scale = rp.ibl_scale[:3]
     if use_ibl and ibl_maps is not None:
@@ -259,25 +358,31 @@ def _shade_band(scene: ScenePrimitives, info: RenderInfo, ibl_maps, env_oct,
 def render_gbuffer(scene: ScenePrimitives, info: RenderInfo, ibl_maps,
                    env_oct, *, width: int, height: int, cfg: RasterizerConfig,
                    use_ibl: bool = True, use_lights: bool = True,
-                   fast_env: bool = False, shadow_mode=None,
+                   shadow_mode=None, pcf_kernel_size: int = 3, atlas=None,
                    use_textures: bool = False, enable_clearcoat: bool = False,
-                   emit_debug: bool = False) -> GBufferData:
-    """The G-buffer main pass (JAX deferred.py:111, fused path)."""
-    if shadow_mode is not None or info.shadow_attribs is not None:
-        raise NotImplementedError("shadows are not ported yet (later slice: "
-                                  "the --csm metric)")
-    if use_textures:
-        raise NotImplementedError("textures are not ported yet (later slice: "
-                                  "the --csm metric)")
+                   fast_env: bool = False, emit_debug: bool = False
+                   ) -> GBufferData:
+    """The G-buffer main pass (JAX deferred.py:111), fused path: the K1
+    raster with UV derivatives when textured, material textures from a
+    TextureAtlas, and the cascaded shadow factor when `shadow_mode` is set
+    (info carries the shadow attribs, maps and moments)."""
+    if isinstance(atlas, TextureHeap):
+        raise NotImplementedError("the texture heap is not ported yet: a "
+                                  "later slice")
     if enable_clearcoat or emit_debug:
         raise NotImplementedError("clear coat and debug AOVs are not ported "
                                   "yet (later slice)")
+    if shadow_mode is not None and info.shadow_attribs is None:
+        raise ValueError("shadow_mode needs info.shadow_attribs and maps")
     _check_supported(scene)
     pad_w, pad_h = rz.pad_viewport(width, height, cfg)
     vb, fused_px, _stats = _fused_raster(
-        scene, info, pad_w=pad_w, pad_h=pad_h, cfg=cfg)
+        scene, info, pad_w=pad_w, pad_h=pad_h, cfg=cfg,
+        use_textures=use_textures)
     gb = _shade_band(scene, info, ibl_maps, env_oct, vb, fused_px,
                      pad_w=pad_w, pad_h=pad_h, use_ibl=use_ibl,
-                     use_lights=use_lights, fast_env=fast_env)
+                     use_lights=use_lights, fast_env=fast_env, atlas=atlas,
+                     use_textures=use_textures, shadow_mode=shadow_mode,
+                     pcf_kernel_size=pcf_kernel_size)
     return GBufferData(*(x[:height, :width] if isinstance(x, torch.Tensor)
                          else x for x in gb))

@@ -1,9 +1,12 @@
-"""Scene packing, vertex stage and renderer resources (the port of the scene
-side of diligentfx_tpu/pbr/renderer.py).
+"""Scene packing, vertex stage and the forward renderer (the port of
+diligentfx_tpu/pbr/renderer.py).
 
 The whole scene is one "mega draw": a vertex/index soup with per-vertex
 node ids and per-triangle material ids.  PBRRenderer owns the environment
-map and the precomputed IBL resources.
+map and the precomputed IBL resources, and `render` draws one forward
+frame: vertex stage -> raster (the fused kernel K1, or the two-pass
+kernel K4 + interpolate_all) -> per-pixel material -> shading with the
+cascaded shadow factor -> background -> tone map -> sRGB.
 """
 from __future__ import annotations
 
@@ -17,11 +20,18 @@ from diligentfx_tpu_torch.attribs import (CameraAttribs, PBRLightAttribs,
                                           PBRMaterialBasicAttribs,
                                           PBRRendererShaderParameters,
                                           stack_materials)
-from diligentfx_tpu_torch.config import PBRRendererCreateInfo, RasterizerConfig
+from diligentfx_tpu_torch.components.shadow_map_manager import \
+    cascaded_shadow_factors
+from diligentfx_tpu_torch.config import (DebugViewType, PBRRendererCreateInfo,
+                                         PSOFlags, RasterizerConfig,
+                                         ShadowMode, ToneMappingMode)
 from diligentfx_tpu_torch.device import resolve_device
 from diligentfx_tpu_torch.gltf.primitives import MeshData
-from diligentfx_tpu_torch.ops.sampling import oct_pixel_dirs
+from diligentfx_tpu_torch.ops import raster as rz
+from diligentfx_tpu_torch.ops.sampling import oct_pixel_dirs, sample_env_oct
+from diligentfx_tpu_torch.pbr import shading as sh
 from diligentfx_tpu_torch.pbr.ibl import precompute_ibl_maps
+from diligentfx_tpu_torch.postfx.tonemap import ToneMappingAttribs, tone_map
 
 Tensor = torch.Tensor
 
@@ -116,7 +126,9 @@ def build_scene(meshes: Sequence[Tuple[MeshData, np.ndarray,
 
 class RenderInfo(NamedTuple):
     """Dynamic per-frame inputs (GLTF_PBR_Renderer::RenderInfo + the frame
-    constants).  Shadow inputs are not ported yet and must stay None."""
+    constants).  shadow_attribs / shadow_maps / shadow_moments are the
+    cascaded shadow pass's products; the per-light shadow inputs are not
+    ported yet and must stay None."""
     camera: CameraAttribs
     lights: PBRLightAttribs
     renderer_params: PBRRendererShaderParameters
@@ -178,8 +190,9 @@ def default_env_oct(device=None) -> Tensor:
 
 
 class PBRRenderer:
-    """Owns the environment map and precomputed IBL resources (JAX
-    renderer.py:208; PBR_Renderer construction + PrecomputeCubemaps)."""
+    """Owns the environment map and precomputed IBL resources and renders
+    forward frames (JAX renderer.py:208; PBR_Renderer construction +
+    PrecomputeCubemaps + the GLTF render loop)."""
 
     def __init__(self, ci: PBRRendererCreateInfo = PBRRendererCreateInfo(),
                  env_oct: Optional[Tensor] = None,
@@ -188,9 +201,6 @@ class PBRRenderer:
         self.device = resolve_device(device)
         self.ci = ci
         self.raster_cfg = raster_cfg
-        if ci.enable_shadows:
-            raise NotImplementedError(
-                "shadows are not ported yet (later slice: the --csm metric)")
         self.env_oct = (default_env_oct(self.device) if env_oct is None
                         else env_oct.to(self.device))
         if ibl_maps is not None:
@@ -204,3 +214,138 @@ class PBRRenderer:
                 num_spec_samples=ci.num_specular_env_samples)
         else:
             self.ibl_maps = None
+
+    def render(self, scene: ScenePrimitives, info: RenderInfo, *,
+               width: int, height: int, flags: PSOFlags = None,
+               debug_view: DebugViewType = DebugViewType.NONE,
+               tone_mapping_mode: ToneMappingMode = ToneMappingMode.UNCHARTED2,
+               convert_output_to_srgb: bool = True,
+               shadow_mode: ShadowMode = None, fuse: str = "auto") -> Tensor:
+        """Render one forward frame -> (height, width, 3) (JAX
+        renderer.py:257).  fuse="auto" takes the fused raster K1 on CUDA and
+        the two-pass path on the CPU, as the JAX package takes the fused
+        kernel on its accelerator only; "on" and "off" force a branch
+        ("off" runs K4 on the card)."""
+        if flags is None:
+            flags = PSOFlags.DEFAULT()
+        use_shadows = bool(self.ci.enable_shadows
+                           and info.shadow_attribs is not None)
+        return _render_frame(
+            scene, info, self.ibl_maps, self.env_oct, width=width,
+            height=height, cfg=self.raster_cfg,
+            use_ibl=bool(self.ci.enable_ibl and (PSOFlags.USE_IBL in flags)),
+            use_lights=bool(PSOFlags.USE_LIGHTS in flags),
+            debug_view=debug_view,
+            tone_mapping_mode=(tone_mapping_mode
+                               if PSOFlags.ENABLE_TONE_MAPPING in flags
+                               else ToneMappingMode.NONE),
+            convert_output_to_srgb=convert_output_to_srgb,
+            shadow_mode=(shadow_mode or ShadowMode.PCF) if use_shadows
+            else None,
+            pcf_kernel_size=self.ci.pcf_kernel_size, fuse=fuse)
+
+
+def _render_frame(scene: ScenePrimitives, info: RenderInfo, ibl_maps, env_oct,
+                  *, width: int, height: int, cfg: RasterizerConfig,
+                  use_ibl: bool, use_lights: bool, debug_view: DebugViewType,
+                  tone_mapping_mode: ToneMappingMode,
+                  convert_output_to_srgb: bool, shadow_mode=None,
+                  pcf_kernel_size: int = 3, fuse: str = "auto") -> Tensor:
+    """The forward frame (JAX renderer.py:296)."""
+    if debug_view != DebugViewType.NONE:
+        raise NotImplementedError("debug views are not ported yet: a later "
+                                  "slice (debug AOVs)")
+    if scene.mask_indices is not None:
+        raise NotImplementedError("the alpha-mask tail is not ported yet: a "
+                                  "later slice (OIT / alpha-mask resolve)")
+    if fuse not in ("auto", "on", "off"):
+        raise ValueError(f"fuse must be auto, on or off, got {fuse!r}")
+    pad_w, pad_h = rz.pad_viewport(width, height, cfg)
+    dev = scene.positions.device
+
+    # ---- vertex stage -----------------------------------------------------
+    world_pos, world_nrm, _ = transform_vertices(scene, info.model_transform)
+    clip = m3.transform_points(world_pos, info.camera.view_proj)
+    w = clip[:, 3]
+    winv = torch.where(torch.abs(w) > 1e-12, 1.0 / w, torch.zeros_like(w))
+    packed_attrs = torch.cat([world_pos, world_nrm], dim=-1)
+    fused = fuse == "on" or (fuse == "auto" and dev.type == "cuda")
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    if fused:
+        # fused raster + interpolation + material fetch (K1)
+        from diligentfx_tpu_torch.pbr.deferred import _material_table
+        consts = scene.tri_material.to(torch.float32)[:, None]
+        vb, fused_cx, _stats = rz.rasterize_fused(
+            clip, scene.indices, packed_attrs, winv, consts,
+            _material_table(scene.materials).t().contiguous(),
+            width=pad_w, height=pad_h, cfg=cfg, n_ch=6,
+            double_sided=scene.tri_double_sided)
+        hit = vb.tri_id >= 0
+        hm = hit[..., None]
+
+        def grp(a, b, o=0):
+            g = torch.stack([fused_cx[c] for c in range(o + a, o + b)], -1)
+            return torch.where(hm, g, zero)
+
+        interp = grp(0, 6)
+        m0 = 7                                   # after the one const
+        base_color = grp(0, 3, m0)
+        emissive = grp(4, 7, m0)
+        metallic = grp(7, 8, m0)
+        roughness = grp(8, 9, m0)
+    else:
+        # two-pass: the K4 raster, then one interpolation gather
+        vb, _stats = rz.rasterize(clip, scene.indices, width=pad_w,
+                                  height=pad_h, cfg=cfg,
+                                  double_sided=scene.tri_double_sided)
+        interp = rz.interpolate_all(vb, scene.indices, packed_attrs, winv)
+        hit = vb.tri_id >= 0
+        mat_id = scene.tri_material[torch.clamp(vb.tri_id, min=0).long()]
+        mats = scene.materials
+        mid = mat_id.long()
+        base_color = mats.base_color_factor[mid][..., :3]
+        metallic = mats.metallic_factor[mid][..., None]
+        roughness = mats.roughness_factor[mid][..., None]
+        emissive = mats.emissive_factor[mid]
+    pos_px = interp[..., 0:3]
+    nrm_px = m3.normalize(interp[..., 3:6])
+    occlusion = torch.ones_like(metallic)
+
+    # ---- shading ----------------------------------------------------------
+    view = m3.normalize(info.camera.position - pos_px)
+    srf = sh.get_surface_reflectance_mr(base_color, metallic, roughness)
+    ndotv = torch.clamp(m3.dot(nrm_px, view), 0.0, 1.0)
+    rp = info.renderer_params
+    shading = sh.SurfaceShadingInfo(
+        pos=pos_px, view=view, occlusion=occlusion,
+        emissive=emissive * rp.emission_scale,
+        base=sh.BaseLayerShadingInfo(srf=srf, metallic=metallic,
+                                     normal=nrm_px, ndotv=ndotv),
+        ibl_scale=rp.ibl_scale[:3])
+    lighting = sh.default_lighting(pos_px)
+    if use_lights:
+        shadow_factors = None
+        if shadow_mode is not None:
+            shadow_factors = cascaded_shadow_factors(pos_px, info,
+                                                     shadow_mode,
+                                                     pcf_kernel_size)
+        lighting = sh.apply_punctual_lights(shading, info.lights, lighting,
+                                            shadow_factors=shadow_factors)
+    if use_ibl and ibl_maps is not None:
+        lighting = sh.apply_ibl(shading, ibl_maps, lighting)
+    color = sh.resolve_lighting(shading, lighting)
+
+    # ---- background: the env map along the view ray -----------------------
+    ray = _camera_rays(info.camera, pad_w, pad_h)
+    bg = sample_env_oct([env_oct], ray, torch.zeros(ray.shape[:-1],
+                                                    device=dev))
+    color = torch.where(hit[..., None], color, bg)
+
+    # ---- tone map + sRGB ---------------------------------------------------
+    if tone_mapping_mode != ToneMappingMode.NONE:
+        color = tone_map(color, tone_mapping_mode, ToneMappingAttribs(
+            middle_gray=rp.middle_gray, white_point=rp.white_point),
+            ave_log_lum=rp.average_log_lum)
+    if convert_output_to_srgb:
+        color = m3.linear_to_srgb(color)
+    return color[:height, :width]

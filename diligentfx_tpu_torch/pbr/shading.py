@@ -9,7 +9,7 @@ transmission) are not ported yet.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -134,11 +134,21 @@ def _light_attenuation(shading_pos: Tensor, light: PBRLightAttribs, i: int):
 
 
 def apply_punctual_lights(shading: SurfaceShadingInfo, lights: PBRLightAttribs,
-                          lighting: LayerLightingInfo) -> LayerLightingInfo:
-    """Accumulate all punctual lights (RenderPBR.psh:479-499)."""
+                          lighting: LayerLightingInfo,
+                          shadow_factors: Optional[Tensor] = None
+                          ) -> LayerLightingInfo:
+    """Accumulate all punctual lights (RenderPBR.psh:479-499).
+
+    shadow_factors: optional (N_lights, H, W) visibility in [0, 1] from the
+    shadow pass, applied to the lights with a shadow map index >= 0 (JAX
+    shading.py:231-249)."""
     base_p = lighting.punctual
     for i in range(lights.count):
         prop_dir, att = _light_attenuation(shading.pos, lights, i)
+        if shadow_factors is not None:
+            att = att * torch.where(lights.shadow_map_index[i] >= 0,
+                                    shadow_factors[i][..., None],
+                                    torch.ones_like(att))
         intensity = lights.intensity[i] * att
         diffuse, spec, ndotl = brdf.smith_ggx_brdf(
             -prop_dir, shading.base.normal, shading.view, shading.base.srf)
@@ -202,3 +212,12 @@ def apply_ibl(shading: SurfaceShadingInfo, maps: IBLMaps,
     return lighting._replace(diffuse_ibl=diffuse_ibl,
                              specular_ibl=specular_ibl)
 
+
+
+def resolve_lighting(shading: SurfaceShadingInfo,
+                     lighting: LayerLightingInfo) -> Tensor:
+    """Final forward colour of the base layer (JAX shading.py:450):
+    punctual + occluded, scaled IBL + emissive."""
+    base_ibl = ((lighting.diffuse_ibl + lighting.specular_ibl)
+                * shading.ibl_scale * shading.occlusion)
+    return lighting.punctual + base_ibl + shading.emissive

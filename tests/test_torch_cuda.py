@@ -1,7 +1,7 @@
-"""The port's CUDA kernels on the card: each kernel (K1 raster, K2 warp, K3
-march, K5 fused GTAO) against its plain PyTorch version, the wrappers'
-checks and launch counts, and a small bench frame on the GPU against the
-port's CPU path.
+"""The port's CUDA kernels on the card: each kernel (K1 fused raster, K2
+warp, K3 march, K4 two-pass raster, K5 fused GTAO) against its plain
+PyTorch version, the wrappers' checks and launch counts, and small bench
+and csm frames on the GPU against the port's CPU path.
 
 These tests need an NVIDIA GPU (sm_90a) and nvcc; elsewhere they skip.  Run
 them on the card with
@@ -20,6 +20,7 @@ from diligentfx_tpu_torch.ops import gtao as tg
 from diligentfx_tpu_torch.ops import march as tm
 from diligentfx_tpu_torch.ops import raster as tr
 from diligentfx_tpu_torch.ops import raster_kernel as trk
+from diligentfx_tpu_torch.ops import raster_tiles as trt
 from diligentfx_tpu_torch.ops import warp as tw
 
 pytestmark = pytest.mark.cuda
@@ -210,5 +211,78 @@ def test_small_frame_matches_cpu_path(cuda, config):
     task_ci = (cs.bench_task_manager_ci() if config == "bench"
                else cs.slice_task_manager_ci())
     cpu, gpu = cs.small_frames(task_ci, cuda)
+    assert np.isfinite(gpu).all()
+    assert psnr(cpu, gpu) > 50.0
+
+
+@pytest.mark.parametrize("case", [(32, 1, True), (8, 4, False),
+                                  (16, 1, True)])
+def test_raster_tiles_kernel_matches_plain(cuda, case):
+    """K4 vs raster_tiles_plain: ids exact, z / b0 / b1 equal; 8, 16 and 32
+    rows a tile, a tile list capped below the big-triangle count (tiles
+    at the cap), reversed depth, a viewport offset."""
+    th, seed, depth_less = case
+    clip, idx, *_ = _triangles(800, seed, cuda)
+    cfg = RasterizerConfig(tile_h=th, tile_w=128, bin_capacity=96,
+                           max_tiles_per_tri=8, big_tri_capacity=32, chunk=8)
+    w, h, off = 384, 256, (0, 64)
+    setup, valid, bbox, _, _ = tr._triangle_setup(
+        clip, idx, w, h, torch.ones(800, dtype=torch.bool, device=cuda), True,
+        1e-3, screen_size=(w, 2 * h), screen_offset=off)
+    cand, counts, *_ = tr._bin_triangles(valid, bbox, w, h, cfg)
+    assert int(counts.max()) > cand.shape[1] or th != 32  # tiles at the cap
+    kw = dict(th=th, tw=128, tiles_x=w // 128, depth_less=depth_less,
+              screen_offset=off)
+    before = trt.raster_tiles.launches
+    a = trt.raster_tiles(setup, cand, counts, **kw)
+    torch.cuda.synchronize()
+    assert trt.raster_tiles.launches == before + 1
+    b = trt.raster_tiles_plain(setup, cand, counts, **kw)
+    assert torch.equal(a[1], b[1])
+    hit = b[1] >= 0
+    assert float(hit.float().mean()) > 0.2
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def test_raster_tiles_rejects_bad_inputs(cuda):
+    setup = torch.zeros((4, 16), device=cuda)
+    cand = torch.zeros((2, 8), dtype=torch.int32, device=cuda)
+    counts = torch.zeros((2,), dtype=torch.int32, device=cuda)
+    kw = dict(th=8, tw=128, tiles_x=2)
+    with pytest.raises(TypeError):
+        trt.raster_tiles(setup.double(), cand, counts, **kw)
+    with pytest.raises(TypeError):
+        trt.raster_tiles(setup, cand.long(), counts, **kw)
+    with pytest.raises(ValueError):
+        trt.raster_tiles(setup, cand.cpu(), counts, **kw)
+    with pytest.raises(ValueError):
+        trt.raster_tiles(setup[:, :9], cand, counts, **kw)
+    with pytest.raises(ValueError):                  # 2 tiles, rows of 3
+        trt.raster_tiles(setup, cand, counts, **dict(kw, tiles_x=3))
+    with pytest.raises(ValueError):                  # 24 rows: no variant
+        trt.raster_tiles(setup, cand, counts, **dict(kw, th=24))
+    z, tid, b0, b1 = trt.raster_tiles(setup, cand, counts, **kw)
+    assert bool(torch.isinf(z).all()) and bool((tid == -1).all())
+
+
+def test_small_csm_frame_matches_cpu_path(cuda):
+    """Two 256x128 csm frames (textures, 2-cascade EVSM2 shadows) on the
+    GPU vs the port's CPU path: 50 dB."""
+    import chip_smoke as cs
+    from diligentfx_tpu_torch.utils.image import psnr
+    cpu, gpu = cs.small_csm_frames(cuda)
+    assert np.isfinite(gpu).all()
+    assert psnr(cpu, gpu) > 50.0
+
+
+@pytest.mark.parametrize("fuse", ["off", "on"])
+def test_forward_csm_frame_matches_cpu_path(cuda, fuse):
+    """PBRRenderer.render of the csm_256 scene on the two-pass (K4) and
+    fused (K1) branches vs the CPU path: 50 dB."""
+    import chip_smoke as cs
+    from diligentfx_tpu_torch.utils.image import psnr
+    cpu = cs.forward_csm_frame("cpu", "auto")
+    gpu = cs.forward_csm_frame(cuda, fuse)
     assert np.isfinite(gpu).all()
     assert psnr(cpu, gpu) > 50.0

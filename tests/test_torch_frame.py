@@ -34,7 +34,8 @@ import bench
 from diligentfx_tpu import math3d as jm3
 from diligentfx_tpu.attribs import (CameraAttribs, PBRLightAttribs,
                                     PBRRendererShaderParameters)
-from diligentfx_tpu.config import PBRRendererCreateInfo, RasterizerConfig
+from diligentfx_tpu.config import (PBRRendererCreateInfo, RasterizerConfig,
+                                    ShadowMode)
 from diligentfx_tpu.hydrogent.task_manager import (FrameSettings,
                                                    HnTaskManager,
                                                    TaskManagerCreateInfo)
@@ -50,6 +51,7 @@ from diligentfx_tpu_torch.ops.raster_kernel import raster_tiles_fused
 from diligentfx_tpu_torch.ops.warp import warp_bilinear
 from diligentfx_tpu_torch.pbr.renderer import PBRRenderer as PortRenderer
 from diligentfx_tpu_torch.utils.image import psnr
+from tests.torch_shadow_ref import jax_cascade_maps_op_by_op
 from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 W, H = 256, 128
@@ -88,13 +90,19 @@ GB_TOL = {
 }
 
 
-def _camera_and_lights():
+SUN = [-0.5, -0.7, -0.5]
+
+
+def _camera_and_lights(csm=False):
+    """The bench camera and lights; with csm the sun casts the cascaded
+    shadows (shadow map index 0), as in bench.py --csm."""
     eye = [0.0, 1.0, 7.5]
     cam = CameraAttribs.create(jm3.look_at(eye, [0.0, 0.0, 0.0]),
                                jm3.perspective(0.7, W / H, 0.1, 100.0), eye,
                                0.1, 100.0, W, H)
     lights = PBRLightAttribs.concat([
-        PBRLightAttribs.directional([-0.5, -0.7, -0.5], [3.0, 3.0, 3.0]),
+        PBRLightAttribs.directional(SUN, [3.0, 3.0, 3.0],
+                                    shadow_map_index=0 if csm else -1),
         PBRLightAttribs.point([2.0, 2.0, 2.0], [8.0, 7.0, 6.0], range=30.0)])
     return RenderInfo(camera=cam, lights=lights,
                       renderer_params=PBRRendererShaderParameters.create())
@@ -218,6 +226,8 @@ def test_frame_resumes_from_converted_jax_state(frames):
 
 def test_frame_runs_no_kernel_on_cpu(frames):
     """The CPU path runs the plain versions: no kernel launch is counted."""
+    from diligentfx_tpu_torch.ops.raster_tiles import raster_tiles
+    assert raster_tiles.launches == 0
     assert raster_tiles_fused.launches == 0
     assert warp_bilinear.launches == 0
     assert march_small_table.launches == 0
@@ -233,7 +243,7 @@ def _port_renderer():
                         device="cpu")
 
 
-UNPORTED = {"enable_shadows": True, "enable_dof": True,
+UNPORTED = {"enable_dof": True,
             "enable_light_scattering": True, "enable_auto_exposure": True,
             "enable_selection": True, "enable_grid": True, "vis_only": True,
             "ssr_stage_cut": "march", "ssr_march_sweep": "static"}
@@ -400,3 +410,261 @@ def test_bench_config_golden(bench_frames):
     p = psnr(np.clip(out.color.numpy(), 0.0, 1.0),
              ref.astype(np.float64) / 255.0)
     assert p > 40.0, p
+
+
+# ---------------------------------------------------------------------------
+# the --csm frame: textured materials + cascaded EVSM2 shadows
+# ---------------------------------------------------------------------------
+
+# the slice-1 effects plus EVSM2 shadows; the scene carries bench.py's atlas
+CSM = dataclasses.replace(SLICE, enable_shadows=True,
+                          shadow_mode=ShadowMode.EVSM2)
+SHADOW_SIZE = 256
+
+
+@pytest.fixture(scope="module")
+def csm_inputs(frames):
+    """The textured bench --smoke scene (bench.py's atlas), its 2 EVSM2
+    cascades at 256^2 (the JAX package's distribute_cascades), the port's
+    shadow pass over them (HnTaskManager.render_shadows) and the JAX
+    package's (its cascade raster run op by op, then the moments and the
+    blur), with the renderer and IBL of `frames`."""
+    from diligentfx_tpu.components import shadow_map_manager as jsm
+    from diligentfx_tpu.pbr.renderer import transform_vertices
+    ren = frames[2]
+    scene, atlas = bench.build_bench_scene(2, 2, 12, textured=True)
+    info = _camera_and_lights(csm=True)
+    cam = info.camera
+    att = jsm.distribute_cascades(cam.view, jm3.inverse(cam.view),
+                                  float(cam.proj[0, 0]), float(cam.proj[1, 1]),
+                                  0.1, 100.0, SUN, num_cascades=2,
+                                  shadow_map_size=SHADOW_SIZE)
+    port_ren = PortRenderer(PortCI(), raster_cfg=cv.raster_config_from_jax(CFG),
+                            device="cpu", env_oct=cv.tensor(ren.env_oct),
+                            ibl_maps=cv.ibl_maps_from_jax(ren.ibl_maps))
+    ptm = ttm.HnTaskManager(port_ren, cv.task_manager_ci_from_jax(CSM),
+                            atlas=cv.atlas_from_jax(atlas))
+    pscene = cv.scene_from_jax(scene)
+    pinfo = ptm.render_shadows(pscene, cv.render_info_from_jax(info),
+                               cv.shadow_attribs_from_jax(att),
+                               shadow_map_size=SHADOW_SIZE)
+    jmaps = jax_cascade_maps_op_by_op(transform_vertices(scene)[0],
+                                      scene.indices, att, SHADOW_SIZE, CFG)
+    jmoments = np.asarray(jsm.gaussian_blur_separable(
+        jsm.convert_to_filterable(jax.numpy.asarray(jmaps),
+                                  ShadowMode.EVSM2)))
+    return dict(ren=ren, scene=scene, atlas=atlas, info=info, att=att,
+                ptm=ptm, pscene=pscene, pinfo=pinfo, jmaps=jmaps,
+                jmoments=jmoments)
+
+
+def test_csm_shadow_pass_matches_jax(csm_inputs):
+    """The port's shadow pass on the textured bench scene (the cascade depth
+    maps through K4's plain version, the EVSM2 moments, the blur) against
+    the JAX package's: coverage equal and depth within 1e-6 (as
+    tests/test_torch_shadows.py on the golden scene), moments within 1e-5
+    relative (EVSM's exp(40 z) amplifies an ulp of z forty-fold)."""
+    g = csm_inputs
+    maps, ref = g["pinfo"].shadow_maps.numpy(), g["jmaps"]
+    assert maps.shape == ref.shape == (2, SHADOW_SIZE, SHADOW_SIZE)
+    assert 0.3 < (ref < 1.0).mean() < 1.0
+    np.testing.assert_array_equal(maps < 1.0, ref < 1.0)
+    np.testing.assert_allclose(maps, ref, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(g["pinfo"].shadow_moments.numpy(),
+                               g["jmoments"], rtol=1e-5, atol=0)
+
+
+def test_csm_gbuffer_matches_jax(csm_inputs):
+    """The textured, shadowed G-buffer: the port's render_gbuffer (K1's plain
+    version with the UV-derivative channels, the five texture slots, the
+    normal map, the EVSM2 cascade factor) against the JAX package's
+    deferred shading (_shade_band, jitted) on the same kernel output, each
+    with its own shadow maps and moments (the JAX side with the JAX
+    package's, which test_csm_shadow_pass_matches_jax holds against the
+    port's).  The JAX side shades the port's fused-kernel output:
+    the kernel itself is held against the interpreted Pallas kernel with
+    derivative channels in tests/test_torch_raster.py, and compiling the
+    interpreted kernel into the textured JAX frame costs 100-150 s of one
+    core.  Tolerances as GB_TOL (XLA's contracted multiply-adds), but the
+    base colour and material, which the textures now modulate: all within
+    1e-5 (XLA's contracted multiply-adds in the texel and mip weights;
+    measured 2.4e-7 and 8.9e-8)."""
+    from diligentfx_tpu.pbr import deferred as jd
+    from diligentfx_tpu.ops import raster as jr
+    from diligentfx_tpu_torch.pbr import deferred as td
+    from diligentfx_tpu_torch.ops.raster_kernel import raster_tiles_fused
+    g = csm_inputs
+    pinfo, pscene = g["pinfo"], g["pscene"]
+    kw = dict(width=W, height=H, cfg=cv.raster_config_from_jax(CFG),
+              use_ibl=True, use_lights=True, shadow_mode=ShadowMode.EVSM2,
+              atlas=g["ptm"].atlas, use_textures=True, fast_env=True)
+    pgb = td.render_gbuffer(pscene, pinfo, g["ptm"].renderer.ibl_maps,
+                            g["ptm"].renderer.env_oct, **kw)
+    k = td.fused_raster_inputs(pscene, pinfo, pad_w=W, pad_h=H,
+                               cfg=kw["cfg"], use_textures=True)
+    z, tid, out = raster_tiles_fused(k.setup, k.planes, k.candidates,
+                                     k.counts, k.mat_table, **k.kernel_kw)
+    assert out.shape[0] == 12 + 4 + 2 + 20     # channels, derivs, ids, mat
+    vb = jr.VisibilityBuffer(depth=jax.numpy.asarray(z.numpy()),
+                             tri_id=jax.numpy.asarray(tid.numpy()),
+                             bary=jax.numpy.zeros((H, W, 2)))
+    jinfo = g["info"]._replace(
+        shadow_attribs=g["att"],
+        shadow_maps=jax.numpy.asarray(g["jmaps"]),
+        shadow_moments=jax.numpy.asarray(g["jmoments"]))
+    shade = jax.jit(functools.partial(
+        jd._shade_band, band_h=H, pad_w=W, pad_h=H, use_ibl=True,
+        use_lights=True, shadow_mode=ShadowMode.EVSM2, pcf_kernel_size=3,
+        use_textures=True, enable_clearcoat=False, fast_env=True,
+        light_shadow_kinds=()))
+    ren = g["ren"]
+    jgb = jax.tree.map(np.asarray, shade(
+        g["scene"], jinfo, ren.ibl_maps, ren.env_oct, vb, None, None,
+        jax.numpy.int32(0), atlas=g["atlas"],
+        fused_px=jax.numpy.asarray(out.numpy())))
+    hit = jgb.hit
+    np.testing.assert_array_equal(pgb.hit.numpy(), hit)
+    np.testing.assert_array_equal(pgb.mesh_id.numpy(), jgb.mesh_id)
+    assert 0.3 < hit.mean() < 1.0
+    tol = dict(GB_TOL, base_color=(1e-5, 0.0), material_data=(1e-5, 0.0))
+    for name, (atol, rtol) in tol.items():
+        x, y = getattr(jgb, name)[hit], getattr(pgb, name).numpy()[hit]
+        close = np.abs(y - x) <= 5e-4 + 5e-4 * np.abs(x)
+        assert close.mean() >= 0.999, (name, int((~close).sum()))
+        np.testing.assert_allclose(y, x, atol=atol, rtol=rtol, err_msg=name)
+
+
+def test_csm_frame_runs_and_is_textured_and_shadowed(csm_inputs, frames):
+    """Two frames of the port's csm task-manager frame (the shadow pass,
+    then execute): finite in [0, 1], the cascade maps half covered, and
+    against the untextured, unshadowed slice-1 frame of the same scene the
+    base colour and the direct light differ where they should."""
+    g = csm_inputs
+    ptm, pinfo = g["ptm"], g["pinfo"]
+    assert pinfo.shadow_maps.shape == (2, SHADOW_SIZE, SHADOW_SIZE)
+    assert pinfo.shadow_moments.shape == (2, SHADOW_SIZE, SHADOW_SIZE, 2)
+    assert 0.3 < float((pinfo.shadow_maps < 1.0).float().mean()) < 1.0
+    state = ptm.initial_state(W, H)
+    for _ in range(FRAMES):
+        out = ptm.execute(g["pscene"], pinfo, state, width=W, height=H)
+        state = out.state
+    b = out.color.numpy()
+    assert b.shape == (H, W, 3) and np.isfinite(b).all()
+    assert 0.0 <= b.min() <= b.max() <= 1.0
+    plain = frames[1][-1].gbuffer
+    hit = out.gbuffer.hit.numpy() & plain.hit.numpy()
+    base_diff = np.abs(out.gbuffer.base_color.numpy()
+                       - plain.base_color.numpy())[hit]
+    assert (base_diff.max(-1) > 1e-3).mean() > 0.5      # textured
+    direct_diff = (out.gbuffer.direct.numpy()
+                   - plain.direct.numpy())[hit].max(-1)
+    assert (direct_diff < -1e-2).mean() > 0.05          # shadowed somewhere
+
+
+def test_csm_unported_options_raise():
+    """Per-light shadows and the texture heap come with a later slice."""
+    from diligentfx_tpu_torch.ops.texture import TextureHeap
+    heap = TextureHeap(texels=torch.zeros(4, 4),
+                       mip_base=torch.zeros(1, 1, dtype=torch.int32),
+                       mip_size=torch.ones(1, 1, 2, dtype=torch.int32),
+                       num_mips=1)
+    ci = cv.task_manager_ci_from_jax(CSM)
+    with pytest.raises(NotImplementedError, match="later slice"):
+        ttm.HnTaskManager(_port_renderer(), ci, atlas=heap)
+    tm = ttm.HnTaskManager(_port_renderer(), ci)
+    scene = cv.scene_from_jax(bench.build_bench_scene(1, 2, 8))
+    with pytest.raises(NotImplementedError, match="per-light"):
+        tm.execute(scene, cv.render_info_from_jax(_camera_and_lights()),
+                   tm.initial_state(W, H), width=W, height=H,
+                   light_shadow_kinds=("spot", "none"))
+
+
+def test_forward_render_csm_golden(frames):
+    """PBRRenderer.render of the csm_256 golden (tests/golden/generate.py
+    render_csm_golden: a sphere on a ground plane, 2-cascade EVSM2 shadows
+    at 256^2) with the port's own cascades, shadow maps and moments, on the
+    two-pass branch (K4's plain version: fuse="auto" on the CPU) and the
+    fused one: 40 dB against the golden (tests/test_golden.py's bound), and
+    60 dB against the JAX package's render of the golden's own steps, about
+    10 dB under the 69.96 dB measured (XLA's FMAs; the port's own cascades
+    and maps).  The JAX renderer is `frames`' (the golden's IBL dims) with
+    the golden's raster config."""
+    import copy
+    import os
+    import sys
+    from diligentfx_tpu.components import shadow_map_manager as jsm
+    from diligentfx_tpu.pbr.renderer import transform_vertices
+    from diligentfx_tpu.utils.image import read_png
+    from diligentfx_tpu_torch.components import shadow_map_manager as tsm
+    from diligentfx_tpu_torch.config import ShadowMode as PortMode
+    from diligentfx_tpu_torch.pbr.renderer import \
+        transform_vertices as port_transform_vertices
+    golden = os.path.join(os.path.dirname(__file__), "golden")
+    sys.path.insert(0, golden)
+    import generate as gen
+    from diligentfx_tpu.attribs import PBRMaterialBasicAttribs
+    from diligentfx_tpu.gltf.primitives import plane, uv_sphere
+    from diligentfx_tpu.pbr.renderer import build_scene
+    w, h, sun = 256, 128, [-0.5, -1.0, -0.4]
+    gn = np.eye(4, dtype=np.float32)
+    gn[3, 1] = -1.0
+    scene = build_scene([
+        (uv_sphere(0.9, 24, 32), np.eye(4, dtype=np.float32),
+         PBRMaterialBasicAttribs.create(base_color_factor=(0.7, 0.55, 0.35, 1),
+                                        metallic_factor=0.6,
+                                        roughness_factor=0.35)),
+        (plane(20.0), gn, PBRMaterialBasicAttribs.create(
+            base_color_factor=(0.45, 0.45, 0.5, 1.0), roughness_factor=0.7)),
+    ])
+    jren = copy.copy(frames[2])
+    jren.ci = dataclasses.replace(jren.ci, enable_shadows=True)
+    jren.raster_cfg = gen._small_cfg()
+    cam = gen._small_cam([0.0, 1.2, 4.0], [0, 0, 0], w, h)
+    att = jsm.distribute_cascades(cam.view, jm3.inverse(cam.view),
+                                  float(cam.proj[0, 0]), float(cam.proj[1, 1]),
+                                  0.1, 100.0, sun, num_cascades=2,
+                                  shadow_map_size=256)
+    wp, _, _ = transform_vertices(scene)
+    maps = jsm.render_cascade_shadow_maps(wp, scene.indices, att,
+                                          shadow_map_size=256,
+                                          cfg=jren.raster_cfg)
+    info = RenderInfo(
+        camera=cam,
+        lights=PBRLightAttribs.directional(sun, [4, 4, 4], shadow_map_index=0),
+        renderer_params=PBRRendererShaderParameters.create())
+    jframe = np.asarray(jren.render(
+        scene, info._replace(shadow_attribs=att, shadow_maps=maps,
+                             shadow_moments=jsm.gaussian_blur_separable(
+                                 jsm.convert_to_filterable(
+                                     maps, ShadowMode.EVSM2))),
+        width=w, height=h, shadow_mode=ShadowMode.EVSM2))
+
+    ren = PortRenderer(PortCI(enable_shadows=True),
+                       raster_cfg=cv.raster_config_from_jax(jren.raster_cfg),
+                       device="cpu", env_oct=cv.tensor(jren.env_oct),
+                       ibl_maps=cv.ibl_maps_from_jax(jren.ibl_maps))
+    pscene, pinfo = cv.scene_from_jax(scene), cv.render_info_from_jax(info)
+    pcam = pinfo.camera
+    patt = tsm.distribute_cascades(pcam.view, torch.linalg.inv(pcam.view),
+                                   float(pcam.proj[0, 0]),
+                                   float(pcam.proj[1, 1]), 0.1, 100.0, sun,
+                                   num_cascades=2, shadow_map_size=256)
+    pwp, _, _ = port_transform_vertices(pscene)
+    pmaps = tsm.render_cascade_shadow_maps(pwp, pscene.indices, patt,
+                                           shadow_map_size=256,
+                                           cfg=ren.raster_cfg)
+    pinfo = pinfo._replace(shadow_attribs=patt, shadow_maps=pmaps,
+                           shadow_moments=tsm.gaussian_blur_separable(
+                               tsm.convert_to_filterable(pmaps,
+                                                         PortMode.EVSM2)))
+    ref = read_png(os.path.join(golden, "csm_256.png"))[..., :3] / 255.0
+    for fuse in ("auto", "on"):
+        img = ren.render(pscene, pinfo, width=w, height=h,
+                         shadow_mode=PortMode.EVSM2, fuse=fuse).numpy()
+        assert img.shape == (h, w, 3) and np.isfinite(img).all()
+        assert psnr(np.clip(img, 0.0, 1.0), ref) > 40.0, fuse
+        assert psnr(jframe, img) > 60.0, (fuse, psnr(jframe, img))
+    # the shadow darkens the ground: unshadowed, the frame differs
+    lit = ren.render(pscene, pinfo._replace(shadow_attribs=None), width=w,
+                     height=h).numpy()
+    assert psnr(lit, img) < 40.0

@@ -1,5 +1,6 @@
-"""Parity of the port's fused rasterizer (diligentfx_tpu_torch.ops.raster and
-ops/raster_kernel.py) with the JAX package on the CPU.
+"""Parity of the port's rasterizer (diligentfx_tpu_torch.ops.raster, the
+fused kernel's ops/raster_kernel.py and the two-pass kernel's
+ops/raster_tiles.py) with the JAX package on the CPU.
 
 The JAX side runs its Pallas kernel in interpret mode (as
 tests/test_raster_fused.py does) and its triangle setup and binning eagerly,
@@ -12,7 +13,12 @@ below are tight:
   * attribute planes: 1e-5 (the JAX package evaluates the corner values
     with an einsum, the port with explicit multiply-adds);
   * tri id exact on every pixel (bin_overflow is 0 on these scenes), depth
-    within 1e-6, channels on hit pixels within 1e-5 * max(1, |value|).
+    within 1e-6, channels on hit pixels within 1e-5 * max(1, |value|);
+  * the two-pass path (rasterize, interpolate_all): ids exact, depth and
+    barycentrics within 1e-6 against the JAX steps run op by op; K4's
+    plain version against the interpreted Pallas kernel, whose XLA
+    compilation contracts the barycentric planes into FMAs: within an ulp
+    of the plane's largest term (see test_raster_tiles_plain_vs_pallas).
 """
 import functools
 
@@ -261,3 +267,177 @@ def test_fused_kernel_wrapper_checks():
                                          n_const=1)
     assert z.shape == (8, 256) and bool(torch.isinf(z).all())
     assert bool((tid == -1).all()) and out.shape == (2, 8, 256)
+
+
+# ---------------------------------------------------------------------------
+# the two-pass path: rasterize -> K4 (raster_tiles) -> interpolate_all
+# ---------------------------------------------------------------------------
+
+TWO_PASS_CFG = JCfg(tile_h=8, tile_w=128, bin_capacity=256,
+                    max_tiles_per_tri=8, big_tri_capacity=64, chunk=8)
+
+
+def _jax_two_pass(clip, idx, ds, w, h, cfg, depth_less=True):
+    """JAX rasterize(backend="xla") step by step: setup op by op, the
+    integer binning jitted (exact), the XLA tile scan op by op with 64
+    candidates a step (the winner does not depend on the grouping).  Under
+    jit, XLA would contract the plane evaluations into FMAs."""
+    import dataclasses
+    with jax.disable_jit():
+        setup, valid, bbox, _, clip_ovf = jr._triangle_setup(
+            clip, idx, w, h, ds, True, 1e-3)
+    cand, _, _, max_count, ovf, big_ovf = jax.jit(
+        jr._bin_triangles, static_argnums=(2, 3, 4))(valid, bbox, w, h, cfg)
+    with jax.disable_jit():
+        z, tid, b0, b1 = jr._raster_tiles(
+            setup, cand, w, h, dataclasses.replace(cfg, chunk=64),
+            float("inf") if depth_less else float("-inf"), depth_less)
+    stats = [int(max_count), int(ovf + clip_ovf), int(big_ovf),
+             int((~valid).sum())]
+    return (np.asarray(z), np.asarray(tid),
+            np.stack([np.asarray(b0), np.asarray(b1)], -1), stats)
+
+
+def _two_pass_case(inputs, case):
+    """The bench --smoke scene (near-clipped); for "big_triangles" the
+    corners of its first 40 triangles spread 8x in x and y, both faces
+    drawn, so that many triangles cover more than max_tiles_per_tri tiles
+    and go through the big-triangle list (same shapes, so the op-by-op JAX
+    steps compile once for both cases)."""
+    clip = np.array(inputs["clip"])
+    idx = np.asarray(inputs["idx"])
+    ds = np.asarray(inputs["ds"])
+    if case == "big_triangles":
+        clip[np.unique(idx[:40]), :2] *= 8.0
+        ds = np.ones_like(ds)
+    return clip, idx, ds, W, H
+
+
+@pytest.mark.parametrize("case", ["sphere", "big_triangles"])
+def test_rasterize_two_pass_matches_jax(inputs, case):
+    """The port's rasterize (K4's plain version on the CPU) against the JAX
+    package's two-pass path: ids exact, depth and barycentrics within
+    1e-6 (measured: equal), stats equal."""
+    from diligentfx_tpu_torch.ops.raster_tiles import raster_tiles
+    clip, idx, ds, w, h = _two_pass_case(inputs, case)
+    jz, jid, jb, jst = _jax_two_pass(jnp.asarray(clip), jnp.asarray(idx),
+                                     jnp.asarray(ds), w, h, TWO_PASS_CFG)
+    if case == "big_triangles":
+        assert jst[1] == 0          # no pair dropped
+        setup, valid, bbox, *_ = tr._triangle_setup(
+            _t(clip), _t(idx), w, h, _t(ds), True, 1e-3)
+        span = ((bbox[:, 2] - bbox[:, 0]) // 128 + 1) * (
+            (bbox[:, 3] - bbox[:, 1]) // 8 + 1)
+        assert int((valid & (span > 8)).sum()) >= 10   # big triangles
+    vb, st = tr.rasterize(_t(clip), _t(idx), width=w, height=h,
+                          cfg=cv.raster_config_from_jax(TWO_PASS_CFG),
+                          double_sided=_t(ds))
+    assert raster_tiles.launches == 0
+    assert [int(x) for x in st] == jst
+    np.testing.assert_array_equal(vb.tri_id.numpy(), jid)
+    hit = jid >= 0
+    assert hit.mean() > 0.1
+    np.testing.assert_allclose(vb.depth.numpy()[hit], jz[hit], rtol=0,
+                               atol=1e-6)
+    np.testing.assert_allclose(vb.bary.numpy()[hit], jb[hit], rtol=0,
+                               atol=1e-6)
+    assert np.isinf(vb.depth.numpy()[~hit]).all()
+    assert (vb.bary.numpy()[~hit] == 0).all()
+
+
+def test_interpolate_matches_jax(inputs):
+    """interpolate_all, perspective_bary and interpolate on the two-pass
+    visibility of the --smoke scene, against the JAX functions run op by
+    op on the same visibility buffer: within 1e-6 (the three-corner sums
+    may be taken in another order)."""
+    clip, idx, ds = (np.asarray(inputs[k]) for k in ("clip", "idx", "ds"))
+    vb, _ = tr.rasterize(_t(clip), _t(idx), width=W, height=H,
+                         cfg=cv.raster_config_from_jax(TWO_PASS_CFG),
+                         double_sided=_t(ds))
+    jvb = jr.VisibilityBuffer(depth=jnp.asarray(vb.depth.numpy()),
+                              tri_id=jnp.asarray(vb.tri_id.numpy()),
+                              bary=jnp.asarray(vb.bary.numpy()))
+    packed, winv = inputs["packed"], inputs["winv"]
+    with jax.disable_jit():
+        ja = jr.interpolate_all(jvb, inputs["idx"], packed, winv)
+        jpb = jr.perspective_bary(jvb, inputs["idx"], winv)
+        ji = jr.interpolate(jvb, inputs["idx"], packed[:, :3], jpb,
+                            background=0.5)
+    ta = tr.interpolate_all(vb, _t(idx), _t(packed), _t(winv))
+    tpb = tr.perspective_bary(vb, _t(idx), _t(winv))
+    ti = tr.interpolate(vb, _t(idx), _t(packed)[:, :3], tpb, background=0.5)
+    assert ta.shape == (H, W, inputs["n_ch"])
+    for x, y in ((ja, ta), (jpb, tpb), (ji, ti)):
+        np.testing.assert_allclose(y.numpy(), np.asarray(x), rtol=0,
+                                   atol=1e-6)
+
+
+@pytest.mark.parametrize("depth_less", [True, False])
+def test_raster_tiles_plain_vs_pallas(monkeypatch, depth_less):
+    """raster_tiles_plain against the interpreted raster_tiles_pallas (K4's
+    TPU kernel) on identical inputs: random and huge triangles, a viewport
+    offset, standard and reversed depth."""
+    from diligentfx_tpu_torch.ops.raster_tiles import raster_tiles
+    clip, idx, *_ = _synthetic(seed=5)
+    ds = np.ones(idx.shape[0], bool)
+    ws, hs, off = 256, 64, (0, 32)
+
+    @jax.jit
+    def setup_and_bins(clip):
+        setup, valid, bbox, _, _ = jr._triangle_setup(
+            clip, idx, ws, hs, ds, True, 1e-3, screen_size=(ws, 2 * hs),
+            screen_offset=off)
+        _, cand, counts, *_ = jr._bin_triangles(valid, bbox, ws, hs,
+                                                TWO_PASS_CFG)
+        return setup, cand, counts
+
+    setup, cand, counts = setup_and_bins(clip)
+    kw = dict(th=8, tw=128, tiles_x=2, depth_less=depth_less,
+              screen_offset=off)
+    _interpret(monkeypatch)
+    ja = [np.asarray(x) for x in jrp.raster_tiles_pallas(setup, cand, counts,
+                                                         **kw)]
+    ta = [x.numpy() for x in raster_tiles(_t(setup), _t(cand), _t(counts),
+                                          **kw)]
+    np.testing.assert_array_equal(ta[1], ja[1])
+    hit = ja[1] >= 0
+    assert hit.mean() > 0.1
+    np.testing.assert_allclose(ta[0][hit], ja[0][hit], rtol=0, atol=1e-6)
+    # barycentrics: XLA compiles the interpreted kernel and contracts the
+    # plane evaluation a*px + b*py + c into FMAs, which the port does not;
+    # the two differ by at most an ulp of the plane's largest term (large
+    # on the huge triangles, where the terms cancel)
+    _, win = trk.raster_tiles_winners_plain(
+        _t(setup), _t(cand), _t(counts), th=8, tw=128, tiles_x=2,
+        depth_less=depth_less, screen_offset=off)
+    px, py = trk._pixel_centres(cand.shape[0], 8, 128, 2, off, "cpu")
+    rows = np.asarray(setup)[win.numpy()]
+    pxy = np.broadcast_to(px.numpy(), win.shape), np.broadcast_to(
+        py.numpy(), win.shape)
+    for k, c0 in ((2, 9), (3, 12)):
+        term = np.maximum.reduce([np.abs(rows[..., c0] * pxy[0]),
+                                  np.abs(rows[..., c0 + 1] * pxy[1]),
+                                  np.abs(rows[..., c0 + 2])])
+        bound = 1e-6 + 2.0 * term * 2.0 ** -23
+        err = np.abs(ta[k] - ja[k])
+        assert (err[hit] <= bound[hit]).all(), float((err / bound)[hit].max())
+        assert (err[hit] <= 1e-6).mean() > 0.99
+    clear = np.inf if depth_less else -np.inf
+    assert (ta[0][~hit] == clear).all() and (ta[2][~hit] == 0).all()
+
+
+def test_raster_tiles_wrapper_checks():
+    """Empty tiles keep the clear values; a device the port has no kernel
+    for raises."""
+    from diligentfx_tpu_torch.ops.raster_tiles import raster_tiles
+    setup = torch.zeros((4, 16))
+    cand = torch.full((2, 8), -1, dtype=torch.int32)
+    counts = torch.zeros((2,), dtype=torch.int32)
+    for depth_less, clear in ((True, np.inf), (False, -np.inf)):
+        z, tid, b0, b1 = raster_tiles(setup, cand, counts, th=8, tw=128,
+                                      tiles_x=2, depth_less=depth_less)
+        assert z.shape == tid.shape == b0.shape == (2, 8, 128)
+        assert bool((z == clear).all()) and bool((tid == -1).all())
+        assert bool((b0 == 0).all()) and bool((b1 == 0).all())
+    with pytest.raises(ValueError):
+        raster_tiles(setup.to("meta"), cand, counts, th=8, tw=128, tiles_x=2)
