@@ -3,7 +3,9 @@
 GPU: builds the port's CUDA kernels, holds each against its plain PyTorch
 version on the card, renders the 1080p bench frame with the full bench.py
 feature set (G-buffer -> half-resolution GTAO SSAO -> divisor-2 SSR ->
-composite -> TAA -> bloom -> tone map) and checks it.
+composite -> TAA -> bloom -> tone map), the textured --csm frame and the
+full-chain frame (DoF, epipolar light scattering, auto exposure), and
+checks them.
 
 Phases (any failure exits non-zero; no phase is skipped):
   1. build csrc/*.cu with nvcc (one process per source, all at once);
@@ -37,7 +39,22 @@ Phases (any failure exits non-zero; no phase is skipped):
      after (K1 1, K2 20, K3 1, K4 4 a frame);
  10. a 256x128 csm frame (2 cascades at 256^2, a small atlas) and the
      forward renderer PBRRenderer.render on the csm_256 golden scene (fused
-     K1 and two-pass K4 branches) on the GPU against the port's CPU path.
+     K1 and two-pass K4 branches) on the GPU against the port's CPU path;
+ 11. K1 at the full-chain frame's G-buffer inputs (the atrium scene, the
+     unsegmented route: sub_bins 1, bin capacity 1536);
+ 12. the full-chain frame (examples/benchmark_suite.py config_4_animated):
+     the atrium scene, SSAO, SSR, TAA, DoF on the warp kernel route,
+     bloom, epipolar light scattering and auto exposure, the camera
+     circling the atrium; one warm-up frame, then --frames timed frames
+     with the counts zeroed just before and read just after (K1 1, K2 43
+     a frame);
+ 13. K6, the multi-tap warp, vs warp_bilinear_multi_plain and against 16
+     K2 launches at its natural shape (the full-chain frame's 16 SSAO
+     horizon-tap offset fields on its half-resolution depth, edge-padded
+     to 544 x 1024) and more, all exact; then its own path, the entry
+     point once with the counts zeroed just before and read just after;
+ 14. a 256x128 full-chain frame (two frames, moving camera) on the GPU
+     against the port's CPU path.
 
 Prints the median frame times, one JSON line with each kernel's launches,
 times and bound, the card's name and power limit, and last
@@ -65,6 +82,7 @@ W, H = 1920, 1080
 SMALL_W, SMALL_H = 256, 128
 SUN = [-0.5, -0.7, -0.5]
 SHADOW_SIZE, NUM_CASCADES = 2048, 4      # bench.py --csm
+FULL_CHAIN_SUN = [-0.4, -1.0, -0.2]      # examples/benchmark_suite.py:217
 
 
 def fail(msg: str) -> None:
@@ -182,6 +200,97 @@ def render_info(w, h, device, csm=False):
 
 
 # ---------------------------------------------------------------------------
+# the full-chain configuration (examples/benchmark_suite.py config 4)
+# ---------------------------------------------------------------------------
+
+
+def full_chain_scene(n_columns=12, wall_segments=24, device=DEVICE):
+    """examples/benchmark_suite.py sponza_like_scene, built from the port's
+    primitives: columns (high-poly capitals on box shafts), a 60 m floor
+    and 40 clutter spheres from rng seed 0; 112,592 triangles at 12
+    columns."""
+    from diligentfx_tpu_torch.attribs import PBRMaterialBasicAttribs
+    from diligentfx_tpu_torch.gltf.primitives import cube, plane, uv_sphere
+    from diligentfx_tpu_torch.pbr.renderer import build_scene
+    rng = np.random.default_rng(0)
+    entries = []
+    col = uv_sphere(0.5, 40, 56)
+    box = cube(1.0)
+    for i in range(n_columns):
+        x = (i % (n_columns // 2)) * 2.5 - (n_columns // 4) * 2.5
+        z = -4.0 if i < n_columns // 2 else 4.0
+        node = np.eye(4, dtype=np.float32)
+        node[3, :3] = [x, 1.8, z]
+        entries.append((col, node, PBRMaterialBasicAttribs.create(
+            base_color_factor=(0.75, 0.7, 0.6, 1.0), roughness_factor=0.55)))
+        shaft = np.diag([0.5, 3.6, 0.5, 1.0]).astype(np.float32)
+        shaft[3, :3] = [x, 0.9, z]
+        entries.append((box, shaft, PBRMaterialBasicAttribs.create(
+            base_color_factor=(0.7, 0.65, 0.55, 1.0), roughness_factor=0.6)))
+    floor = plane(60.0, segments=wall_segments)
+    entries.append((floor, np.eye(4, dtype=np.float32),
+                    PBRMaterialBasicAttribs.create(
+                        base_color_factor=(0.5, 0.45, 0.4, 1.0),
+                        roughness_factor=0.25)))
+    for i in range(40):   # clutter spheres
+        node = np.eye(4, dtype=np.float32)
+        node[3, :3] = [rng.uniform(-12, 12), 0.4, rng.uniform(-3, 3)]
+        entries.append((uv_sphere(0.35, 24, 32), node,
+                        PBRMaterialBasicAttribs.create(
+                            base_color_factor=tuple(rng.uniform(0.2, 0.9, 3))
+                            + (1.0,),
+                            metallic_factor=float(rng.uniform(0, 1)),
+                            roughness_factor=float(rng.uniform(0.1, 0.9)))))
+    return build_scene(entries, device=device)
+
+
+def full_chain_raster_config():
+    """benchmark_suite.py:198: the unsegmented binning (sub_bins 1)."""
+    from diligentfx_tpu_torch.config import RasterizerConfig
+    return RasterizerConfig(tile_h=32, tile_w=128, bin_capacity=1536,
+                            max_tiles_per_tri=16, big_tri_capacity=64,
+                            chunk=8)
+
+
+def full_chain_task_manager_ci():
+    """benchmark_suite.py:201-214: SSAO on the per-tap warp route, SSR's
+    non-kernel march, TAA with the warp history, bloom, DoF on the warp
+    route, fast env taps, epipolar light scattering (256 slices x 128
+    samples x 24 steps) and auto exposure."""
+    from diligentfx_tpu_torch.hydrogent.task_manager import \
+        TaskManagerCreateInfo
+    from diligentfx_tpu_torch.postfx.taa import TAAFeatureFlags
+    return TaskManagerCreateInfo(
+        enable_ssao=True, ssao_half_resolution=True, ssao_use_pallas=True,
+        ssao_num_slices=2, ssao_num_steps=4,
+        enable_ssr=True, ssr_half_resolution=True,
+        enable_taa=True, enable_bloom=True, enable_dof=True,
+        dof_use_pallas=True, fast_env_taps=True,
+        enable_light_scattering=True, enable_auto_exposure=True,
+        taa_feature_flags=(TAAFeatureFlags.YCOCG_COLOR_SPACE
+                           | TAAFeatureFlags.GAUSSIAN_WEIGHTING
+                           | TAAFeatureFlags.PALLAS_WARP))
+
+
+def full_chain_info(i, w, h, device):
+    """Frame i of config_4_animated: the camera circles the atrium at 10 m
+    (0.02 rad a frame) looking at (0, 1, 0); one directional light."""
+    from diligentfx_tpu_torch import math3d as m3
+    from diligentfx_tpu_torch.attribs import (CameraAttribs, PBRLightAttribs,
+                                              PBRRendererShaderParameters)
+    from diligentfx_tpu_torch.pbr.renderer import RenderInfo
+    a = i * 0.02
+    eye = [10.0 * np.sin(a), 2.0, 10.0 * np.cos(a)]
+    cam = CameraAttribs.create(
+        m3.look_at(eye, [0, 1, 0], device=device),
+        m3.perspective(0.8, w / h, 0.1, 100.0, device=device), eye, 0.1,
+        100.0, w, h, device=device)
+    return RenderInfo(camera=cam, lights=PBRLightAttribs.directional(
+        FULL_CHAIN_SUN, [4, 4, 4], device=device),
+        renderer_params=PBRRendererShaderParameters.create(device=device))
+
+
+# ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
 
@@ -239,15 +348,15 @@ def _raster_work(k, z, tid, out):
     return n_bytes, tests
 
 
-def phase_raster(scene, info, cfg, use_textures=False):
+def phase_raster(scene, info, cfg, use_textures=False, label="bench"):
     """K1 vs its plain version at the main path's shapes: the bench frame's
-    inputs, or with use_textures the csm frame's (UV-derivative channels)."""
+    inputs, the csm frame's (use_textures: UV-derivative channels) or the
+    full-chain frame's (the unsegmented route)."""
     import torch
     from diligentfx_tpu_torch.ops import raster as rz
     from diligentfx_tpu_torch.ops.raster_kernel import (
         raster_tiles_fused, raster_tiles_fused_plain)
     from diligentfx_tpu_torch.pbr.deferred import fused_raster_inputs
-    label = "csm" if use_textures else "bench"
     pad_w, pad_h = rz.pad_viewport(W, H, cfg)
     k = fused_raster_inputs(scene, info, pad_w=pad_w, pad_h=pad_h, cfg=cfg,
                             use_textures=use_textures)
@@ -398,11 +507,13 @@ def _launch_counters():
     from diligentfx_tpu_torch.ops.march import march_small_table
     from diligentfx_tpu_torch.ops.raster_kernel import raster_tiles_fused
     from diligentfx_tpu_torch.ops.raster_tiles import raster_tiles
-    from diligentfx_tpu_torch.ops.warp import warp_bilinear
+    from diligentfx_tpu_torch.ops.warp import (warp_bilinear,
+                                               warp_bilinear_multi)
     return {"raster_tiles_fused": raster_tiles_fused,
             "warp_bilinear": warp_bilinear,
             "march_small_table": march_small_table, "gtao_fused": gtao_fused,
-            "raster_tiles": raster_tiles}
+            "raster_tiles": raster_tiles,
+            "warp_bilinear_multi": warp_bilinear_multi}
 
 
 def zero_launches():
@@ -414,17 +525,24 @@ def read_launches():
     return {name: fn.launches for name, fn in _launch_counters().items()}
 
 
-# launches a bench frame makes of each kernel (K5 is off the frame's path;
-# K4 runs only in the --csm frame's shadow pass)
+# launches a bench frame makes of each kernel (K5 and K6 are off the
+# frames' paths; K4 runs only in the --csm frame's shadow pass)
 FRAME_LAUNCHES = {"raster_tiles_fused": 1, "warp_bilinear": 20,
-                  "march_small_table": 1, "gtao_fused": 0, "raster_tiles": 0}
-# and a --csm frame: K4 once per shadow cascade
+                  "march_small_table": 1, "gtao_fused": 0, "raster_tiles": 0,
+                  "warp_bilinear_multi": 0}
+# a --csm frame: K4 once per shadow cascade
 CSM_FRAME_LAUNCHES = {**FRAME_LAUNCHES, "raster_tiles": 4}
+# a full-chain frame: K2 for the disocclusion tap 1, the SSAO taps 16 and
+# history 1, the TAA history 1 and the DoF bokeh taps 24; SSR takes its
+# non-kernel march and keeps its history without the warp
+FULL_CHAIN_LAUNCHES = {**FRAME_LAUNCHES, "warp_bilinear": 43,
+                       "march_small_table": 0}
 
 
 def timed_frames(tm, scene, frame_info, frames, expected, label):
-    """One warm-up frame of tm.execute on frame_info(), then `frames` timed
-    frames (host clock ending in a synchronise, CUDA events beside it),
+    """One warm-up frame of tm.execute on frame_info() (called once a
+    frame), then `frames` timed frames (host clock ending in a synchronise,
+    CUDA events beside it),
     with the launch counts zeroed just before and read just after and held
     to `expected` a frame.  Returns (last output, state, host ms list,
     device ms list, launches)."""
@@ -696,7 +814,8 @@ def phase_gtao(gb, info, frame_state):
 
 STAGES = ("dfx.shadows", "dfx.gbuffer", "dfx.raster_inputs",
           "dfx.context_composite", "dfx.ssao", "dfx.ssr",
-          "dfx.taa_bloom_tonemap")
+          "dfx.light_scattering", "dfx.exposure", "dfx.taa_bloom_tonemap",
+          "dfx.dof")
 
 
 def _device_us(event, field):
@@ -730,8 +849,9 @@ def phase_profile(tm, scene, frame_info, frames, path, label):
     """Where a frame's time goes: torch.profiler over `frames` frames of
     HnTaskManager.execute on frame_info() (the csm frame's shadow pass
     included): device time of each stage (the dfx.* ranges; dfx.raster_inputs
-    lies inside dfx.gbuffer, dfx.ssao and dfx.ssr inside
-    dfx.context_composite, dfx.shadows before them all) and of each kernel,
+    lies inside dfx.gbuffer, dfx.ssao, dfx.ssr, dfx.light_scattering and
+    dfx.exposure inside dfx.context_composite, dfx.dof inside
+    dfx.taa_bloom_tonemap, dfx.shadows before them all) and of each kernel,
     and the device's idle share."""
     import torch
     from torch.autograd import DeviceType
@@ -1187,6 +1307,204 @@ def phase_csm_reference():
               f"forward frame ({fuse}) launched {launches}")
 
 
+def phase_full_chain_frame(cfg, scene, frames, out_png, ibl_source):
+    """The full-chain frame (config_4_animated) at 1080p: frame i of the
+    circling camera, one warm-up frame and `frames` timed ones."""
+    import torch
+    from diligentfx_tpu_torch.config import PBRRendererCreateInfo
+    from diligentfx_tpu_torch.hydrogent.task_manager import HnTaskManager
+    from diligentfx_tpu_torch.pbr.renderer import PBRRenderer
+    renderer = PBRRenderer(PBRRendererCreateInfo(), raster_cfg=cfg,
+                           device=DEVICE, env_oct=ibl_source.env_oct,
+                           ibl_maps=ibl_source.ibl_maps)
+    t0 = time.perf_counter()
+    tm = HnTaskManager(renderer, full_chain_task_manager_ci())
+    torch.cuda.synchronize()
+    print(f"full-chain task manager + atmosphere LUTs: "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    frame = [0]
+
+    def frame_info():
+        info = full_chain_info(frame[0], W, H, DEVICE)
+        frame[0] += 1
+        return info
+
+    out, state, host_ms, dev_ms, launches = timed_frames(
+        tm, scene, frame_info, frames, FULL_CHAIN_LAUNCHES, "full-chain")
+    coc = state.dof.coc_history
+    lum = float(state.average_log_lum)
+    check(bool(torch.isfinite(coc).all()) and float(coc.min()) >= -1.0
+          and float(coc.max()) <= 1.0, "DoF CoC history outside [-1, 1]")
+    check(np.isfinite(lum) and lum > 0.0, f"adapted exposure {lum}")
+    print(f"full-chain state: CoC in [{float(coc.min()):.3f}, "
+          f"{float(coc.max()):.3f}], adapted average log luminance "
+          f"{lum:.5f}", flush=True)
+    if out_png:
+        root, ext = os.path.splitext(out_png)
+        _write_png(f"{root}_full_chain{ext or '.png'}", out.color)
+    return (tm, frame_info, launches, float(np.median(host_ms)),
+            float(np.median(dev_ms)), out.gbuffer, state, frame[0] - 1)
+
+
+def phase_warp_multi(gb, frame_i, frame_index):
+    """K6 vs its plain version and against 16 K2 launches at its natural
+    shape, the full-chain frame's 16 SSAO horizon-tap offset fields (2
+    slices x 2 sides x 4 steps) on its half-resolution depth, edge-padded
+    to 544 x 1024; then halo (8, 64), offsets beyond the halo, a 128-wide
+    image and K = 1; all exact.  Then its own path: the entry point once,
+    the counts zeroed just before and read just after."""
+    import torch
+    import torch.nn.functional as F
+    from diligentfx_tpu_torch.ops.warp import (warp_bilinear,
+                                               warp_bilinear_multi,
+                                               warp_bilinear_multi_plain,
+                                               warp_geometry)
+    from diligentfx_tpu_torch.postfx import ssao
+    from diligentfx_tpu_torch.postfx.context import edge_pad
+    ci = full_chain_task_manager_ci()
+    cam = full_chain_info(frame_i, W, H, DEVICE).camera
+    d2 = gb.depth[::2, ::2]
+    offs = ssao.gtao_tap_offsets(d2, cam, frame_index, ssao.SSAOSettings(),
+                                 ci.ssao_num_slices, ci.ssao_num_steps)
+    ph, pw = HALF_H - d2.shape[0], HALF_W - d2.shape[1]
+    img = edge_pad(d2, ph, pw).contiguous()
+    off = torch.stack([edge_pad(o, ph, pw) for o in offs]).contiguous()
+    k = off.shape[0]
+    check(tuple(off.shape) == (16, HALF_H, HALF_W, 2),
+          f"SSAO tap offsets {tuple(off.shape)}")
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(6)
+
+    def rand_case(h, w, kk, reach):
+        lim = torch.tensor(reach, device=DEVICE)
+        return (torch.rand((h, w), generator=gen, device=DEVICE),
+                ((torch.rand((kk, h, w, 2), generator=gen, device=DEVICE)
+                  * 2 - 1) * lim).contiguous())
+
+    cases = [("ssao_taps", img, off, (16, 64)),
+             ("ssao_taps_halo8", img, off, (8, 64)),
+             ("beyond_halo", *rand_case(HALF_H, HALF_W, 16, [192.0, 48.0]),
+              (16, 64)),
+             ("w128_shrink", *rand_case(64, 128, 4, [20.0, 20.0]), (16, 64)),
+             ("k1", img, off[:1].contiguous(), (16, 64))]
+    max_err = 0.0
+    for name, im, of, halo in cases:
+        kw = dict(halo_r=halo[0], halo_c=halo[1])
+        a = warp_bilinear_multi(im, of, **kw)
+        torch.cuda.synchronize()
+        b = warp_bilinear_multi_plain(im, of, **kw)
+        c = torch.stack([warp_bilinear(im, of[i].contiguous(), **kw)
+                         for i in range(of.shape[0])])
+        err = float((a - b).abs().max())
+        err_k2 = float((a - c).abs().max())
+        win = warp_geometry(im.shape[0], im.shape[1], *halo)[2:4]
+        print(f"warp_multi {name}: {tuple(of.shape)}, window {win[0]}x"
+              f"{win[1]} ({4 * win[0] * win[1]} B), max err vs plain "
+              f"{err:.3g}, vs {of.shape[0]} K2 launches {err_k2:.3g}",
+              flush=True)
+        check(a.shape == b.shape and bool(torch.isfinite(a).all()),
+              f"warp_multi {name} output shape / finiteness")
+        check(err == 0.0 and err_k2 == 0.0,
+              f"warp_multi kernel error {err} / {err_k2} ({name})")
+        max_err = max(max_err, err, err_k2)
+
+    # its own path: the entry point at the SSAO-tap shape
+    zero_launches()
+    warp_bilinear_multi(img, off)
+    launches = read_launches()
+    torch.cuda.synchronize()
+    check(launches["warp_bilinear_multi"] == 1
+          and sum(launches.values()) == 1,
+          f"warp_bilinear_multi's path launched {launches}")
+
+    ms = cuda_ms(lambda: warp_bilinear_multi(img, off), 50, 3)
+    dev_ms = kernel_device_ms(lambda: warp_bilinear_multi(img, off),
+                              "warp_multi_kernel", 10)
+    plain_ms = cuda_ms(lambda: warp_bilinear_multi_plain(img, off), 5, 1)
+    taps = [off[i].contiguous() for i in range(k)]
+
+    def k2_taps():
+        for o in taps:
+            warp_bilinear(img, o)
+    k2_ms = cuda_ms(k2_taps, 20, 2)
+    # the library yardstick: one grid_sample call taking the 16 taps as
+    # one (16 H, W) grid of the image, border clamp
+    hh, ww = img.shape
+    x = torch.arange(ww, device=DEVICE, dtype=torch.float32)[None, None, :]
+    y = torch.arange(hh, device=DEVICE, dtype=torch.float32)[None, :, None]
+    grid = torch.stack([(x + 0.5 + off[..., 0]) / ww * 2 - 1,
+                        (y + 0.5 + off[..., 1]) / hh * 2 - 1],
+                       -1).reshape(1, k * hh, ww, 2)
+    src = img[None, None]
+    lib_ms = cuda_ms(lambda: F.grid_sample(src, grid, mode="bilinear",
+                                           padding_mode="border",
+                                           align_corners=False), 50, 3)
+    # each input read once, each output written once: the image, 8 B of
+    # offsets and 4 B of output a tap-pixel; about 20 flops of tap
+    # coordinates and 9 of the bilinear lerps a tap-pixel
+    px = hh * ww
+    n_bytes = 4 * px + k * px * (8 + 4)
+    b_ms, b_by = bound_ms(n_bytes, k * px * 29)
+    print(f"warp_multi: {k} taps at {hh}x{ww}: {ms:.4f} ms CUDA events, "
+          f"device {dev_ms:.4f} ms; {k} K2 launches {k2_ms:.4f} ms; "
+          f"grid_sample {lib_ms:.4f} ms; plain {plain_ms:.3f} ms; "
+          f"{n_bytes / 1e6:.1f} MB, bound {b_ms:.4f} ms ({b_by})",
+          flush=True)
+    return dict(name="warp_bilinear_multi", route="cuda",
+                source="diligentfx_tpu_torch/csrc/warp_multi.cu",
+                replaces="diligentfx_tpu/ops/warp_pallas.py:181",
+                launches=launches["warp_bilinear_multi"], max_abs_err=max_err,
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms, device_ms=dev_ms, k2_taps_ms=k2_ms,
+                path="warp_bilinear_multi, its own entry point, once at the "
+                     "SSAO-tap shape (no frame calls it)",
+                shapes=f"img ({hh},{ww}), offsets ({k},{hh},{ww},2), halo "
+                       f"(16, 64)")
+
+
+def small_full_chain_frames(device):
+    """Two 256x128 full-chain frames (moving camera) of the atrium with 4
+    columns, on the CPU path and on `device`: (cpu colour, colour)."""
+    from diligentfx_tpu_torch.config import PBRRendererCreateInfo
+    from diligentfx_tpu_torch.hydrogent.task_manager import HnTaskManager
+    from diligentfx_tpu_torch.pbr.renderer import PBRRenderer
+    ci = PBRRendererCreateInfo(brdf_lut_dim=32, num_brdf_samples=16,
+                               irradiance_cube_dim=16,
+                               prefiltered_env_map_dim=32,
+                               num_specular_env_samples=16)
+    cfg = full_chain_raster_config()
+    ref = PBRRenderer(ci, raster_cfg=cfg, device="cpu")
+    colors = []
+    for dev in ("cpu", device):
+        ren = (ref if dev == "cpu" else
+               PBRRenderer(ci, raster_cfg=cfg, device=dev,
+                           env_oct=ref.env_oct, ibl_maps=ref.ibl_maps.to(dev)))
+        tm = HnTaskManager(ren, full_chain_task_manager_ci())
+        scene = full_chain_scene(4, device=dev)
+        state = tm.initial_state(SMALL_W, SMALL_H)
+        for i in range(2):
+            out = tm.execute(scene, full_chain_info(i, SMALL_W, SMALL_H, dev),
+                             state, width=SMALL_W, height=SMALL_H,
+                             settings=bench_settings())
+            state = out.state
+        colors.append(out.color.cpu().numpy())
+    return colors[0], colors[1]
+
+
+def phase_full_chain_reference():
+    """The 256x128 full-chain frame on the GPU against the port's CPU
+    path."""
+    from diligentfx_tpu_torch.utils.image import psnr
+    cpu, gpu = small_full_chain_frames(DEVICE)
+    p = psnr(cpu, gpu)
+    print(f"256x128 full-chain frame, GPU vs the port's CPU path: PSNR "
+          f"{p:.2f} dB, max abs diff {np.abs(cpu - gpu).max():.3g}",
+          flush=True)
+    check(np.isfinite(gpu).all(), "small full-chain frame not finite")
+    check(p > 50.0, f"GPU full-chain frame disagrees with the CPU path: "
+                    f"{p:.2f} dB")
+
+
 def card_line() -> str:
     r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,
@@ -1233,7 +1551,7 @@ def main() -> int:
     del gb, state
     scene_csm, atlas = csm_scene(5, 9, 32, DEVICE)
     k1_csm = phase_raster(scene_csm, render_info(W, H, DEVICE, csm=True), cfg,
-                          use_textures=True)
+                          use_textures=True, label="csm")
     k1["max_abs_err"] = max(k1["max_abs_err"], k1_csm["max_abs_err"])
     k1["csm_inputs"] = {key: k1_csm[key] for key in (
         "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}
@@ -1246,12 +1564,35 @@ def main() -> int:
         phase_profile(csm_tm, csm_scene_, csm_info, 3,
                       f"{root}_csm{ext or '.txt'}", "csm")
     phase_csm_reference()
+    del csm_tm, csm_scene_, csm_info
+    fc_cfg = full_chain_raster_config()
+    scene_fc = full_chain_scene()
+    print(f"full-chain scene: {scene_fc.num_triangles} triangles, "
+          f"{scene_fc.num_vertices} vertices", flush=True)
+    check(scene_fc.num_triangles == 112592, "the atrium scene's triangles")
+    k1_fc = phase_raster(scene_fc, full_chain_info(0, W, H, DEVICE), fc_cfg,
+                         label="full-chain")
+    k1["max_abs_err"] = max(k1["max_abs_err"], k1_fc["max_abs_err"])
+    k1["full_chain_inputs"] = {key: k1_fc[key] for key in (
+        "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}
+    (fc_tm, fc_info, fc_launches, fc_ms, fc_dev_ms, fc_gb, fc_state,
+     fc_last) = phase_full_chain_frame(fc_cfg, scene_fc, args.frames,
+                                       args.out_png, tm.renderer)
+    if args.profile:
+        root, ext = os.path.splitext(args.profile)
+        phase_profile(fc_tm, scene_fc, fc_info, 3,
+                      f"{root}_full_chain{ext or '.txt'}", "full-chain")
+    k6 = phase_warp_multi(fc_gb, fc_last, fc_state.frame_index - 1)
+    del fc_gb, fc_state, fc_tm
+    phase_full_chain_reference()
     for k in (k1, k2, k3):
         k["launches"] = launches[k["name"]]
         k["frames"] = args.frames
         k["launches_per_frame"] = launches[k["name"]] / args.frames
-    for k in (k1, k2, k3, k5):
+    for k in (k1, k2, k3, k5, k6):
         k["csm_frame_launches"] = csm_launches[k["name"]]
+    for k in (k1, k2, k3, k4, k5, k6):
+        k["full_chain_frame_launches"] = fc_launches[k["name"]]
     k4["launches"] = csm_launches["raster_tiles"]
     k4["frames"] = args.frames
     k4["launches_per_frame"] = csm_launches["raster_tiles"] / args.frames
@@ -1260,16 +1601,20 @@ def main() -> int:
                   f"{launches['raster_tiles']}")
     k5["frame_launches"] = launches["gtao_fused"]
     k5["launches_per_frame"] = 0.0
+    k6["frame_launches"] = launches["warp_bilinear_multi"]
+    k6["launches_per_frame"] = 0.0
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{**{key: k[key] for key in order},
                 **{key: v for key, v in k.items() if key not in order}}
-               for k in (k1, k2, k3, k4, k5)]
+               for k in (k1, k2, k3, k4, k5, k6)]
     print(f"frame_ms_median {frame_ms:.3f} (CUDA events {frame_dev_ms:.3f}) "
           f"over {args.frames} frames at {W}x{H}")
     print(f"csm_frame_ms_median {csm_ms:.3f} (CUDA events {csm_dev_ms:.3f}) "
-          f"over {args.frames} frames at {W}x{H}; total run "
-          f"{time.perf_counter() - t_start:.1f} s")
+          f"over {args.frames} frames at {W}x{H}")
+    print(f"full_chain_frame_ms_median {fc_ms:.3f} (CUDA events "
+          f"{fc_dev_ms:.3f}) over {args.frames} frames at {W}x{H} on "
+          f"{card}; total run {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

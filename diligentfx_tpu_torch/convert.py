@@ -24,6 +24,8 @@ from diligentfx_tpu_torch.hydrogent.task_manager import (FrameSettings,
 from diligentfx_tpu_torch.ops.texture import TextureAtlas
 from diligentfx_tpu_torch.pbr.renderer import RenderInfo, ScenePrimitives
 from diligentfx_tpu_torch.pbr.shading import IBLMaps
+from diligentfx_tpu_torch.postfx.dof import DoFState
+from diligentfx_tpu_torch.postfx.epipolar import EpipolarSettings
 from diligentfx_tpu_torch.postfx.ssao import SSAOState
 from diligentfx_tpu_torch.postfx.ssr import SSRState
 from diligentfx_tpu_torch.postfx.taa import TAAState
@@ -122,7 +124,7 @@ def _settings(obj, cls):
 
 
 def frame_settings_from_jax(settings) -> FrameSettings:
-    """FrameSettings of the ported effects (SSR, SSAO, TAA, bloom, tone
+    """FrameSettings of the ported effects (SSR, SSAO, TAA, DoF, bloom, tone
     mapping); the JAX package's selection and bound-box inputs must be
     unset."""
     for name in ("selected_ids", "bound_box"):
@@ -133,11 +135,15 @@ def frame_settings_from_jax(settings) -> FrameSettings:
                             for f, d in zip(FrameSettings._fields, port)})
 
 
+def epipolar_settings_from_jax(settings) -> EpipolarSettings:
+    """EpipolarSettings: the structural ints and modes and the float32
+    scalars, field by field."""
+    return _settings(settings, EpipolarSettings)
+
+
 def frame_state_from_jax(state, device=None) -> FrameState:
-    """FrameState of the ported effects (TAA, SSR, SSAO, previous depth)."""
-    for name in ("dof", "average_log_lum"):
-        if getattr(state, name) is not None:
-            raise NotImplementedError(f"FrameState.{name} is not ported yet")
+    """FrameState: TAA, SSR, SSAO and DoF histories, the adapted exposure
+    and the previous depth."""
 
     def opt(x):
         return tensor(x, device) if x is not None else None
@@ -150,9 +156,12 @@ def frame_state_from_jax(state, device=None) -> FrameState:
     ssao = (SSAOState(history=tensor(state.ssao.history, device),
                       depth_history=opt(state.ssao.depth_history))
             if state.ssao is not None else None)
+    dof = (DoFState(coc_history=tensor(state.dof.coc_history, device))
+           if state.dof is not None else None)
     return FrameState(frame_index=int(np.asarray(state.frame_index)),
                       prev_view_proj=tensor(state.prev_view_proj, device),
-                      taa=taa, ssr=ssr, ssao=ssao,
+                      taa=taa, ssr=ssr, ssao=ssao, dof=dof,
+                      average_log_lum=opt(state.average_log_lum),
                       prev_depth=opt(state.prev_depth))
 
 

@@ -1,5 +1,6 @@
 """Procedural mesh primitives (the port's own copy of the JAX package's
-gltf/primitives.py: uv_sphere and plane, the bench scene's meshes).
+gltf/primitives.py: uv_sphere, plane and cube, the meshes of the bench
+scene and of the full-chain frame's atrium).
 
 Pure numpy on host — meshes are built once and uploaded as tensors.
 
@@ -104,3 +105,31 @@ def plane(size: float = 1.0, segments: int = 1) -> MeshData:
             tris.append([a + 1, a + n, a + n + 1])
     idx = np.asarray(tris, np.int32)
     return _with_tangents(pos, nrm, uv, idx)
+
+
+def cube(size: float = 1.0) -> MeshData:
+    s = size * 0.5
+    # 6 faces x 4 verts, CCW from outside
+    faces = [
+        # +X
+        ([s, -s, -s], [s, s, -s], [s, s, s], [s, -s, s], [1, 0, 0]),
+        # -X
+        ([-s, -s, s], [-s, s, s], [-s, s, -s], [-s, -s, -s], [-1, 0, 0]),
+        # +Y
+        ([-s, s, -s], [-s, s, s], [s, s, s], [s, s, -s], [0, 1, 0]),
+        # -Y
+        ([-s, -s, s], [-s, -s, -s], [s, -s, -s], [s, -s, s], [0, -1, 0]),
+        # +Z
+        ([-s, -s, s], [s, -s, s], [s, s, s], [-s, s, s], [0, 0, 1]),
+        # -Z
+        ([s, -s, -s], [-s, -s, -s], [-s, s, -s], [s, s, -s], [0, 0, -1]),
+    ]
+    pos, nrm, uv, idx = [], [], [], []
+    for f, (a, b, c, d, n) in enumerate(faces):
+        base = f * 4
+        pos += [a, b, c, d]
+        nrm += [n] * 4
+        uv += [[0, 1], [1, 1], [1, 0], [0, 0]]
+        idx += [[base, base + 1, base + 2], [base, base + 2, base + 3]]
+    return _with_tangents(np.asarray(pos, np.float64), np.asarray(nrm, np.float64),
+                          np.asarray(uv, np.float64), np.asarray(idx, np.int32))

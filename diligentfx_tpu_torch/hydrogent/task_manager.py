@@ -1,8 +1,8 @@
 """Frame task graph (the port of diligentfx_tpu/hydrogent/task_manager.py):
 [shadow pass] -> BeginFrame (TAA jitter) -> G-buffer main pass (textured
 from the atlas, shadowed by the cascades) -> PostFX context + history
-disocclusion -> SSAO -> SSR -> composite -> TAA -> bloom -> tone map ->
-sRGB.
+disocclusion -> SSAO -> SSR -> composite -> epipolar light scattering ->
+auto exposure -> TAA -> DoF -> bloom -> tone map -> sRGB.
 
 `FrameState` carries the temporal history between frames.  Every task
 switch the port does not have yet raises NotImplementedError when the task
@@ -26,6 +26,8 @@ from diligentfx_tpu_torch.pbr.renderer import (PBRRenderer, RenderInfo,
                                                ScenePrimitives,
                                                transform_vertices)
 from diligentfx_tpu_torch.postfx import bloom as fx_bloom
+from diligentfx_tpu_torch.postfx import dof as fx_dof
+from diligentfx_tpu_torch.postfx import epipolar as fx_epi
 from diligentfx_tpu_torch.postfx import ssao as fx_ssao
 from diligentfx_tpu_torch.postfx import ssr as fx_ssr
 from diligentfx_tpu_torch.postfx import taa as fx_taa
@@ -35,7 +37,9 @@ from diligentfx_tpu_torch.postfx.context import (PostFXResources,
                                                  jitter_to_ndc,
                                                  prepare_postfx_resources,
                                                  taa_jitter_sequence)
-from diligentfx_tpu_torch.postfx.tonemap import ToneMappingAttribs, tone_map
+from diligentfx_tpu_torch.postfx.tonemap import (ToneMappingAttribs,
+                                                 average_log_luminance,
+                                                 tone_map)
 
 Tensor = torch.Tensor
 
@@ -99,9 +103,6 @@ class TaskManagerCreateInfo:
 
 
 _UNPORTED = (
-    ("enable_dof", LATER + " (DoF)"),
-    ("enable_light_scattering", LATER + " (epipolar light scattering)"),
-    ("enable_auto_exposure", LATER + " (auto exposure)"),
     ("enable_selection", LATER + " (components: selection)"),
     ("enable_grid", LATER + " (components: coordinate grid)"),
     ("enable_bound_box", LATER + " (components: bound box)"),
@@ -133,20 +134,23 @@ class FrameSettings(NamedTuple):
     ssr: fx_ssr.SSRSettings = fx_ssr.SSRSettings()
     ssao: fx_ssao.SSAOSettings = fx_ssao.SSAOSettings()
     taa: fx_taa.TAASettings = fx_taa.TAASettings()
+    dof: fx_dof.DoFSettings = fx_dof.DoFSettings()
     bloom: fx_bloom.BloomSettings = fx_bloom.BloomSettings()
     tone_mapping: ToneMappingAttribs = ToneMappingAttribs()
 
 
 class FrameState(NamedTuple):
-    """Temporal history carried between frames: the ported part of the JAX
-    package's FrameState (the DoF and exposure histories come with those
-    effects).  frame_index is a host integer: the TAA jitter index, the
-    effects' noise and the first-frame test need no device round trip."""
+    """Temporal history carried between frames (the JAX package's
+    FrameState).  frame_index is a host integer: the TAA jitter index, the
+    effects' noise and the first-frame test need no device round trip;
+    average_log_lum is the adapted exposure, a 0-dim tensor."""
     frame_index: int
     prev_view_proj: Tensor
     taa: Optional[fx_taa.TAAState] = None
     ssr: Optional[fx_ssr.SSRState] = None
     ssao: Optional[fx_ssao.SSAOState] = None
+    dof: Optional[fx_dof.DoFState] = None
+    average_log_lum: Optional[Tensor] = None
     prev_depth: Optional[Tensor] = None
 
 
@@ -174,6 +178,7 @@ class FrameFx(NamedTuple):
     disocclusion: Optional[Tensor] = None
     new_ssao: Optional[fx_ssao.SSAOState] = None
     new_ssr: Optional[fx_ssr.SSRState] = None
+    new_exposure: Optional[Tensor] = None
 
 
 class HnTaskManager:
@@ -192,6 +197,12 @@ class HnTaskManager:
         self.atlas = atlas
         self.device = renderer.device
         self.jitter_seq = taa_jitter_sequence(16, self.device)
+        # the atmosphere's optical-depth and multiple-scattering LUTs, once
+        self.atmosphere_lut = None
+        if ci.enable_light_scattering:
+            od = fx_epi.precompute_optical_depth_lut(device=self.device)
+            self.atmosphere_lut = (
+                od, fx_epi.precompute_multiple_scattering_lut(od))
 
     def initial_state(self, width: int, height: int) -> FrameState:
         ci, dev = self.ci, self.device
@@ -210,6 +221,10 @@ class HnTaskManager:
                  if ci.enable_ssr else None),
             ssao=(fx_ssao.SSAOState(history=z1 + 1.0, depth_history=z1 + 1.0)
                   if ci.enable_ssao else None),
+            dof=fx_dof.DoFState(coc_history=z1) if ci.enable_dof else None,
+            average_log_lum=(torch.tensor(0.3, dtype=torch.float32,
+                                          device=dev)
+                             if ci.enable_auto_exposure else None),
             prev_depth=(z1 + 1.0 if (ci.enable_taa or ci.enable_ssr
                                      or ci.enable_ssao) else None))
 
@@ -243,13 +258,15 @@ class HnTaskManager:
             raise NotImplementedError(
                 f"per-light (spot / point) shadows are not ported yet: {LATER}")
         # named ranges: torch.profiler attributes host and device time to
-        # the frame's three stages (a few microseconds a frame otherwise)
+        # the frame's three stages (a few microseconds a frame otherwise);
+        # the effects' own ranges nest inside them
         with torch.profiler.record_function("dfx.gbuffer"):
             begin = _frame_begin(scene, info, state, self.renderer,
                                  self.jitter_seq, self.ci, width, height,
                                  self.atlas)
         with torch.profiler.record_function("dfx.context_composite"):
-            fx = _frame_fx(begin, state, settings, self.ci)
+            fx = _frame_fx(begin, state, settings, self.ci,
+                           self.atmosphere_lut)
         with torch.profiler.record_function("dfx.taa_bloom_tonemap"):
             return _frame_post(fx, state, settings, self.ci)
 
@@ -292,8 +309,9 @@ def _frame_begin(scene, info: RenderInfo, state: FrameState,
 
 
 def _frame_fx(begin: FrameBegin, state: FrameState, settings: FrameSettings,
-              ci: TaskManagerCreateInfo) -> FrameFx:
-    """PostFX context + history disocclusion + SSAO + SSR + composite."""
+              ci: TaskManagerCreateInfo, atmosphere_lut=None) -> FrameFx:
+    """PostFX context + history disocclusion + SSAO + SSR + composite +
+    epipolar light scattering + auto exposure."""
     gb, info, first_frame = begin.gb, begin.info, begin.first_frame
     prev_depth = state.prev_depth if state.prev_depth is not None else gb.depth
     resources = prepare_postfx_resources(
@@ -349,14 +367,47 @@ def _frame_fx(begin: FrameBegin, state: FrameState, settings: FrameSettings,
     ao1 = ao[..., None] if ao is not None else 1.0
     color = gb.direct + ao1 * gb.ambient_diffuse + ao1 * spec
     color = torch.where(gb.hit[..., None], color, gb.background)
+
+    if ci.enable_light_scattering and atmosphere_lut is not None:
+        with torch.profiler.record_function("dfx.light_scattering"):
+            shadow_data = None
+            if info.shadow_attribs is not None and \
+                    info.shadow_maps is not None:
+                shadow_data = (info.shadow_attribs, info.shadow_maps)
+            eps = fx_epi.EpipolarSettings(
+                num_epipolar_slices=ci.epipolar_slices,
+                max_samples_in_slice=ci.epipolar_samples,
+                num_ray_march_steps=ci.epipolar_march_steps,
+                use_minmax_tree=ci.epipolar_use_minmax_tree,
+                refinement_factor=ci.epipolar_refinement_factor,
+                single_sctr_lut=ci.epipolar_single_sctr_lut)
+            od_lut, ms_lut = atmosphere_lut
+            color = fx_epi.apply_light_scattering(
+                color, gb.depth, info.camera, info.lights.direction[0],
+                od_lut, eps, shadow_data=shadow_data, ms_lut=ms_lut).color
+
+    # auto exposure (UpdateAverageLuminance): measure, adapt, and hand the
+    # adapted value to the tone map through the shader parameters
+    new_exposure = state.average_log_lum
+    if ci.enable_auto_exposure:
+        with torch.profiler.record_function("dfx.exposure"):
+            measured = average_log_luminance(color)
+            new_exposure = (measured if first_frame else
+                            state.average_log_lum
+                            + (measured - state.average_log_lum)
+                            * ci.exposure_adaptation_rate)
+            info = info._replace(renderer_params=info.renderer_params._replace(
+                average_log_lum=new_exposure))
     return FrameFx(color=color, gb=gb, info=info, resources=resources,
                    first_frame=first_frame, disocclusion=disocclusion,
-                   new_ssao=new_ssao, new_ssr=new_ssr)
+                   new_ssao=new_ssao, new_ssr=new_ssr,
+                   new_exposure=new_exposure)
 
 
 def _frame_post(fx: FrameFx, state: FrameState, settings: FrameSettings,
                 ci: TaskManagerCreateInfo) -> FrameOutput:
-    """Temporal stack + bloom + tone map + sRGB."""
+    """Temporal stack (TAA, DoF with its temporal CoC) + bloom + tone map +
+    sRGB."""
     color, gb, info = fx.color, fx.gb, fx.info
     new_taa = state.taa
     if ci.enable_taa:
@@ -367,6 +418,13 @@ def _frame_post(fx: FrameFx, state: FrameState, settings: FrameSettings,
             color, taa_state, fx.resources, settings.taa,
             feature_flags=ci.taa_feature_flags,
             disocclusion=fx.disocclusion)
+    new_dof = state.dof
+    if ci.enable_dof:
+        with torch.profiler.record_function("dfx.dof"):
+            color, new_dof = fx_dof.apply_dof(
+                color, gb.depth, info.camera, settings.dof, state=state.dof,
+                motion=gb.motion, use_temporal=True,
+                use_pallas=ci.dof_use_pallas)
     if ci.enable_bloom:
         color = fx_bloom.apply_bloom(color, settings.bloom)
     if ci.tone_mapping_mode != ToneMappingMode.NONE:
@@ -377,6 +435,8 @@ def _frame_post(fx: FrameFx, state: FrameState, settings: FrameSettings,
     new_state = FrameState(
         frame_index=state.frame_index + 1,
         prev_view_proj=info.camera.view_proj, taa=new_taa, ssr=fx.new_ssr,
-        ssao=fx.new_ssao,
+        ssao=fx.new_ssao, dof=new_dof,
+        average_log_lum=(fx.new_exposure if ci.enable_auto_exposure
+                         else state.average_log_lum),
         prev_depth=gb.depth if state.prev_depth is not None else None)
     return FrameOutput(color=color, gbuffer=gb, state=new_state)

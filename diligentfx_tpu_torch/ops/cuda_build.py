@@ -22,8 +22,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
-KERNELS = ("raster_fused", "warp", "march", "gtao",
-           "raster_tiles")                        # csrc/<name>.cu
+KERNELS = ("raster_fused", "warp", "march", "gtao", "raster_tiles",
+           "warp_multi")                          # csrc/<name>.cu
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 _bound: Dict[Tuple[str, str], Callable[..., int]] = {}

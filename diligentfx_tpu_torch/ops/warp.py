@@ -1,5 +1,5 @@
 """Bounded-offset bilinear warp (the port of diligentfx_tpu/ops/warp_pallas.py
-`warp_bilinear_pallas`).
+`warp_bilinear_pallas` and `warp_bilinear_multi_pallas`).
 
 `warp_bilinear` samples every channel of an (H, W[, C]) image at
 pixel + offset with the TPU kernel's clamp semantics: offsets clamp to
@@ -7,6 +7,10 @@ pixel + offset with the TPU kernel's clamp semantics: offsets clamp to
 origin is clamped into the image and rounded down to the tile grid.  On a
 CUDA tensor it launches the hand-written kernel csrc/warp.cu; on a CPU
 tensor it runs `warp_bilinear_plain`, the same function in PyTorch.
+
+`warp_bilinear_multi` takes K offset fields of one (H, W) image in one
+launch (csrc/warp_multi.cu: one shared-memory window a tile serves all K
+taps); each tap equals `warp_bilinear` of its offsets bit for bit.
 """
 from __future__ import annotations
 
@@ -129,3 +133,79 @@ def warp_bilinear(img: Tensor, offset_px: Tensor, *, halo_r: int = 16,
 
 
 warp_bilinear.launches = 0
+
+
+# the shared memory one block may use on sm_90 (227 KB)
+MAX_WINDOW_BYTES = 232448
+
+
+def warp_bilinear_multi_plain(img: Tensor, offsets_px: Tensor, *,
+                              halo_r: int = 16, halo_c: int = 64) -> Tensor:
+    """Plain PyTorch version of the multi-tap kernel: K single-tap warps."""
+    if img.dim() != 2:
+        raise ValueError("warp_bilinear_multi takes an (H, W) image")
+    taps = [warp_bilinear_plain(img, offsets_px[k], halo_r=halo_r,
+                                halo_c=halo_c)
+            for k in range(offsets_px.shape[0])]
+    return torch.stack(taps) if taps else img.new_empty((0,) + img.shape)
+
+
+# dfx_warp_bilinear_multi(img, offsets, out, h, w, k, halo_r, halo_c, win_h,
+#                         win_w, cx, cy, stream)
+_MULTI_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [
+    ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+
+
+def _launch_multi(img: Tensor, offsets_px: Tensor, halo_r: int,
+                  halo_c: int) -> Tensor:
+    if img.dim() != 2:
+        raise ValueError("warp_bilinear_multi takes an (H, W) image")
+    h, w = img.shape
+    if img.dtype != torch.float32 or offsets_px.dtype != torch.float32:
+        raise TypeError("warp_bilinear_multi takes float32 tensors")
+    if offsets_px.dim() != 4 or tuple(offsets_px.shape[1:]) != (h, w, 2):
+        raise ValueError(f"offsets shape {tuple(offsets_px.shape)} is not "
+                         f"(K, {h}, {w}, 2)")
+    if offsets_px.device != img.device:
+        raise ValueError("img and offsets_px must be on the same device")
+    if not (img.is_contiguous() and offsets_px.is_contiguous()):
+        raise ValueError("warp_bilinear_multi takes contiguous tensors")
+    halo_r, halo_c, win_h, win_w, cx, cy = warp_geometry(h, w, halo_r, halo_c)
+    if 4 * win_h * win_w > MAX_WINDOW_BYTES:
+        raise ValueError(f"warp window {win_h}x{win_w} needs "
+                         f"{4 * win_h * win_w} B of shared memory, over "
+                         f"{MAX_WINDOW_BYTES}")
+    k = offsets_px.shape[0]
+    out = torch.empty((k, h, w), dtype=torch.float32, device=img.device)
+    if k == 0:
+        return out
+    fn = cuda_build.bind("warp_multi", "dfx_warp_bilinear_multi",
+                         _MULTI_ARGTYPES)
+    with torch.cuda.device(img.device):
+        stream = torch.cuda.current_stream(img.device).cuda_stream
+        err = fn(img.data_ptr(), offsets_px.data_ptr(), out.data_ptr(), h, w,
+                 k, halo_r, halo_c, win_h, win_w, cx, cy, stream)
+    cuda_build.check(err, "warp_multi kernel launch")
+    warp_bilinear_multi.launches += 1
+    return out
+
+
+def warp_bilinear_multi(img: Tensor, offsets_px: Tensor, *, halo_r: int = 16,
+                        halo_c: int = 64) -> Tensor:
+    """K bilinear taps of one (H, W) f32 image (H % 8 == 0, W % 128 == 0)
+    at pixel + offsets_px[k] ((K, H, W, 2) = (dx, dy) in pixels) -> (K, H,
+    W), with the single-tap warp's clamps.
+
+    A CUDA tensor goes to the kernel (or this raises, also where a tile's
+    window does not fit in one block's shared memory); a CPU tensor runs
+    the plain version.  `warp_bilinear_multi.launches` counts launches."""
+    if img.device.type == "cuda":
+        return _launch_multi(img, offsets_px, halo_r, halo_c)
+    if img.device.type != "cpu":
+        raise ValueError(f"warp_bilinear_multi: unsupported device "
+                         f"{img.device}")
+    return warp_bilinear_multi_plain(img, offsets_px, halo_r=halo_r,
+                                     halo_c=halo_c)
+
+
+warp_bilinear_multi.launches = 0

@@ -139,6 +139,51 @@ def gtao_scalars(camera: CameraAttribs, frame_index: int,
     return torch.cat([host.to(cam.device), cam.to(torch.float32)])
 
 
+def _radius_px(view_z: Tensor, camera: CameraAttribs, settings: SSAOSettings,
+               h: int, w: int) -> Tensor:
+    """Screen-space radius: the world radius projected at this depth."""
+    radius = f32(np.float32(settings.effect_radius)
+                 * np.float32(settings.radius_multiplier))
+    radius_px = (radius * camera.proj[1, 1] * (h * 0.5)
+                 / torch.clamp(view_z, min=1e-4))
+    return torch.clamp(radius_px, 2.0, float(max(h, w)) * 0.25)
+
+
+def _tap_offset(noise: Tensor, radius_px: Tensor, s: int, sgn: float,
+                step: int, num_slices: int, num_steps: int,
+                use_pallas: bool) -> Tensor:
+    """Pixel offset (..., 2) = (dx, dy) of horizon tap `step` on side `sgn`
+    of slice `s`; on the kernel route clamped to the warp's halo."""
+    phi_s = (s + noise) * (PI / num_slices)
+    d_px = torch.stack([torch.cos(phi_s), -torch.sin(phi_s)], dim=-1)
+    t = (step + 0.5 + 0.5 * noise) / num_steps
+    t = t * t                                      # denser near the centre
+    off = d_px * (sgn * t * radius_px)[..., None]
+    if use_pallas:
+        # the warp kernel's halo clamp, applied to the reconstructed
+        # position too
+        off = torch.stack([torch.clamp(off[..., 0], -63.0, 63.0),
+                           torch.clamp(off[..., 1], -15.0, 15.0)], -1)
+    return off
+
+
+def gtao_tap_offsets(depth: Tensor, camera: CameraAttribs, frame_index: int,
+                     settings: SSAOSettings = SSAOSettings(),
+                     num_slices: int = 3, num_steps: int = 6) -> Tensor:
+    """The kernel route's horizon-tap pixel offsets, (num_slices * 2 *
+    num_steps, H, W, 2), in compute_gtao's order (slice, side +1 then -1,
+    step): the K offset fields a multi-tap warp of the depth takes."""
+    h, w = depth.shape
+    pos = view_space_position(depth, camera)
+    noise = interleaved_gradient_noise(h, w, frame_index, device=depth.device)
+    radius_px = _radius_px(-pos[..., 2], camera, settings, h, w)
+    return torch.stack([
+        _tap_offset(noise, radius_px, s, sgn, step, num_slices, num_steps,
+                    True)
+        for s in range(num_slices) for sgn in (1.0, -1.0)
+        for step in range(num_steps)])
+
+
 def compute_gtao(depth: Tensor, normal_vs: Tensor, camera: CameraAttribs,
                  frame_index: int, settings: SSAOSettings = SSAOSettings(),
                  num_slices: int = 3, num_steps: int = 6,
@@ -167,12 +212,9 @@ def compute_gtao(depth: Tensor, normal_vs: Tensor, camera: CameraAttribs,
     v = normalize(-pos)
     noise = interleaved_gradient_noise(h, w, frame_index, device=depth.device)
 
-    # screen-space radius: the world radius projected at this depth
     radius = f32(np.float32(settings.effect_radius)
                  * np.float32(settings.radius_multiplier))
-    radius_px = (radius * camera.proj[1, 1] * (h * 0.5)
-                 / torch.clamp(view_z, min=1e-4))
-    radius_px = torch.clamp(radius_px, 2.0, float(max(h, w)) * 0.25)
+    radius_px = _radius_px(view_z, camera, settings, h, w)
     falloff_range = f32(np.float32(settings.effect_falloff_range)
                         * np.float32(radius))
     falloff_from = f32(np.float32(radius)
@@ -185,19 +227,6 @@ def compute_gtao(depth: Tensor, normal_vs: Tensor, camera: CameraAttribs,
     # third mip 1, the far third mip 2 (the kernel route keeps mip 0)
     depth_pyr = (build_avg_depth_pyramid(depth, 3)
                  if (use_mips and not use_pallas) else [depth])
-
-    def tap_offset(s, sgn, step):
-        phi_s = (s + noise) * (PI / num_slices)
-        d_px = torch.stack([torch.cos(phi_s), -torch.sin(phi_s)], dim=-1)
-        t = (step + 0.5 + 0.5 * noise) / num_steps
-        t = t * t                                  # denser near the centre
-        off = d_px * (sgn * t * radius_px)[..., None]
-        if use_pallas:
-            # the warp kernel's halo clamp, applied to the reconstructed
-            # position too
-            off = torch.stack([torch.clamp(off[..., 0], -63.0, 63.0),
-                               torch.clamp(off[..., 1], -15.0, 15.0)], -1)
-        return off
 
     visibility = torch.zeros((h, w), dtype=torch.float32, device=depth.device)
     for s in range(num_slices):
@@ -224,7 +253,8 @@ def compute_gtao(depth: Tensor, normal_vs: Tensor, camera: CameraAttribs,
                 mip = (0 if (use_pallas or not use_mips)
                        else min((3 * step) // max(num_steps, 1),
                                 len(depth_pyr) - 1))
-                off = tap_offset(s, sgn, step)
+                off = _tap_offset(noise, radius_px, s, sgn, step,
+                                  num_slices, num_steps, use_pallas)
                 if mip == 0:
                     d = _tap_depth(depth, off[..., 0], off[..., 1],
                                    use_pallas)

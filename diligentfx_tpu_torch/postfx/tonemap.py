@@ -1,6 +1,6 @@
 """Tone mapping (the port of diligentfx_tpu/postfx/tonemap.py, all 12
-modes of ToneMapping.fxh).  Colors are (..., 3) linear HDR; the mode is a
-static Python value.
+modes of ToneMapping.fxh) and the auto-exposure measurement.  Colors are
+(..., 3) linear HDR; the mode is a static Python value.
 """
 from __future__ import annotations
 
@@ -167,3 +167,10 @@ def tone_map(color: Tensor, mode: ToneMappingMode,
     if mode == ToneMappingMode.COMMERCE:
         return _commerce(color, ave_log_lum)
     raise ValueError(f"unknown tone mapping mode {mode}")
+
+
+def average_log_luminance(color: Tensor, eps: float = 1e-4) -> Tensor:
+    """Auto-exposure measurement: exp(mean(log(lum))) over the image, a
+    0-dim tensor on the colour's device (UpdateAverageLuminance)."""
+    lum = torch.sum(color * _f32(RGB_TO_LUMINANCE, color.device), dim=-1)
+    return torch.exp(torch.mean(torch.log(lum + eps)))

@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card: each kernel (K1 fused raster, K2
-warp, K3 march, K4 two-pass raster, K5 fused GTAO) against its plain
-PyTorch version, the wrappers' checks and launch counts, and small bench
-and csm frames on the GPU against the port's CPU path.
+warp, K3 march, K4 two-pass raster, K5 fused GTAO, K6 multi-tap warp)
+against its plain PyTorch version, the wrappers' checks and launch counts,
+and small bench, csm and full-chain frames on the GPU against the port's
+CPU path.
 
 These tests need an NVIDIA GPU (sm_90a) and nvcc; elsewhere they skip.  Run
 them on the card with
@@ -76,6 +77,30 @@ def test_raster_kernel_matches_plain(cuda, sub_bins):
                                atol=1e-5)
 
 
+def test_raster_kernel_unsegmented_at_cap_1536(cuda):
+    """K1's unsegmented route (sub_bins 1) at the full-chain frame's bin
+    capacity 1536 (examples/benchmark_suite.py:198), with tiles holding
+    hundreds of candidates."""
+    clip, idx, attrs, winv, consts, mt = _triangles(4000, 7, cuda)
+    cfg = RasterizerConfig(tile_h=32, tile_w=128, bin_capacity=1536,
+                           max_tiles_per_tri=16, big_tri_capacity=64, chunk=8)
+    k = tr.prepare_fused(clip, idx, attrs, winv, consts, mt, width=384,
+                         height=256, cfg=cfg, n_ch=4, deriv_channels=(),
+                         double_sided=torch.ones(4000, dtype=torch.bool,
+                                                 device=cuda))
+    assert k.kernel_kw["sub"] == 0 and k.candidates.shape[1] >= 1536
+    assert int(k.counts.max()) > 512
+    args = (k.setup, k.planes, k.candidates, k.counts, k.mat_table)
+    z, tid, out = trk.raster_tiles_fused(*args, **k.kernel_kw)
+    torch.cuda.synchronize()
+    zp, tidp, outp = trk.raster_tiles_fused_plain(*args, **k.kernel_kw)
+    assert torch.equal(tid, tidp)
+    hit = tid >= 0
+    assert torch.equal(z[hit], zp[hit])
+    torch.testing.assert_close(out[:, hit], outp[:, hit], rtol=1e-5,
+                               atol=1e-5)
+
+
 def test_raster_wrapper_rejects_bad_inputs(cuda):
     setup = torch.zeros((4, 16), device=cuda)
     planes = torch.zeros((4, 10), device=cuda)
@@ -123,6 +148,51 @@ def test_warp_wrapper_rejects_bad_inputs(cuda):
     with pytest.raises(ValueError):
         tw.warp_bilinear(torch.zeros((8, 100), device=cuda),
                          torch.zeros((8, 100, 2), device=cuda))
+
+
+@pytest.mark.parametrize("case", [(544, 1024, 16, (16, 64)),
+                                  (544, 1024, 16, (8, 64)),
+                                  (256, 1024, 3, (32, 128)),
+                                  (64, 128, 4, (16, 64)),
+                                  (1080, 1920, 1, (16, 64))])
+def test_warp_multi_kernel_matches_plain(cuda, case):
+    """K6 vs its plain version and K launches of K2, exactly: the SSAO-tap
+    shape (a 40 x 384 window, 61,440 B of shared memory, over the 48 KB
+    static limit), halo (8, 64), a 72 x 384 window (110,592 B), a 128-wide
+    image (halos shrink to 0) and one tap; offsets up to 3 halos."""
+    h, w, k, halo = case
+    g = torch.Generator(device=cuda)
+    g.manual_seed(h + k)
+    img = torch.rand((h, w), generator=g, device=cuda)
+    off = ((torch.rand((k, h, w, 2), generator=g, device=cuda) * 2 - 1)
+           * torch.tensor([3.0 * halo[1], 3.0 * halo[0]], device=cuda))
+    before = tw.warp_bilinear_multi.launches
+    a = tw.warp_bilinear_multi(img, off, halo_r=halo[0], halo_c=halo[1])
+    torch.cuda.synchronize()
+    assert tw.warp_bilinear_multi.launches == before + 1
+    b = tw.warp_bilinear_multi_plain(img, off, halo_r=halo[0], halo_c=halo[1])
+    assert torch.equal(a, b)
+    for i in range(k):
+        assert torch.equal(a[i], tw.warp_bilinear(
+            img, off[i].contiguous(), halo_r=halo[0], halo_c=halo[1]))
+
+
+def test_warp_multi_wrapper_rejects_bad_inputs(cuda):
+    img = torch.zeros((8, 128), device=cuda)
+    off = torch.zeros((2, 8, 128, 2), device=cuda)
+    with pytest.raises(TypeError):
+        tw.warp_bilinear_multi(img.double(), off)
+    with pytest.raises(ValueError):
+        tw.warp_bilinear_multi(img, off[:, :, :64])
+    with pytest.raises(ValueError):
+        tw.warp_bilinear_multi(img[..., None], off)
+    with pytest.raises(ValueError):
+        tw.warp_bilinear_multi(img, off.cpu())
+    with pytest.raises(ValueError):              # a 136 x 1152 window: 626 KB
+        tw.warp_bilinear_multi(torch.zeros((1080, 1920), device=cuda),
+                               torch.zeros((1, 1080, 1920, 2), device=cuda),
+                               halo_r=64, halo_c=512)
+    assert tw.warp_bilinear_multi(img, off[:0]).shape == (0, 8, 128)
 
 
 @pytest.mark.parametrize("case", [(67, 120, 544, 1024, 0.05),
@@ -284,5 +354,16 @@ def test_forward_csm_frame_matches_cpu_path(cuda, fuse):
     from diligentfx_tpu_torch.utils.image import psnr
     cpu = cs.forward_csm_frame("cpu", "auto")
     gpu = cs.forward_csm_frame(cuda, fuse)
+    assert np.isfinite(gpu).all()
+    assert psnr(cpu, gpu) > 50.0
+
+
+def test_small_full_chain_frame_matches_cpu_path(cuda):
+    """Two 256x128 full-chain frames (DoF on the warp route, epipolar
+    scattering, auto exposure; the camera moving) on the GPU vs the port's
+    CPU path: 50 dB."""
+    import chip_smoke as cs
+    from diligentfx_tpu_torch.utils.image import psnr
+    cpu, gpu = cs.small_full_chain_frames(cuda)
     assert np.isfinite(gpu).all()
     assert psnr(cpu, gpu) > 50.0

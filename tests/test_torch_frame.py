@@ -243,9 +243,7 @@ def _port_renderer():
                         device="cpu")
 
 
-UNPORTED = {"enable_dof": True,
-            "enable_light_scattering": True, "enable_auto_exposure": True,
-            "enable_selection": True, "enable_grid": True, "vis_only": True,
+UNPORTED = {"enable_selection": True, "enable_grid": True, "vis_only": True,
             "ssr_stage_cut": "march", "ssr_march_sweep": "static"}
 
 
