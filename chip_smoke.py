@@ -11,9 +11,14 @@ Phases (any failure exits non-zero; no phase is skipped):
   1. build csrc/*.cu with nvcc (one process per source, all at once);
   2. K1, the fused tile raster kernel, vs raster_tiles_fused_plain at the
      bench scene, bench raster config and 1920x1080 (padded to 1088x1920);
-  3. K2, the bounded warp kernel, vs warp_bilinear_plain: the frame's five
-     shapes (exact), halos (16, 64) and (8, 64), offsets beyond the halo,
-     and a 128-wide image (halo shrink);
+  3. K2, the bounded warp kernel, vs warp_bilinear_plain: the frames' six
+     launch shapes (the full-chain DoF taps' five channels included), five
+     channels at 1080p, halos (16, 64) and (8, 64), offsets beyond the
+     halo, and a 128-wide image (halo shrink), all exact; times per shape
+     beside grid_sample (CUDA events and device time), over the bench
+     frame's 20 launches and the full-chain frame's 43, and the wrapper's
+     host cost a call (each frame's warm-up checks that these are the
+     shapes it launches K2 at);
   4. the main path: HnTaskManager.execute on the bench scene at 1920x1080,
      one warm-up frame, then --frames timed frames; the kernels' launch
      counts are zeroed just before and read just after the timed frames
@@ -51,8 +56,9 @@ Phases (any failure exits non-zero; no phase is skipped):
  13. K6, the multi-tap warp, vs warp_bilinear_multi_plain and against 16
      K2 launches at its natural shape (the full-chain frame's 16 SSAO
      horizon-tap offset fields on its half-resolution depth, edge-padded
-     to 544 x 1024) and more, all exact; then its own path, the entry
-     point once with the counts zeroed just before and read just after;
+     to 544 x 1024) and more (17 taps at 1080p), all exact; then its own
+     path, the entry point once with the counts zeroed just before and
+     read just after; its fill's re-read of the image;
  14. a 256x128 full-chain frame (two frames, moving camera) on the GPU
      against the port's CPU path.
 
@@ -61,6 +67,10 @@ times and bound, the card's name and power limit, and last
 {"ok": true, "device": {...}}.
 
 Usage: python3 chip_smoke.py [--frames N] [--out-png PATH] [--profile PATH]
+       python3 chip_smoke.py --only warp [--root DIR]
+(the second runs phases 1, 3 and 13 alone, K6 on random taps, on the port
+of the checkout DIR: run it in two checkouts in turn, A B B A, to compare
+their warp kernels in one call)
 """
 import argparse
 import json
@@ -303,7 +313,8 @@ def phase_build():
           flush=True)
     for name, log in sorted(logs.items()):
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
+            if any(key in line for key in ("entry function", "registers",
+                                           "spill", "smem")):
                 print(f"  {name}: {line.strip()}")
 
 
@@ -438,32 +449,67 @@ def _grid_sample_fn(img, off):
                                  padding_mode="border", align_corners=False)
 
 
-# K2's launches in one bench frame: (h, w, channels, halo, launches, the
-# pixels the caller keeps).  SSAO and SSR warp the half-resolution 540 x 960
-# grid edge-padded to the warp's 8 x 128 and crop the result, so their
-# bound counts only the 540 x 960 pixels.
+# K2's launch shapes on the frames' paths: name -> (h, w, channels, halo,
+# the pixels the caller keeps).  SSAO and SSR warp the half-resolution
+# 540 x 960 grid edge-padded to the warp's 8 x 128 and crop the result, so
+# their bound counts only the 540 x 960 pixels.
 HALF_H, HALF_W = -(-(H // 2) // 8) * 8, -(-(W // 2) // 128) * 128
 HALF_PX = (H // 2) * (W // 2)
-WARP_FRAME = (
-    (H, W, 1, (16, 64), 1, H * W),                 # disocclusion tap
-    (HALF_H, HALF_W, 1, (16, 64), 16, HALF_PX),    # SSAO: 2 x 2 sides x 4
-    (H, W, 2, (8, 64), 1, H * W),                  # SSAO history
-    (HALF_H, HALF_W, 4, (16, 64), 1, HALF_PX),     # SSR history
-    (H, W, 4, (8, 64), 1, H * W),                  # TAA history
-)
+WARP_SHAPES = {
+    "disocclusion": (H, W, 1, (16, 64), H * W),
+    "ssao_tap": (HALF_H, HALF_W, 1, (16, 64), HALF_PX),  # 2 x 2 sides x 4
+    "ssao_history": (H, W, 2, (8, 64), H * W),
+    "ssr_history": (HALF_H, HALF_W, 4, (16, 64), HALF_PX),
+    "taa_history": (H, W, 4, (8, 64), H * W),
+    # the DoF bokeh taps gather the half-resolution prefiltered colour and
+    # the two reaches (postfx/dof.py:143, :207-214)
+    "dof_tap": (HALF_H, HALF_W, 5, (16, 64), HALF_PX),
+    # five channels at full resolution, on no frame's path
+    "c5_1080p": (H, W, 5, (16, 64), H * W),
+}
+# K2's launches a frame by shape: the bench (and csm) frame's 20 and the
+# full-chain frame's 43 (SSR keeps its history without the warp there)
+WARP_FRAME = {"disocclusion": 1, "ssao_tap": 16, "ssao_history": 1,
+              "ssr_history": 1, "taa_history": 1}
+WARP_FULL_CHAIN = {"disocclusion": 1, "ssao_tap": 16, "ssao_history": 1,
+                   "taa_history": 1, "dof_tap": 24}
+
+
+# the profiler rows of K2's kernels (warp_tap_vec / warp_tap_elem; the
+# whole name also matches an earlier checkout's warp_kernel under --root)
+K2_KERNELS = "warp"
+
+
+def host_us(fn, n=1000):
+    """Host clock a call over n enqueues of fn, with no synchronise among
+    them (the wrapper's host cost while the card keeps up)."""
+    import torch
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / n * 1e6
 
 
 def phase_warp():
-    """K2 vs its plain version at the frame's five shapes (exact) and more;
-    times summed over the frame's 20 launches."""
+    """K2 vs its plain version at every launch shape of the three frames
+    (the DoF taps' five channels included) and more (five channels at
+    1080p), all exact.  Times per shape, CUDA events and device time, of K2
+    and of grid_sample on the same inputs, summed over the bench frame's 20
+    launches and the full-chain frame's 43; the wrapper's host cost a
+    call."""
     import torch
     from diligentfx_tpu_torch.ops.warp import warp_bilinear, warp_bilinear_plain
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(0)
     max_err = 0.0
-    frame_cases = [(h, w, c, halo) for h, w, c, halo, *_ in WARP_FRAME]
-    cases = frame_cases + [(H, W, 4, (16, 64)), (H, W, 1, (8, 64)),
-                           (256, 128, 4, (8, 64)), (64, 384, 1, (16, 64))]
+    cases = [(h, w, c, halo) for h, w, c, halo, _ in WARP_SHAPES.values()]
+    cases += [(H, W, 4, (16, 64)), (H, W, 1, (8, 64)),
+              (256, 128, 4, (8, 64)), (64, 384, 1, (16, 64))]
     for h, w, c, halo in cases:
         img, off = _warp_case(h, w, c, halo, gen)
         a = warp_bilinear(img, off, halo_r=halo[0], halo_c=halo[1])
@@ -473,33 +519,72 @@ def phase_warp():
         print(f"warp {h}x{w}x{c} halo {halo}: max err {err:.3g}", flush=True)
         check(a.shape == b.shape and bool(torch.isfinite(a).all()),
               "warp output shape / finiteness")
-        tol = 0.0 if (h, w, c, halo) in frame_cases else 1e-6
-        check(err <= tol, f"warp kernel error {err} at {h}x{w}x{c} {halo}")
+        check(err == 0.0, f"warp kernel error {err} at {h}x{w}x{c} {halo}")
         max_err = max(max_err, err)
 
-    ms = plain_ms = lib_ms = b_ms = 0.0
-    b_by = set()
-    for h, w, c, halo, n, px in WARP_FRAME:
+    per_shape = {}
+    for name, (h, w, c, halo, px) in WARP_SHAPES.items():
         img, off = _warp_case(h, w, c, halo, gen)
         kw = dict(halo_r=halo[0], halo_c=halo[1])
-        ms += n * cuda_ms(lambda: warp_bilinear(img, off, **kw), 50, 3)
-        plain_ms += n * cuda_ms(lambda: warp_bilinear_plain(img, off, **kw),
-                                10, 2)
-        lib_ms += n * cuda_ms(_grid_sample_fn(img, off), 50, 3)
+        k2 = lambda: warp_bilinear(img, off, **kw)        # noqa: E731
+        lib = _grid_sample_fn(img, off)
         # over the kept pixels: image and output (c floats a pixel) plus the
         # offsets (2 floats); about 20 flops of tap coordinates a pixel and
         # 9 a channel
         b, by = bound_ms(4 * px * (2 * c + 2), px * (20 + 9 * c))
-        b_ms += n * b
-        b_by.add(by)
+        per_shape[name] = dict(
+            shape=[h, w, c], halo=list(halo), ms=cuda_ms(k2, 50, 3),
+            device_ms=kernel_device_ms(k2, K2_KERNELS, 20),
+            library_ms=cuda_ms(lib, 50, 3),
+            library_device_ms=kernel_device_ms(lib, "grid_sampler", 20),
+            plain_ms=cuda_ms(lambda: warp_bilinear_plain(img, off, **kw),
+                             10, 2),
+            bound_ms=b, bound_by=by)
+        s = per_shape[name]
+        print(f"warp {name} {h}x{w}x{c} halo {halo}: {s['ms']:.4f} ms "
+              f"events, device {s['device_ms']:.4f} (bound {b:.4f} = "
+              f"{b / s['device_ms']:.0%} of it); grid_sample "
+              f"{s['library_ms']:.4f} / device {s['library_device_ms']:.4f}; "
+              f"plain {s['plain_ms']:.3f}", flush=True)
+
+    def launch_set(launches):
+        return {key: sum(n * per_shape[name][key]
+                         for name, n in launches.items())
+                for key in ("ms", "device_ms", "library_ms",
+                            "library_device_ms", "plain_ms", "bound_ms")}
+    bench, fc = launch_set(WARP_FRAME), launch_set(WARP_FULL_CHAIN)
+    img, off = _warp_case(HALF_H, HALF_W, 1, (16, 64), gen)
+    host = dict(warp_bilinear=host_us(lambda: warp_bilinear(img, off)),
+                grid_sample=host_us(_grid_sample_fn(img, off)))
+    for label, t, n in (("bench", bench, 20), ("full-chain", fc, 43)):
+        print(f"warp: the {label} frame's {n} launches {t['ms']:.4f} ms "
+              f"events, device {t['device_ms']:.4f}; grid_sample "
+              f"{t['library_ms']:.4f} / device {t['library_device_ms']:.4f};"
+              f" bound {t['bound_ms']:.4f}", flush=True)
+    half_bound = {name: "held" if s["device_ms"] <= 2 * s["bound_ms"]
+                  else "missed" for name, s in per_shape.items()}
+    print(f"warp goals: bench events below grid_sample's "
+          f"{'held' if bench['ms'] < bench['library_ms'] else 'missed'}; "
+          f"device time at least half the bound at the DoF taps "
+          f"{half_bound['dof_tap']}, at five channels at 1080p "
+          f"{half_bound['c5_1080p']}; host us a call: K2 "
+          f"{host['warp_bilinear']:.2f}, grid_sample "
+          f"{host['grid_sample']:.2f}", flush=True)
     return dict(name="warp_bilinear", route="cuda",
                 source="diligentfx_tpu_torch/csrc/warp.cu",
                 replaces="diligentfx_tpu/ops/warp_pallas.py:34",
-                max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by="/".join(sorted(b_by)), library_ms=lib_ms,
-                shapes="per frame: " + ", ".join(
-                    f"{n} x ({h},{w},{c}) halo {halo}, {px} px kept"
-                    for h, w, c, halo, n, px in WARP_FRAME))
+                max_abs_err=max_err, ms=bench["ms"],
+                plain_ms=bench["plain_ms"], bound_ms=bench["bound_ms"],
+                bound_by="/".join(sorted({s["bound_by"]
+                                          for s in per_shape.values()})),
+                library_ms=bench["library_ms"],
+                device_ms=bench["device_ms"],
+                library_device_ms=bench["library_device_ms"],
+                timed="the bench frame's 20 launches: " + ", ".join(
+                    f"{n} x {name}" for name, n in WARP_FRAME.items()),
+                full_chain_launch_set=dict(fc, launches=", ".join(
+                    f"{n} x {name}" for name, n in WARP_FULL_CHAIN.items())),
+                host_us=host, per_shape=per_shape)
 
 
 def _launch_counters():
@@ -539,18 +624,42 @@ FULL_CHAIN_LAUNCHES = {**FRAME_LAUNCHES, "warp_bilinear": 43,
                        "march_small_table": 0}
 
 
-def timed_frames(tm, scene, frame_info, frames, expected, label):
+def warp_launch_shapes(fn):
+    """fn() and the ((h, w, c), halo) of each K2 launch it made, the way
+    phase 3 names them (fn runs K2 through its wrapper as always)."""
+    from diligentfx_tpu_torch.ops import warp
+    seen = []
+    launch = warp._launch
+
+    def recording(img, offset_px, halo_r, halo_c):
+        shape = tuple(img.shape)
+        seen.append(((shape + (1,))[:3], (halo_r, halo_c)))
+        return launch(img, offset_px, halo_r, halo_c)
+    warp._launch = recording
+    try:
+        out = fn()
+    finally:
+        warp._launch = launch
+    return out, sorted(seen)
+
+
+def timed_frames(tm, scene, frame_info, frames, expected, label,
+                 warp_launches):
     """One warm-up frame of tm.execute on frame_info() (called once a
-    frame), then `frames` timed frames (host clock ending in a synchronise,
-    CUDA events beside it),
-    with the launch counts zeroed just before and read just after and held
-    to `expected` a frame.  Returns (last output, state, host ms list,
-    device ms list, launches)."""
+    frame), which must launch K2 at the shapes of `warp_launches`
+    (WARP_SHAPES name -> launches), then `frames` timed frames (host clock
+    ending in a synchronise, CUDA events beside it), with the launch counts
+    zeroed just before and read just after and held to `expected` a frame.
+    Returns (last output, state, host ms list, device ms list, launches)."""
     import torch
     settings = bench_settings()
     state = tm.initial_state(W, H)
-    out = tm.execute(scene, frame_info(), state, width=W, height=H,
-                     settings=settings)
+    out, shapes = warp_launch_shapes(lambda: tm.execute(
+        scene, frame_info(), state, width=W, height=H, settings=settings))
+    want = sorted(((h, w, c), halo) for name, n in warp_launches.items()
+                  for h, w, c, halo, _ in [WARP_SHAPES[name]] * n)
+    check(shapes == want, f"{label} frame launched K2 at {shapes}, phase 3 "
+          f"times {want}")
     state = out.state
     torch.cuda.synchronize()
     check(tuple(out.color.shape) == (H, W, 3), f"{label} frame shape")
@@ -619,7 +728,8 @@ def phase_frame(scene, info, cfg, frames, out_png):
           flush=True)
     tm = HnTaskManager(renderer, bench_task_manager_ci())
     out, state, host_ms, dev_ms, launches = timed_frames(
-        tm, scene, lambda: info, frames, FRAME_LAUNCHES, "bench")
+        tm, scene, lambda: info, frames, FRAME_LAUNCHES, "bench",
+        WARP_FRAME)
     if out_png:
         _write_png(out_png, out.color)
     return (tm, launches, float(np.median(host_ms)), float(np.median(dev_ms)),
@@ -1172,7 +1282,8 @@ def phase_csm_frame(cfg, scene, atlas, frames, out_png, ibl_source):
                                  shadow_map_size=SHADOW_SIZE)
 
     out, state, host_ms, dev_ms, launches = timed_frames(
-        tm, scene, frame_info, frames, CSM_FRAME_LAUNCHES, "csm")
+        tm, scene, frame_info, frames, CSM_FRAME_LAUNCHES, "csm",
+        WARP_FRAME)
     sinfo = frame_info()
     maps = sinfo.shadow_maps
     check(tuple(maps.shape) == (NUM_CASCADES, SHADOW_SIZE, SHADOW_SIZE)
@@ -1330,7 +1441,8 @@ def phase_full_chain_frame(cfg, scene, frames, out_png, ibl_source):
         return info
 
     out, state, host_ms, dev_ms, launches = timed_frames(
-        tm, scene, frame_info, frames, FULL_CHAIN_LAUNCHES, "full-chain")
+        tm, scene, frame_info, frames, FULL_CHAIN_LAUNCHES, "full-chain",
+        WARP_FULL_CHAIN)
     coc = state.dof.coc_history
     lum = float(state.average_log_lum)
     check(bool(torch.isfinite(coc).all()) and float(coc.min()) >= -1.0
@@ -1346,19 +1458,11 @@ def phase_full_chain_frame(cfg, scene, frames, out_png, ibl_source):
             float(np.median(dev_ms)), out.gbuffer, state, frame[0] - 1)
 
 
-def phase_warp_multi(gb, frame_i, frame_index):
-    """K6 vs its plain version and against 16 K2 launches at its natural
-    shape, the full-chain frame's 16 SSAO horizon-tap offset fields (2
-    slices x 2 sides x 4 steps) on its half-resolution depth, edge-padded
-    to 544 x 1024; then halo (8, 64), offsets beyond the halo, a 128-wide
-    image and K = 1; all exact.  Then its own path: the entry point once,
-    the counts zeroed just before and read just after."""
+def ssao_tap_fields(gb, frame_i, frame_index):
+    """K6's natural inputs: the full-chain frame's 16 SSAO horizon-tap
+    offset fields (2 slices x 2 sides x 4 steps) on its half-resolution
+    depth, edge-padded to 544 x 1024."""
     import torch
-    import torch.nn.functional as F
-    from diligentfx_tpu_torch.ops.warp import (warp_bilinear,
-                                               warp_bilinear_multi,
-                                               warp_bilinear_multi_plain,
-                                               warp_geometry)
     from diligentfx_tpu_torch.postfx import ssao
     from diligentfx_tpu_torch.postfx.context import edge_pad
     ci = full_chain_task_manager_ci()
@@ -1369,9 +1473,38 @@ def phase_warp_multi(gb, frame_i, frame_index):
     ph, pw = HALF_H - d2.shape[0], HALF_W - d2.shape[1]
     img = edge_pad(d2, ph, pw).contiguous()
     off = torch.stack([edge_pad(o, ph, pw) for o in offs]).contiguous()
-    k = off.shape[0]
     check(tuple(off.shape) == (16, HALF_H, HALF_W, 2),
           f"SSAO tap offsets {tuple(off.shape)}")
+    return img, off
+
+
+def random_tap_fields(seed=7):
+    """16 random tap offset fields within the halo (16, 64) on a random
+    544 x 1024 image: K6's inputs where no frame is rendered (--only)."""
+    import torch
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed)
+    img = torch.rand((HALF_H, HALF_W), generator=gen, device=DEVICE)
+    lim = torch.tensor([63.0, 15.0], device=DEVICE)
+    off = (torch.rand((16, HALF_H, HALF_W, 2), generator=gen, device=DEVICE)
+           * 2 - 1) * lim
+    return img, off.contiguous()
+
+
+def phase_warp_multi(img, off):
+    """K6 vs its plain version and against 16 K2 launches at its natural
+    shape (img, off: `ssao_tap_fields`); then halo (8, 64), offsets beyond
+    the halo, a 128-wide image, K = 1 and 17 taps at 1080p; all exact.
+    Then its own path: the entry point once, the counts zeroed just before
+    and read just after; times (CUDA events and device time) beside 16 K2
+    launches and one grid_sample call; the fill's re-read of the image."""
+    import torch
+    import torch.nn.functional as F
+    from diligentfx_tpu_torch.ops.warp import (warp_bilinear,
+                                               warp_bilinear_multi,
+                                               warp_bilinear_multi_plain,
+                                               warp_geometry)
+    k = off.shape[0]
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(6)
 
@@ -1386,7 +1519,10 @@ def phase_warp_multi(gb, frame_i, frame_index):
              ("beyond_halo", *rand_case(HALF_H, HALF_W, 16, [192.0, 48.0]),
               (16, 64)),
              ("w128_shrink", *rand_case(64, 128, 4, [20.0, 20.0]), (16, 64)),
-             ("k1", img, off[:1].contiguous(), (16, 64))]
+             ("k1", img, off[:1].contiguous(), (16, 64)),
+             # 1080p: 135 tile rows; K not a multiple of the kernel's tap
+             # chunk
+             ("k17_1080p", *rand_case(H, W, 17, [100.0, 30.0]), (16, 64))]
     max_err = 0.0
     for name, im, of, halo in cases:
         kw = dict(halo_r=halo[0], halo_c=halo[1])
@@ -1427,6 +1563,7 @@ def phase_warp_multi(gb, frame_i, frame_index):
         for o in taps:
             warp_bilinear(img, o)
     k2_ms = cuda_ms(k2_taps, 20, 2)
+    k2_dev_ms = kernel_device_ms(k2_taps, K2_KERNELS, 5)
     # the library yardstick: one grid_sample call taking the 16 taps as
     # one (16 H, W) grid of the image, border clamp
     hh, ww = img.shape
@@ -1436,9 +1573,13 @@ def phase_warp_multi(gb, frame_i, frame_index):
                         (y + 0.5 + off[..., 1]) / hh * 2 - 1],
                        -1).reshape(1, k * hh, ww, 2)
     src = img[None, None]
-    lib_ms = cuda_ms(lambda: F.grid_sample(src, grid, mode="bilinear",
-                                           padding_mode="border",
-                                           align_corners=False), 50, 3)
+    lib = lambda: F.grid_sample(src, grid, mode="bilinear",  # noqa: E731
+                                padding_mode="border", align_corners=False)
+    lib_ms = cuda_ms(lib, 50, 3)
+    lib_dev_ms = kernel_device_ms(lib, "grid_sampler", 10)
+    # one window a tile, bulk-copied into shared memory
+    win_h, win_w = warp_geometry(hh, ww, 16, 64)[2:4]
+    reread = (hh // 8) * (ww // 128) * win_h * win_w / (hh * ww)
     # each input read once, each output written once: the image, 8 B of
     # offsets and 4 B of output a tap-pixel; about 20 flops of tap
     # coordinates and 9 of the bilinear lerps a tap-pixel
@@ -1446,16 +1587,23 @@ def phase_warp_multi(gb, frame_i, frame_index):
     n_bytes = 4 * px + k * px * (8 + 4)
     b_ms, b_by = bound_ms(n_bytes, k * px * 29)
     print(f"warp_multi: {k} taps at {hh}x{ww}: {ms:.4f} ms CUDA events, "
-          f"device {dev_ms:.4f} ms; {k} K2 launches {k2_ms:.4f} ms; "
-          f"grid_sample {lib_ms:.4f} ms; plain {plain_ms:.3f} ms; "
-          f"{n_bytes / 1e6:.1f} MB, bound {b_ms:.4f} ms ({b_by})",
-          flush=True)
+          f"device {dev_ms:.4f} ms; {k} K2 launches {k2_ms:.4f} ms (device "
+          f"{k2_dev_ms:.4f}); grid_sample {lib_ms:.4f} ms (device "
+          f"{lib_dev_ms:.4f}); plain {plain_ms:.3f} ms; {n_bytes / 1e6:.1f} "
+          f"MB, bound {b_ms:.4f} ms ({b_by}); fill re-reads the image "
+          f"{reread:.2f}x", flush=True)
+    print(f"warp_multi goals: device time at most 0.065 ms "
+          f"{'held' if dev_ms <= 0.065 else 'missed'}; events below "
+          f"grid_sample's {'held' if ms < lib_ms else 'missed'}", flush=True)
     return dict(name="warp_bilinear_multi", route="cuda",
                 source="diligentfx_tpu_torch/csrc/warp_multi.cu",
                 replaces="diligentfx_tpu/ops/warp_pallas.py:181",
                 launches=launches["warp_bilinear_multi"], max_abs_err=max_err,
                 ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=lib_ms, device_ms=dev_ms, k2_taps_ms=k2_ms,
+                library_ms=lib_ms, device_ms=dev_ms,
+                library_device_ms=lib_dev_ms, k2_taps_ms=k2_ms,
+                k2_taps_device_ms=k2_dev_ms,
+                fill_reread=reread,
                 path="warp_bilinear_multi, its own entry point, once at the "
                      "SSAO-tap shape (no frame calls it)",
                 shapes=f"img ({hh},{ww}), offsets ({k},{hh},{ww},2), halo "
@@ -1520,19 +1668,31 @@ def main() -> int:
     ap.add_argument("--profile", default="",
                     help="also profile 3 frames (device time by stage and by "
                          "kernel); write the profiler's table to this path")
+    ap.add_argument("--only", choices=("warp",),
+                    help="run only phases 1, 3 and 13 (K6 on random taps "
+                         "within the halo) and print their JSON line")
+    ap.add_argument("--root", default=HERE,
+                    help="import the port from this checkout (with --only, "
+                         "to A/B two checkouts' kernels in one call)")
     args = ap.parse_args()
 
-    if not os.path.isdir(os.path.join(HERE, "diligentfx_tpu_torch")):
-        fail(f"the diligentfx_tpu_torch package is not beside {__file__}")
+    if not os.path.isdir(os.path.join(args.root, "diligentfx_tpu_torch")):
+        fail(f"the diligentfx_tpu_torch package is not in {args.root}")
     import torch
     if not torch.cuda.is_available():
         fail("no CUDA device (torch.cuda.is_available() is false)")
-    sys.path.insert(0, HERE)
+    sys.path.insert(0, os.path.abspath(args.root))
     torch.backends.cuda.matmul.allow_tf32 = False
 
     card = card_line()
     t_start = time.perf_counter()
     phase_build()
+    if args.only == "warp":
+        k2 = phase_warp()
+        k6 = phase_warp_multi(*random_tap_fields())
+        print(json.dumps({"root": args.root, "kernels": [k2, k6]}))
+        print(card, flush=True)
+        return 0
     cfg = bench_raster_config()
     scene = bench_scene(5, 9, 32, DEVICE)
     print(f"bench scene: {scene.num_triangles} triangles, "
@@ -1582,7 +1742,8 @@ def main() -> int:
         root, ext = os.path.splitext(args.profile)
         phase_profile(fc_tm, scene_fc, fc_info, 3,
                       f"{root}_full_chain{ext or '.txt'}", "full-chain")
-    k6 = phase_warp_multi(fc_gb, fc_last, fc_state.frame_index - 1)
+    k6 = phase_warp_multi(*ssao_tap_fields(fc_gb, fc_last,
+                                           fc_state.frame_index - 1))
     del fc_gb, fc_state, fc_tm
     phase_full_chain_reference()
     for k in (k1, k2, k3):

@@ -9,12 +9,20 @@ CUDA tensor it launches the hand-written kernel csrc/warp.cu; on a CPU
 tensor it runs `warp_bilinear_plain`, the same function in PyTorch.
 
 `warp_bilinear_multi` takes K offset fields of one (H, W) image in one
-launch (csrc/warp_multi.cu: one shared-memory window a tile serves all K
-taps); each tap equals `warp_bilinear` of its offsets bit for bit.
+launch (csrc/warp_multi.cu: one block a tile, whose window in shared
+memory serves all K taps); each tap equals `warp_bilinear` of its offsets
+bit for bit.
+
+Both wrappers keep their host cost small, since most of the frames'
+launches are small: the launch parameters of a shape are one cached
+ctypes struct, the launcher is bound once, and the C launcher takes the
+tensor's device index and PyTorch's current raw stream and switches
+devices only where the index is not the current one.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import torch
@@ -27,6 +35,7 @@ TILE_H = 8
 TILE_W = 128
 
 
+@functools.lru_cache(maxsize=None)
 def warp_geometry(h: int, w: int, halo_r: int, halo_c: int
                   ) -> Tuple[int, int, int, int, float, float]:
     """(halo_r, halo_c, win_h, win_w, cx, cy) after the small-image halo
@@ -88,34 +97,83 @@ def warp_bilinear_plain(img: Tensor, offset_px: Tensor, *, halo_r: int = 16,
     return out[..., 0] if squeeze else out
 
 
-# dfx_warp_bilinear(img, offset, out, h, w, c, halo_r, halo_c, win_h, win_w,
-#                   cx, cy, stream)
-_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [
-    ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+class _WarpParams(ctypes.Structure):
+    """csrc/warp.cu `Geo`: the image's shape and the warp geometry."""
+    _fields_ = [(n, ctypes.c_int) for n in (
+        "h", "w", "c", "halo_r", "halo_c", "win_h", "win_w")] + [
+        ("cx", ctypes.c_float), ("cy", ctypes.c_float)]
+
+
+@functools.lru_cache(maxsize=None)
+def _warp_params(h: int, w: int, c: int, halo_r: int, halo_c: int
+                 ) -> Tuple[_WarpParams, int]:
+    """K2's launch parameters for one shape, and their address (the cache
+    keeps the struct alive)."""
+    p = _WarpParams(h, w, c, *warp_geometry(h, w, halo_r, halo_c))
+    return p, ctypes.addressof(p)
+
+
+# dfx_warp_bilinear / dfx_warp_bilinear_multi(img, offset, out, params,
+#                                             device, stream)
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
+
+
+@functools.lru_cache(maxsize=None)
+def _launcher(name: str, symbol: str):
+    """csrc/<name>.cu's launcher, built, loaded and bound once."""
+    return cuda_build.bind(name, symbol, _ARGTYPES)
+
+
+def _current_stream(device: int) -> int:
+    return torch._C._cuda_getCurrentRawStream(device)
+
+
+# The address bits the kernels' loads need clear: K2 loads a texel of C = 2
+# or 4 floats as one float2 / float4 (C -> mask; a float otherwise), K6
+# bulk-copies window rows from 16-byte aligned addresses, and both load an
+# offset as one float2.
+_IMAGE_ALIGN = {2: 7, 4: 15}
+_OFFSET_ALIGN = 7
+_MULTI_IMAGE_ALIGN = 15
+
+
+def _pointers(img: Tensor, offset: Tensor, out: Tensor, img_align: int
+              ) -> Tuple[int, int, int]:
+    """The three data pointers, the image's and the offsets' checked
+    against the kernel's vector loads."""
+    pi, po = img.data_ptr(), offset.data_ptr()
+    if pi & img_align or po & _OFFSET_ALIGN:
+        raise ValueError(f"the warp kernel takes an image aligned to "
+                         f"{img_align + 1} bytes and offsets to "
+                         f"{_OFFSET_ALIGN + 1}")
+    return pi, po, out.data_ptr()
 
 
 def _launch(img: Tensor, offset_px: Tensor, halo_r: int, halo_c: int) -> Tensor:
-    squeeze = img.dim() == 2
-    img3 = img[..., None] if squeeze else img
-    h, w, c = img3.shape
-    if img3.dtype != torch.float32 or offset_px.dtype != torch.float32:
+    shape = img.shape
+    if len(shape) == 2:
+        (h, w), c = shape, 1
+    elif len(shape) == 3:
+        h, w, c = shape
+    else:
+        raise ValueError(f"warp image shape {tuple(shape)} is not (H, W[, C])")
+    if img.dtype != torch.float32 or offset_px.dtype != torch.float32:
         raise TypeError("warp_bilinear takes float32 tensors")
-    if tuple(offset_px.shape) != (h, w, 2):
+    if offset_px.shape != (h, w, 2):
         raise ValueError(f"offset shape {tuple(offset_px.shape)} != {(h, w, 2)}")
-    if offset_px.device != img.device:
+    device = img.get_device()
+    if offset_px.get_device() != device:
         raise ValueError("img and offset_px must be on the same device")
-    if not (img3.is_contiguous() and offset_px.is_contiguous()):
+    if not (img.is_contiguous() and offset_px.is_contiguous()):
         raise ValueError("warp_bilinear takes contiguous tensors")
-    halo_r, halo_c, win_h, win_w, cx, cy = warp_geometry(h, w, halo_r, halo_c)
-    fn = cuda_build.bind("warp", "dfx_warp_bilinear", _ARGTYPES)
-    out = torch.empty_like(img3)
-    with torch.cuda.device(img.device):
-        stream = torch.cuda.current_stream(img.device).cuda_stream
-        err = fn(img3.data_ptr(), offset_px.data_ptr(), out.data_ptr(), h, w,
-                 c, halo_r, halo_c, win_h, win_w, cx, cy, stream)
+    params = _warp_params(h, w, c, halo_r, halo_c)[1]
+    out = torch.empty_like(img)
+    err = _launcher("warp", "dfx_warp_bilinear")(
+        *_pointers(img, offset_px, out, _IMAGE_ALIGN.get(c, 3)), params,
+        device, _current_stream(device))
     cuda_build.check(err, "warp kernel launch")
     warp_bilinear.launches += 1
-    return out[..., 0] if squeeze else out
+    return out
 
 
 def warp_bilinear(img: Tensor, offset_px: Tensor, *, halo_r: int = 16,
@@ -125,7 +183,7 @@ def warp_bilinear(img: Tensor, offset_px: Tensor, *, halo_r: int = 16,
 
     A CUDA tensor goes to the kernel (or this raises); a CPU tensor runs
     the plain version.  `warp_bilinear.launches` counts kernel launches."""
-    if img.device.type == "cuda":
+    if img.is_cuda:
         return _launch(img, offset_px, halo_r, halo_c)
     if img.device.type != "cpu":
         raise ValueError(f"warp_bilinear: unsupported device {img.device}")
@@ -150,41 +208,56 @@ def warp_bilinear_multi_plain(img: Tensor, offsets_px: Tensor, *,
     return torch.stack(taps) if taps else img.new_empty((0,) + img.shape)
 
 
-# dfx_warp_bilinear_multi(img, offsets, out, h, w, k, halo_r, halo_c, win_h,
-#                         win_w, cx, cy, stream)
-_MULTI_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [
-    ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+_BARRIER_BYTES = 8                  # K6's mbarrier after the window
 
 
-def _launch_multi(img: Tensor, offsets_px: Tensor, halo_r: int,
-                  halo_c: int) -> Tensor:
-    if img.dim() != 2:
-        raise ValueError("warp_bilinear_multi takes an (H, W) image")
-    h, w = img.shape
-    if img.dtype != torch.float32 or offsets_px.dtype != torch.float32:
-        raise TypeError("warp_bilinear_multi takes float32 tensors")
-    if offsets_px.dim() != 4 or tuple(offsets_px.shape[1:]) != (h, w, 2):
-        raise ValueError(f"offsets shape {tuple(offsets_px.shape)} is not "
-                         f"(K, {h}, {w}, 2)")
-    if offsets_px.device != img.device:
-        raise ValueError("img and offsets_px must be on the same device")
-    if not (img.is_contiguous() and offsets_px.is_contiguous()):
-        raise ValueError("warp_bilinear_multi takes contiguous tensors")
-    halo_r, halo_c, win_h, win_w, cx, cy = warp_geometry(h, w, halo_r, halo_c)
+class _MultiParams(ctypes.Structure):
+    """csrc/warp_multi.cu `Geo`: shape, warp geometry, shared memory."""
+    _fields_ = [(n, ctypes.c_int) for n in (
+        "h", "w", "k", "halo_r", "halo_c", "win_h", "win_w")] + [
+        ("cx", ctypes.c_float), ("cy", ctypes.c_float), ("smem", ctypes.c_int)]
+
+
+@functools.lru_cache(maxsize=None)
+def _multi_params(h: int, w: int, k: int, halo_r: int, halo_c: int
+                  ) -> Tuple[_MultiParams, int]:
+    """K6's launch parameters for one shape, and their address.  Raises
+    where the window does not fit in a block's shared memory."""
+    geo = warp_geometry(h, w, halo_r, halo_c)
+    win_h, win_w = geo[2:4]
     if 4 * win_h * win_w > MAX_WINDOW_BYTES:
         raise ValueError(f"warp window {win_h}x{win_w} needs "
                          f"{4 * win_h * win_w} B of shared memory, over "
                          f"{MAX_WINDOW_BYTES}")
-    k = offsets_px.shape[0]
-    out = torch.empty((k, h, w), dtype=torch.float32, device=img.device)
+    p = _MultiParams(h, w, k, *geo, 4 * win_h * win_w + _BARRIER_BYTES)
+    return p, ctypes.addressof(p)
+
+
+def _launch_multi(img: Tensor, offsets_px: Tensor, halo_r: int,
+                  halo_c: int) -> Tensor:
+    shape = img.shape
+    if len(shape) != 2:
+        raise ValueError("warp_bilinear_multi takes an (H, W) image")
+    h, w = shape
+    if img.dtype != torch.float32 or offsets_px.dtype != torch.float32:
+        raise TypeError("warp_bilinear_multi takes float32 tensors")
+    oshape = offsets_px.shape
+    if len(oshape) != 4 or oshape[1:] != (h, w, 2):
+        raise ValueError(f"offsets shape {tuple(oshape)} is not "
+                         f"(K, {h}, {w}, 2)")
+    device = img.get_device()
+    if offsets_px.get_device() != device:
+        raise ValueError("img and offsets_px must be on the same device")
+    if not (img.is_contiguous() and offsets_px.is_contiguous()):
+        raise ValueError("warp_bilinear_multi takes contiguous tensors")
+    k = oshape[0]
+    params = _multi_params(h, w, k, halo_r, halo_c)[1]
+    out = img.new_empty((k, h, w))
     if k == 0:
         return out
-    fn = cuda_build.bind("warp_multi", "dfx_warp_bilinear_multi",
-                         _MULTI_ARGTYPES)
-    with torch.cuda.device(img.device):
-        stream = torch.cuda.current_stream(img.device).cuda_stream
-        err = fn(img.data_ptr(), offsets_px.data_ptr(), out.data_ptr(), h, w,
-                 k, halo_r, halo_c, win_h, win_w, cx, cy, stream)
+    err = _launcher("warp_multi", "dfx_warp_bilinear_multi")(
+        *_pointers(img, offsets_px, out, _MULTI_IMAGE_ALIGN), params, device,
+        _current_stream(device))
     cuda_build.check(err, "warp_multi kernel launch")
     warp_bilinear_multi.launches += 1
     return out
@@ -199,7 +272,7 @@ def warp_bilinear_multi(img: Tensor, offsets_px: Tensor, *, halo_r: int = 16,
     A CUDA tensor goes to the kernel (or this raises, also where a tile's
     window does not fit in one block's shared memory); a CPU tensor runs
     the plain version.  `warp_bilinear_multi.launches` counts launches."""
-    if img.device.type == "cuda":
+    if img.is_cuda:
         return _launch_multi(img, offsets_px, halo_r, halo_c)
     if img.device.type != "cpu":
         raise ValueError(f"warp_bilinear_multi: unsupported device "

@@ -123,12 +123,35 @@ def test_raster_wrapper_rejects_bad_inputs(cuda):
 @pytest.mark.parametrize("case", [(1080, 1920, 1, (16, 64)),
                                   (1080, 1920, 4, (8, 64)),
                                   (64, 128, 3, (16, 64)),
-                                  (40, 384, 2, (8, 64))])
+                                  (40, 384, 2, (8, 64)),
+                                  # five channels at 1080p, the SSAO taps,
+                                  # the SSAO history (C = 5, 1, 2)
+                                  (1080, 1920, 5, (16, 64)),
+                                  (544, 1024, 1, (16, 64)),
+                                  (1080, 1920, 2, (8, 64)),
+                                  # widths 128 and 256 at every channel
+                                  # class; 16 x 128 shrinks both halos
+                                  (16, 128, 1, (16, 64)),
+                                  (16, 128, 4, (8, 64)),
+                                  (48, 256, 3, (8, 64)),
+                                  (24, 128, 2, (16, 64)),
+                                  # 72 rows: the last tile rows' window is
+                                  # clamped at the bottom; C = 6 takes the
+                                  # kernel's loop over channels
+                                  (72, 256, 5, (16, 64)),
+                                  (72, 1920, 6, (8, 64)),
+                                  # the DoF taps' half-resolution image
+                                  (544, 1024, 5, (16, 64))])
 def test_warp_kernel_matches_plain(cuda, case):
+    """K2 equals its plain version bit for bit at each channel class (C =
+    1, 2, 4 as vectors, 3 and 5 a thread an element, any other C), offsets
+    up to three halos."""
     h, w, c, halo = case
     g = torch.Generator(device=cuda)
     g.manual_seed(h + c)
     img = torch.rand((h, w, c), generator=g, device=cuda)
+    if c == 1:
+        img = img[..., 0].contiguous()
     off = (torch.rand((h, w, 2), generator=g, device=cuda) * 2 - 1) * \
         torch.tensor([3.0 * halo[1], 3.0 * halo[0]], device=cuda)
     before = tw.warp_bilinear.launches
@@ -136,7 +159,7 @@ def test_warp_kernel_matches_plain(cuda, case):
     torch.cuda.synchronize()
     assert tw.warp_bilinear.launches == before + 1
     b = tw.warp_bilinear_plain(img, off, halo_r=halo[0], halo_c=halo[1])
-    torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
+    assert a.shape == img.shape and torch.equal(a, b)
 
 
 def test_warp_wrapper_rejects_bad_inputs(cuda):
@@ -148,33 +171,132 @@ def test_warp_wrapper_rejects_bad_inputs(cuda):
     with pytest.raises(ValueError):
         tw.warp_bilinear(torch.zeros((8, 100), device=cuda),
                          torch.zeros((8, 100, 2), device=cuda))
+    with pytest.raises(ValueError):              # offsets on the CPU
+        tw.warp_bilinear(img, torch.zeros((8, 128, 2)))
+    with pytest.raises(ValueError):              # not contiguous
+        tw.warp_bilinear(torch.zeros((128, 8), device=cuda).t(),
+                         torch.zeros((8, 128, 2), device=cuda))
+    with pytest.raises(ValueError):              # float4 texels, 4-aligned
+        tw.warp_bilinear(torch.zeros(8 * 128 * 4 + 1, device=cuda)[1:]
+                         .view(8, 128, 4), torch.zeros((8, 128, 2), device=cuda))
+    with pytest.raises(ValueError):              # float2 offsets, 4-aligned
+        tw.warp_bilinear(img, torch.zeros(8 * 128 * 2 + 1, device=cuda)[1:]
+                         .view(8, 128, 2))
+
+
+@pytest.mark.parametrize("c", [1, 3, 5])
+def test_warp_kernel_on_a_4_byte_aligned_view(cuda, c):
+    """The channel classes that load floats take an image view 4 bytes
+    past a 16-byte boundary (a row slice of an odd-width image) and stay
+    exact."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(c)
+    n = 64 * 256 * c
+    img = torch.rand(n + 1, generator=g, device=cuda)[1:].view(64, 256, c)
+    if c == 1:
+        img = img[..., 0]
+    assert img.is_contiguous() and img.data_ptr() % 16 == 4
+    off = (torch.rand((64, 256, 2), generator=g, device=cuda) * 2 - 1) * 40
+    a = tw.warp_bilinear(img, off)
+    assert torch.equal(a, tw.warp_bilinear_plain(img, off))
+
+
+@pytest.mark.parametrize("shape", [(16384, 16384, 8), (32768, 65536, 1)])
+def test_warp_kernel_past_2_31_elements(cuda, shape):
+    """An image of 2^31 elements (the element kernel at C = 8; 2^31 pixels
+    of one float) takes K2's 64-bit indices: its first and last rows equal
+    the plain version of a 64-row crop there (whose windows, away from the
+    crop's inner edge, are the full image's)."""
+    h, w, c = shape
+    g = torch.Generator(device=cuda)
+    g.manual_seed(c)
+    img = torch.rand(shape, generator=g, device=cuda)
+    if c == 1:
+        img = img[..., 0]
+    off = torch.empty((h, w, 2), device=cuda).uniform_(-1, 1, generator=g)
+    off *= torch.tensor([192.0, 48.0], device=cuda)
+    a = tw.warp_bilinear(img, off)
+    torch.cuda.synchronize()
+    # halo (16, 64): a 40-row window, so crop rows 16.. of the bottom crop
+    # and 0..47 of the top one see the full image's windows
+    top = tw.warp_bilinear_plain(img[:64], off[:64])
+    bottom = tw.warp_bilinear_plain(img[h - 64:], off[h - 64:])
+    assert torch.equal(a[:48], top[:48])
+    assert torch.equal(a[h - 48:], bottom[16:])
+    del img, off, a
+    torch.cuda.empty_cache()
+
+
+def test_warp_kernels_on_a_second_card(cuda):
+    """A tensor on device 1 launches there; the current device stays."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs a second card")
+    dev = torch.device("cuda", 1)
+    g = torch.Generator(device=dev)
+    g.manual_seed(11)
+    img = torch.rand((64, 256, 4), generator=g, device=dev)
+    off = (torch.rand((64, 256, 2), generator=g, device=dev) * 2 - 1) * 40
+    current = torch.cuda.current_device()
+    a = tw.warp_bilinear(img, off)
+    m = tw.warp_bilinear_multi(img[..., 0].contiguous(), off[None])
+    torch.cuda.synchronize(dev)
+    assert torch.cuda.current_device() == current
+    assert a.device == dev and torch.equal(a, tw.warp_bilinear_plain(img, off))
+    assert torch.equal(m[0], tw.warp_bilinear_plain(img[..., 0], off))
+
+
+def _multi_case(cuda, h, w, k, halo, seed):
+    g = torch.Generator(device=cuda)
+    g.manual_seed(seed)
+    img = torch.rand((h, w), generator=g, device=cuda)
+    off = ((torch.rand((k, h, w, 2), generator=g, device=cuda) * 2 - 1)
+           * torch.tensor([3.0 * halo[1], 3.0 * halo[0]], device=cuda))
+    return img, off
+
+
+def _assert_multi_exact(a, img, off, halo):
+    """K6's taps equal the plain version and K launches of K2 exactly."""
+    kw = dict(halo_r=halo[0], halo_c=halo[1])
+    assert torch.equal(a, tw.warp_bilinear_multi_plain(img, off, **kw))
+    for i in range(off.shape[0]):
+        assert torch.equal(a[i], tw.warp_bilinear(img, off[i].contiguous(),
+                                                  **kw))
 
 
 @pytest.mark.parametrize("case", [(544, 1024, 16, (16, 64)),
                                   (544, 1024, 16, (8, 64)),
                                   (256, 1024, 3, (32, 128)),
                                   (64, 128, 4, (16, 64)),
-                                  (1080, 1920, 1, (16, 64))])
+                                  (1080, 1920, 1, (16, 64)),
+                                  # K not a multiple of the tap chunk
+                                  (544, 1024, 17, (8, 64)),
+                                  (1080, 1920, 17, (16, 64)),
+                                  (136, 256, 3, (16, 64))])
 def test_warp_multi_kernel_matches_plain(cuda, case):
     """K6 vs its plain version and K launches of K2, exactly: the SSAO-tap
-    shape (a 40 x 384 window, 61,440 B of shared memory, over the 48 KB
-    static limit), halo (8, 64), a 72 x 384 window (110,592 B), a 128-wide
-    image (halos shrink to 0) and one tap; offsets up to 3 halos."""
+    shape (a 40 x 384 window, 61,448 B of shared memory with its barrier),
+    halo (8, 64), a 72 x 384 window (110,600 B), a 128-wide image (halos
+    shrink to 0), K = 1, 3, 16 and 17; every image's first and last
+    windows are clamped at its top and bottom; offsets up to 3 halos."""
     h, w, k, halo = case
-    g = torch.Generator(device=cuda)
-    g.manual_seed(h + k)
-    img = torch.rand((h, w), generator=g, device=cuda)
-    off = ((torch.rand((k, h, w, 2), generator=g, device=cuda) * 2 - 1)
-           * torch.tensor([3.0 * halo[1], 3.0 * halo[0]], device=cuda))
+    img, off = _multi_case(cuda, h, w, k, halo, h + k)
     before = tw.warp_bilinear_multi.launches
     a = tw.warp_bilinear_multi(img, off, halo_r=halo[0], halo_c=halo[1])
     torch.cuda.synchronize()
     assert tw.warp_bilinear_multi.launches == before + 1
-    b = tw.warp_bilinear_multi_plain(img, off, halo_r=halo[0], halo_c=halo[1])
-    assert torch.equal(a, b)
-    for i in range(k):
-        assert torch.equal(a[i], tw.warp_bilinear(
-            img, off[i].contiguous(), halo_r=halo[0], halo_c=halo[1]))
+    _assert_multi_exact(a, img, off, halo)
+
+
+@pytest.mark.parametrize("k", [1, 2, 5])
+@pytest.mark.parametrize("halo", [(8, 64), (16, 64)])
+def test_warp_multi_odd_tile_rows_match_plain(cuda, halo, k):
+    """17 tile rows (a 136-row image): the windows of the first and last
+    tile rows clamped at the top and bottom, exact at every halo and at K
+    below, at and above the tap chunk of 2."""
+    img, off = _multi_case(cuda, 136, 256, k, halo, 17 * k)
+    a = tw.warp_bilinear_multi(img, off, halo_r=halo[0], halo_c=halo[1])
+    torch.cuda.synchronize()
+    _assert_multi_exact(a, img, off, halo)
 
 
 def test_warp_multi_wrapper_rejects_bad_inputs(cuda):
@@ -188,6 +310,9 @@ def test_warp_multi_wrapper_rejects_bad_inputs(cuda):
         tw.warp_bilinear_multi(img[..., None], off)
     with pytest.raises(ValueError):
         tw.warp_bilinear_multi(img, off.cpu())
+    with pytest.raises(ValueError):              # not contiguous
+        tw.warp_bilinear_multi(img, off.transpose(0, 1).contiguous()
+                               .transpose(0, 1))
     with pytest.raises(ValueError):              # a 136 x 1152 window: 626 KB
         tw.warp_bilinear_multi(torch.zeros((1080, 1920), device=cuda),
                                torch.zeros((1, 1080, 1920, 2), device=cuda),
