@@ -11,6 +11,9 @@ Phases (any failure exits non-zero; no phase is skipped):
   1. build csrc/*.cu with nvcc (one process per source, all at once);
   2. K1, the fused tile raster kernel, vs raster_tiles_fused_plain at the
      bench scene, bench raster config and 1920x1080 (padded to 1088x1920);
+     its time (CUDA events and device time) and its candidate-pixel tests
+     counted on whole segments and inside the candidates' rectangles
+     (raster.candidate_rects), with the bound from each count;
   3. K2, the bounded warp kernel, vs warp_bilinear_plain: the frames' six
      launch shapes (the full-chain DoF taps' five channels included), five
      channels at 1080p, halos (16, 64) and (8, 64), offsets beyond the
@@ -24,7 +27,9 @@ Phases (any failure exits non-zero; no phase is skipped):
      counts are zeroed just before and read just after the timed frames
      (K1 1, K2 20, K3 1 a frame);
   5. K3, the SSR row-DDA march, vs march_dda_plain at the inputs compute_ssr
-     builds from the frame's G-buffer, and on random rays with flat ones;
+     builds from the frame's G-buffer, on random rays with flat ones, and
+     on a 128-row and a 600-row table (shared memory above 48 KB; global
+     memory);
   6. K5, the fused GTAO, vs gtao_fused_plain and against the per-tap route
      on the frame's half-resolution depth and normals; then its own path,
      apply_ssao(use_pallas=True, fused=True) on the frame's G-buffer, with
@@ -36,7 +41,9 @@ Phases (any failure exits non-zero; no phase is skipped):
      scene: UV-derivative channels); K4, the two-pass tile raster, vs
      raster_tiles_plain on the bench's four 2048^2 shadow cascades of the
      textured bench scene, with each cascade's raster statistics (equal to
-     the reference's), and reversed depth on one cascade;
+     the reference's), and reversed depth on one cascade; both timed and
+     their tests counted as in phase 2, and held to the tile rasters'
+     goals;
   9. the --csm frame: the textured bench scene with four-cascade EVSM2
      shadows re-rendered every frame (HnTaskManager.render_shadows, then
      execute, as bench.py --csm runs them), one warm-up frame, then
@@ -68,9 +75,12 @@ times and bound, the card's name and power limit, and last
 
 Usage: python3 chip_smoke.py [--frames N] [--out-png PATH] [--profile PATH]
        python3 chip_smoke.py --only warp [--root DIR]
-(the second runs phases 1, 3 and 13 alone, K6 on random taps, on the port
-of the checkout DIR: run it in two checkouts in turn, A B B A, to compare
-their warp kernels in one call)
+       python3 chip_smoke.py --only raster [--root DIR]
+       python3 chip_smoke.py --only csm [--profile PATH] [--root DIR]
+(the second runs phases 1, 3 and 13 alone, K6 on random taps; the third
+phases 1, 2, 8 without the csm frame, and 11 without the full-chain frame;
+the fourth phases 1 and 9; each on the port of the checkout DIR: run it in
+two checkouts in turn, A B B A, to compare them in one call)
 """
 import argparse
 import json
@@ -318,10 +328,36 @@ def phase_build():
                 print(f"  {name}: {line.strip()}")
 
 
-def _raster_work(k, z, tid, out):
+def _tile_tests(cand, used, r0, n, rects, tiles_x, th, tw):
+    """Candidate-pixel tests of a tile raster on these inputs: each used
+    slot ((tiles, cap) bool) on its tile's columns and its segment's rows
+    [r0, r0 + n) of the tile (the whole-segment loop's count), and, with
+    `rects`, only on the pixels inside the slot's candidate rectangle
+    (raster.candidate_rects): what the inputs need, whatever kernel runs.
+    Returns (unculled tests, tests inside, the most inside one tile); the
+    last two None without rects (a checkout from before the rectangles,
+    under --only raster alone)."""
+    import torch
+    unculled = int((used * n).sum()) * tw
+    if rects is None:
+        return unculled, None, None
+    tile = torch.arange(cand.shape[0], device=cand.device)[:, None]
+    x0 = (tile % tiles_x) * tw
+    y0 = (tile // tiles_x) * th + r0
+    r = rects[torch.clamp(cand.long(), min=0)].long()     # (tiles, cap, 4)
+    cols = torch.clamp(torch.minimum(r[..., 2], x0 + tw - 1)
+                       - torch.maximum(r[..., 0], x0) + 1, min=0)
+    rows = torch.clamp(torch.minimum(r[..., 3], y0 + n - 1)
+                       - torch.maximum(r[..., 1], y0) + 1, min=0)
+    inside = (used * cols * rows).sum(1)
+    return unculled, int(inside.sum()), int(inside.max())
+
+
+def _raster_work(k, rects, z, tid, out):
     """What K1's function needs on this run's data: the bytes (each needed
     input element read once, each output written once) and the
-    candidate-pixel tests of the z-loop."""
+    candidate-pixel tests of the z-loop, unculled and inside the candidates'
+    rectangles `rects` (None: not counted)."""
     import torch
     from diligentfx_tpu_torch.ops.raster_kernel import \
         raster_tiles_winners_plain
@@ -337,11 +373,15 @@ def _raster_work(k, z, tid, out):
                                                  max=kw["cap_sub"]),
                           torch.clamp(counts[:, sub:sub + 1], max=kw["big_cap"]))
         rows = torch.where(seg < sub, th // sub, th)
+        r0 = torch.where(seg < sub, seg * (th // sub), 0)
     else:
         local, rows = slots, torch.full_like(slots, th)
+        r0 = torch.zeros_like(slots)
         lim = torch.clamp(counts.reshape(-1, 1), max=k.candidates.shape[1])
-    used = local[None, :] < lim                        # (tiles, cap) slots read
-    tests = int((used * rows[None, :]).sum()) * tw
+    used = local[None, :] < lim                     # (tiles, cap) slots read
+    unculled, tests, _ = _tile_tests(k.candidates, used, r0[None, :],
+                                     rows[None, :], rects, kw["tiles_x"], th,
+                                     tw)
     tris = torch.unique(k.candidates[used].long())     # setup rows read
     _, win = raster_tiles_winners_plain(
         k.setup, k.candidates, k.counts, th=th, tw=tw, tiles_x=kw["tiles_x"],
@@ -352,17 +392,22 @@ def _raster_work(k, z, tid, out):
     n_mat = k.mat_table.shape[1]
     mats = torch.unique(torch.clamp(k.planes[winners, c0].long(), 0,
                                     n_mat - 1))         # material columns
+    # per setup row read: its 9 plane coefficients (the rectangles are the
+    # kernels' own culling input, not work of the function)
     n_bytes = 4 * (9 * tris.numel() + k.planes.shape[1] * winners.numel()
                    + int(used.sum()) + k.counts.numel()
                    + k.mat_table.shape[0] * mats.numel()
                    + z.numel() + tid.numel() + out.numel())
-    return n_bytes, tests
+    return n_bytes, unculled, tests
 
 
-def phase_raster(scene, info, cfg, use_textures=False, label="bench"):
+def phase_raster(scene, info, cfg, use_textures=False, label="bench",
+                 legacy=False):
     """K1 vs its plain version at the main path's shapes: the bench frame's
     inputs, the csm frame's (use_textures: UV-derivative channels) or the
-    full-chain frame's (the unsegmented route)."""
+    full-chain frame's (the unsegmented route).  `legacy` (--only raster
+    on a checkout from before the candidate rectangles): the kernel takes
+    none, and the tests inside them are not counted."""
     import torch
     from diligentfx_tpu_torch.ops import raster as rz
     from diligentfx_tpu_torch.ops.raster_kernel import (
@@ -373,7 +418,9 @@ def phase_raster(scene, info, cfg, use_textures=False, label="bench"):
                             use_textures=use_textures)
     st = {f: int(v) for f, v in zip(k.stats._fields, k.stats)}
     print(f"{label} raster stats at {pad_w}x{pad_h}: {st}", flush=True)
-    args = (k.setup, k.planes, k.candidates, k.counts, k.mat_table)
+    rects = None if legacy else k.rects
+    args = (k.setup, k.planes, k.candidates, k.counts, k.mat_table) + (
+        () if legacy else (rects,))
     z, tid, out = raster_tiles_fused(*args, **k.kernel_kw)
     torch.cuda.synchronize()
     zp, tidp, outp = raster_tiles_fused_plain(*args, **k.kernel_kw)
@@ -404,24 +451,36 @@ def phase_raster(scene, info, cfg, use_textures=False, label="bench"):
     check(d_err <= d_tol, f"raster kernel derivative error {d_err}")
     check(bool(hit.any()), "raster kernel covered no pixel")
 
-    ms = cuda_ms(lambda: raster_tiles_fused(*args, **k.kernel_kw), 20, 2)
+    def k1():
+        return raster_tiles_fused(*args, **k.kernel_kw)
+    ms = cuda_ms(k1, 20, 2)
+    dev_ms = kernel_device_ms(k1, "raster_fused_kernel", 10)
     plain_ms = cuda_ms(lambda: raster_tiles_fused_plain(*args, **k.kernel_kw),
                        3, 1)
-    n_bytes, tests = _raster_work(k, z, tid, out)
+    n_bytes, unculled, tests = _raster_work(k, rects, z, tid, out)
     # operations: 15 flops a candidate-pixel test (two edge planes, the third
     # edge, the depth plane and its sign), 5 + 5 a channel in the epilogue,
     # 3 a derivative
-    n_ops = 15 * tests + (5 + 5 * n_ch + 3 * n_d) * z.numel()
-    b_ms, b_by = bound_ms(n_bytes, n_ops)
-    print(f"{label} raster_fused: {tests / 1e6:.1f} M candidate-pixel tests, "
-          f"{n_bytes / 1e6:.1f} MB the function needs; {ms:.4f} ms, plain "
-          f"{plain_ms:.2f} ms, bound {b_ms:.4f} ms ({b_by})", flush=True)
+    epi_ops = (5 + 5 * n_ch + 3 * n_d) * z.numel()
+    old_ms, old_by = bound_ms(n_bytes, 15 * unculled + epi_ops)
+    b_ms, b_by = (bound_ms(n_bytes, 15 * tests + epi_ops) if tests is not None
+                  else (old_ms, old_by))
+    print(f"{label} raster_fused: candidate-pixel tests {unculled / 1e6:.2f} M "
+          f"on whole segments, "
+          f"{'not counted' if tests is None else f'{tests / 1e6:.2f} M'} "
+          f"inside the rectangles; {n_bytes / 1e6:.1f} MB the function "
+          f"needs; {ms:.4f} ms CUDA events, device {dev_ms:.4f} ms, plain "
+          f"{plain_ms:.2f} ms; bound {b_ms:.4f} ms ({b_by}; counted on "
+          f"whole segments {old_ms:.4f} ms, {old_by})", flush=True)
     return dict(name="raster_tiles_fused", route="cuda",
                 source="diligentfx_tpu_torch/csrc/raster_fused.cu",
                 replaces="diligentfx_tpu/ops/raster_pallas.py:261",
                 max_abs_err=max(z_err, ch_err, d_err), ms=ms,
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None)
+                library_ms=None, device_ms=dev_ms,
+                candidate_pixel_tests=tests,
+                candidate_pixel_tests_unculled=unculled,
+                bound_ms_unculled=old_ms)
 
 
 def _warp_case(h, w, c, halo, gen):
@@ -786,10 +845,12 @@ def _flat_rays(gen, h, w, rows, cols, flat_share=0.2):
 def phase_march(gb, info):
     """K3 vs march_dda_plain at the inputs compute_ssr builds from the
     frame's G-buffer (the kernel route: mip 3 of the divisor-2 grid, rays
-    padded to 544 x 1024), and on random rays with flat ones."""
+    padded to 544 x 1024), on random rays with flat ones, and on a 128-row
+    and a 600-row table (shared memory above 48 KB; global memory)."""
     import torch
     from diligentfx_tpu_torch.ops.march import (march_dda_plain,
-                                                march_small_table)
+                                                march_small_table,
+                                                table_in_shared)
     from diligentfx_tpu_torch.postfx import ssr
     st = bench_settings().ssr
     depth_r = gb.depth[::2, ::2]
@@ -809,15 +870,24 @@ def phase_march(gb, info):
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(3)
     max_err = 0.0
+    # beside the frame's table: flat rays, a 1024x1024 frame's 128 x 128
+    # mip 2 (64 KB: shared memory above 48 KB) and a 600-row table (read
+    # from global memory)
     for name, case in (("frame", args),
-                       ("flat_rays", _flat_rays(gen, 64, 256, 67, 120))):
+                       ("flat_rays", _flat_rays(gen, 64, 256, 67, 120)),
+                       ("table_128x128", _flat_rays(gen, 64, 256, 128, 128,
+                                                    0.05)),
+                       ("table_600x128", _flat_rays(gen, 64, 256, 600, 128,
+                                                    0.05))):
         a = march_small_table(*case, thick)
         torch.cuda.synchronize()
         b = march_dda_plain(*case, thick)
         flips = int((a[2] != b[2]).sum())
         err = max(float((a[0] - b[0]).abs().max()),
                   float((a[1] - b[1]).abs().max()))
-        print(f"march {name}: hit {float(b[2].float().mean()):.4f} of "
+        print(f"march {name}: table {tuple(case[0].shape)} in "
+              f"{'shared' if table_in_shared(*case[0].shape) else 'global'} "
+              f"memory, hit {float(b[2].float().mean()):.4f} of "
               f"{b[2].numel()}, hit mismatches {flips}, t max err {err:.3g}",
               flush=True)
         check(flips == 0, f"march kernel hits differ from the plain version "
@@ -922,10 +992,19 @@ def phase_gtao(gb, info, frame_state):
                 shapes=f"depth ({h2},{w2}) padded to 544x1024")
 
 
+# the port's kernels (csrc/*.cu), launched through ctypes: the profiler
+# ties their device time to no op, so it is in no dfx.* range's device time
+PORT_KERNELS = ("raster_fused_kernel", "warp_tap_", "march_kernel",
+                "raster_tiles_kernel", "gtao_kernel", "warp_multi_kernel")
 STAGES = ("dfx.shadows", "dfx.gbuffer", "dfx.raster_inputs",
           "dfx.context_composite", "dfx.ssao", "dfx.ssr",
           "dfx.light_scattering", "dfx.exposure", "dfx.taa_bloom_tonemap",
           "dfx.dof")
+
+
+# the kernel-name keys whose device time came from CUDA events because
+# torch.profiler showed none (kernel_device_ms)
+DEVICE_MS_FROM_EVENTS = []
 
 
 def _device_us(event, field):
@@ -962,7 +1041,8 @@ def phase_profile(tm, scene, frame_info, frames, path, label):
     lies inside dfx.gbuffer, dfx.ssao, dfx.ssr, dfx.light_scattering and
     dfx.exposure inside dfx.context_composite, dfx.dof inside
     dfx.taa_bloom_tonemap, dfx.shadows before them all) and of each kernel,
-    and the device's idle share."""
+    and the device's idle share.  A stage's device time leaves out the
+    port's own kernels (PORT_KERNELS), printed on a line of their own."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1002,10 +1082,49 @@ def phase_profile(tm, scene, frame_info, frames, path, label):
               f"{cpu_ms:.3f} ms under the profiler", flush=True)
     for ms, n, key in rows[:12]:
         print(f"profile {label} kernel {ms:.4f} ms x{n}/frame {key[:90]}")
+    own = [(key[key.index(k):].split("(")[0], ms, n) for ms, n, key in rows
+           for k in PORT_KERNELS if k in key]
+    print(f"profile {label}: the port's kernels, in no stage's device time: "
+          + "; ".join(f"{name} {ms:.4f} ms x{n}" for name, ms, n in own),
+          flush=True)
+    if stage_ms["dfx.shadows"][1] > 0:
+        range_breakdown(prof, "dfx.shadows", frames, label)
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "w") as f:
         f.write(prof.key_averages().table(sort_by="self_cuda_time_total",
                                           row_limit=80))
+
+
+def range_breakdown(prof, name, frames, label, top=10):
+    """Inside the ranges `name`: the kernels by device time and the ops the
+    range called directly by host time, a frame, largest first."""
+    from collections import defaultdict
+    from torch.autograd import DeviceType
+    dev = defaultdict(lambda: [0.0, 0])
+    host = defaultdict(lambda: [0.0, 0])
+
+    def walk(e):
+        for k in e.kernels:
+            dev[k.name][0] += k.duration
+            dev[k.name][1] += 1
+        for c in e.cpu_children:
+            walk(c)
+
+    for e in prof.events():
+        if e.name == name and e.device_type == DeviceType.CPU:
+            walk(e)
+            for c in e.cpu_children:
+                host[c.name][0] += c.cpu_time_total
+                host[c.name][1] += 1
+    for what, acc in (("kernel", dev), ("host op", host)):
+        n = sum(v[1] for v in acc.values())
+        print(f"profile {label} {name}: {n // frames} {what} calls a frame, "
+              f"{sum(v[0] for v in acc.values()) / 1e3 / frames:.3f} ms",
+              flush=True)
+        for key, (us, cnt) in sorted(acc.items(), key=lambda kv: -kv[1][0])[
+                :top]:
+            print(f"profile {label} {name} {what} {us / 1e3 / frames:.4f} ms "
+                  f"x{cnt // frames}/frame {key[:90]}", flush=True)
 
 
 def slice_task_manager_ci():
@@ -1140,27 +1259,42 @@ CASCADE_STATS_JAX = ((6, 6144, 0, 0), (100996, 151552, 6582, 0),
                      (111683, 122238, 81384, 15), (111722, 4461, 109256, 0))
 
 
-def kernel_device_ms(fn, key, iters):
-    """Device time a call of the kernels whose name contains `key`, from
-    torch.profiler's kernel rows over `iters` calls of fn."""
+def kernel_device_ms(fn, key, iters, tries=5):
+    """Device time a call of the kernels whose name contains `key` ("" for
+    all), from torch.profiler's kernel rows over `iters` calls of fn.  A
+    profile with no such row (the profiler can come back without device
+    activity) is taken again, `tries` times in all; after that the CUDA
+    events time of a call stands in, and the line printed says so."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(_device_us(e, "self_device_time_total")
-             for e in prof.key_averages() if key in e.key)
-    return us / 1e3 / iters
+    for attempt in range(1, tries + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages()
+                if str(e.device_type).endswith("CUDA")]
+        us = sum(_device_us(e, "self_device_time_total") for e in rows
+                 if key in e.key)
+        if us > 0:
+            return us / 1e3 / iters
+        print(f"profiler: no device time for kernels named {key!r} "
+              f"(try {attempt} of {tries}; {len(rows)} device rows: "
+              f"{[e.key[:40] for e in rows[:4]]})", flush=True)
+    ms = cuda_ms(fn, iters)
+    DEVICE_MS_FROM_EVENTS.append(key)
+    print(f"profiler: device time for kernels named {key!r} not measured; "
+          f"CUDA events {ms:.4f} ms a call stand in", flush=True)
+    return ms
 
 
-def phase_shadow_raster(cfg, scene):
+def phase_shadow_raster(cfg, scene, legacy=False):
     """K4 vs raster_tiles_plain on the bench's four 2048^2 cascades of the
     textured bench scene, as the shadow pass builds their inputs; each
     cascade's raster statistics against the reference's; reversed depth
-    (depth_less=False) on cascade 1."""
+    (depth_less=False) on cascade 1.  `legacy` as phase_raster's."""
     import torch
     from diligentfx_tpu_torch.components import shadow_map_manager as smm
     from diligentfx_tpu_torch.ops import raster as rz
@@ -1195,11 +1329,12 @@ def phase_shadow_raster(cfg, scene):
                           max_count=int(counts.max()),
                           max_bin_count=int(max_count), bin_overflow=st[2],
                           big_overflow=st[3]))
+        rects = None if legacy else rz.candidate_rects(setup, s, s)
+        args = (setup, cand, counts) + (() if legacy else (rects,))
         for depth_less in ((False, True) if i == 1 else (True,)):
-            a = raster_tiles(setup, cand, counts, depth_less=depth_less, **kw)
+            a = raster_tiles(*args, depth_less=depth_less, **kw)
             torch.cuda.synchronize()
-            b = raster_tiles_plain(setup, cand, counts, depth_less=depth_less,
-                                   **kw)
+            b = raster_tiles_plain(*args, depth_less=depth_less, **kw)
             ids = int((a[1] != b[1]).sum())
             hit = b[1] >= 0
             errs = [float((x - y).abs()[hit].max()) if bool(hit.any())
@@ -1219,47 +1354,73 @@ def phase_shadow_raster(cfg, scene):
             check(max(errs) <= 1e-6, f"K4 error {errs} (cascade {i})")
             check(misses_ok, f"K4 clear values wrong (cascade {i})")
             max_err = max(max_err, *errs)
-        cases.append((setup, cand, counts, kw, b))
+        cases.append((args, kw, b, rects))
 
     def k4_all():
-        for setup, cand, counts, kw, _ in cases:
-            raster_tiles(setup, cand, counts, **kw)
+        for args, kw, _, _ in cases:
+            raster_tiles(*args, **kw)
 
     def plain_all():
-        for setup, cand, counts, kw, _ in cases:
-            raster_tiles_plain(setup, cand, counts, **kw)
+        for args, kw, _, _ in cases:
+            raster_tiles_plain(*args, **kw)
 
     ms = cuda_ms(k4_all, 10, 2)
     dev_ms = kernel_device_ms(k4_all, "raster_tiles_kernel", 5)
     plain_ms = cuda_ms(plain_all, 1, 1)
+    # the rectangles K4 takes: what computing them adds to the shadow pass
+    rects_ms = rects_dev_ms = None
+    if not legacy:
+        def rects_all():
+            for (setup, *_), _, _, _ in cases:
+                rz.candidate_rects(setup, s, s)
+        rects_ms = cuda_ms(rects_all, 10, 2)
+        rects_dev_ms = kernel_device_ms(rects_all, "", 5)
+        print(f"candidate_rects for the 4 cascades: {rects_ms:.4f} ms CUDA "
+              f"events, device {rects_dev_ms:.4f} ms", flush=True)
     # the work of the 4 cascades: each used candidate tested on its tile's
-    # pixels; the setup rows the loop reads (9 floats) and the winners'
-    # (7 more), the candidate ids and counts read once, 16 B a pixel out
-    tests = n_bytes = 0
-    for setup, cand, counts, kw, b in cases:
+    # pixels (unculled) or on those inside its rectangle; the setup rows the
+    # loop reads (9 floats; the rectangles are the kernel's own culling
+    # input, not work of the function) and the winners' (7 more), the
+    # candidate ids and counts read once, 16 B a pixel out
+    tests = unculled = n_bytes = 0
+    heaviest = []
+    for (setup, cand, counts, *_), kw, b, rects in cases:
         used = (torch.arange(cand.shape[1], device=DEVICE)[None, :]
                 < torch.clamp(counts.long(), max=cand.shape[1])[:, None])
-        tests += int(used.sum()) * th * tw
+        old, new, most = _tile_tests(cand, used, 0, th, rects, kw["tiles_x"],
+                                     th, tw)
+        unculled += old
+        tests = None if new is None or tests is None else tests + new
+        heaviest.append(most)
         rows = torch.unique(cand[used].long()).numel()
         winners = torch.unique(b[1][b[1] >= 0]).numel()
         n_bytes += 4 * (9 * rows + 7 * winners + int(used.sum())
                         + counts.numel()) + 16 * b[1].numel()
     # 15 flops a candidate-pixel test (as K1's), 8 a covered pixel for the
     # two barycentric planes
-    covered = sum(int((c[4][1] >= 0).sum()) for c in cases)
-    b_ms, b_by = bound_ms(n_bytes, 15 * tests + 8 * covered)
+    covered = sum(int((c[2][1] >= 0).sum()) for c in cases)
+    old_ms, old_by = bound_ms(n_bytes, 15 * unculled + 8 * covered)
+    b_ms, b_by = (bound_ms(n_bytes, 15 * tests + 8 * covered)
+                  if tests is not None else (old_ms, old_by))
     print(f"raster_tiles: 4 cascades {ms:.4f} ms CUDA events, device "
-          f"{dev_ms:.4f} ms; {tests / 1e9:.4f} G candidate-pixel tests, "
-          f"{n_bytes / 1e6:.1f} MB; bound {b_ms:.4f} ms ({b_by}); plain "
-          f"{plain_ms:.2f} ms", flush=True)
+          f"{dev_ms:.4f} ms; candidate-pixel tests {unculled / 1e9:.4f} G on "
+          f"whole tiles, "
+          f"{'not counted' if tests is None else f'{tests / 1e6:.2f} M'} "
+          f"inside the rectangles (the most in one tile of {th * tw} pixels, "
+          f"by cascade: {heaviest}); {n_bytes / 1e6:.1f} MB; bound "
+          f"{b_ms:.4f} ms ({b_by}; counted on whole tiles {old_ms:.4f} ms, "
+          f"{old_by}); plain {plain_ms:.2f} ms", flush=True)
     return dict(name="raster_tiles", route="cuda",
                 source="diligentfx_tpu_torch/csrc/raster_tiles.cu",
                 replaces="diligentfx_tpu/ops/raster_pallas.py:35",
                 max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=None, device_ms=dev_ms,
-                candidate_pixel_tests=tests, cascade_stats=stats,
+                candidate_pixel_tests=tests,
+                candidate_pixel_tests_unculled=unculled,
+                bound_ms_unculled=old_ms, rects_ms=rects_ms,
+                rects_device_ms=rects_dev_ms, cascade_stats=stats,
                 shapes=f"{NUM_CASCADES} cascades of {s}x{s}, tiles "
-                       f"{th}x{tw}, cap {cases[0][1].shape[1]}")
+                       f"{th}x{tw}, cap {cases[0][0][1].shape[1]}")
 
 
 def phase_csm_frame(cfg, scene, atlas, frames, out_png, ibl_source):
@@ -1653,6 +1814,75 @@ def phase_full_chain_reference():
                     f"{p:.2f} dB")
 
 
+# goals of the tile rasters' redesign, device ms (torch.profiler kernel
+# rows): K4 over the four cascades, K1 at each of its three inputs
+RASTER_GOALS_MS = {"raster_tiles": 0.45, "bench": 0.15, "csm": 0.20,
+                   "full-chain": 0.25}
+
+
+def merge_k1(k1, k1_other, key):
+    """K1's numbers at another input set, kept under `key` of its line."""
+    k1["max_abs_err"] = max(k1["max_abs_err"], k1_other["max_abs_err"])
+    k1[key] = {name: k1_other[name] for name in (
+        "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+        "candidate_pixel_tests", "candidate_pixel_tests_unculled",
+        "bound_ms_unculled")}
+
+
+def print_raster_goals(k1, k4):
+    times = {"raster_tiles": k4["device_ms"], "bench": k1["device_ms"],
+             "csm": k1["csm_inputs"]["device_ms"],
+             "full-chain": k1["full_chain_inputs"]["device_ms"]}
+    print("raster goals (device ms): " + "; ".join(
+        f"{name} {times[name]:.4f} <= {goal} "
+        f"{'held' if times[name] <= goal else 'missed'}"
+        for name, goal in RASTER_GOALS_MS.items()), flush=True)
+
+
+def raster_only():
+    """Phases 2, 8 (K1 at the csm inputs, K4 on the four cascades) and 11
+    (K1 at the full-chain inputs, the atrium alone): the tile rasters at
+    every input the main path gives them, without the frames.  A checkout
+    whose tile rasters take no candidate rectangles (before the culling
+    kernels) runs them without, its tests inside rectangles not counted;
+    the main path always passes them."""
+    from diligentfx_tpu_torch.ops import raster as rz
+    legacy = not hasattr(rz, "candidate_rects")
+    if legacy:
+        print("this checkout's tile rasters take no candidate rectangles",
+              flush=True)
+    cfg = bench_raster_config()
+    k1 = phase_raster(bench_scene(5, 9, 32, DEVICE), render_info(W, H, DEVICE),
+                      cfg, legacy=legacy)
+    scene_csm, _ = csm_scene(5, 9, 32, DEVICE)
+    merge_k1(k1, phase_raster(scene_csm, render_info(W, H, DEVICE, csm=True),
+                              cfg, use_textures=True, label="csm",
+                              legacy=legacy), "csm_inputs")
+    k4 = phase_shadow_raster(cfg, scene_csm, legacy=legacy)
+    merge_k1(k1, phase_raster(full_chain_scene(),
+                              full_chain_info(0, W, H, DEVICE),
+                              full_chain_raster_config(), label="full-chain",
+                              legacy=legacy), "full_chain_inputs")
+    print_raster_goals(k1, k4)
+    return k1, k4
+
+
+def csm_only(frames, profile):
+    """Phase 9 alone (the csm frame, timed; profiled with `profile`): the
+    shadow pass and the frame of two checkouts in one call."""
+    from diligentfx_tpu_torch.config import PBRRendererCreateInfo
+    from diligentfx_tpu_torch.pbr.renderer import PBRRenderer
+    cfg = bench_raster_config()
+    scene, atlas = csm_scene(5, 9, 32, DEVICE)
+    ibl = PBRRenderer(PBRRendererCreateInfo(), raster_cfg=cfg, device=DEVICE)
+    tm, scene, frame_info, _, ms, ev_ms = phase_csm_frame(
+        cfg, scene, atlas, frames, "", ibl)
+    if profile:
+        phase_profile(tm, scene, frame_info, 3, profile, "csm")
+    return dict(csm_frame_ms_median=ms, csm_frame_events_ms_median=ev_ms,
+                frames=frames)
+
+
 def card_line() -> str:
     r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,
@@ -1668,9 +1898,12 @@ def main() -> int:
     ap.add_argument("--profile", default="",
                     help="also profile 3 frames (device time by stage and by "
                          "kernel); write the profiler's table to this path")
-    ap.add_argument("--only", choices=("warp",),
-                    help="run only phases 1, 3 and 13 (K6 on random taps "
-                         "within the halo) and print their JSON line")
+    ap.add_argument("--only", choices=("warp", "raster", "csm"),
+                    help="warp: run only phases 1, 3 and 13 (K6 on random "
+                         "taps within the halo); raster: only phases 1, 2, "
+                         "8 (without the csm frame) and 11; csm: only "
+                         "phases 1 and 9 (with --profile, profiled); and "
+                         "print their JSON line")
     ap.add_argument("--root", default=HERE,
                     help="import the port from this checkout (with --only, "
                          "to A/B two checkouts' kernels in one call)")
@@ -1693,6 +1926,16 @@ def main() -> int:
         print(json.dumps({"root": args.root, "kernels": [k2, k6]}))
         print(card, flush=True)
         return 0
+    if args.only == "raster":
+        k1, k4 = raster_only()
+        print(json.dumps({"root": args.root, "kernels": [k1, k4]}))
+        print(card, flush=True)
+        return 0
+    if args.only == "csm":
+        print(json.dumps({"root": args.root,
+                          **csm_only(args.frames, args.profile)}))
+        print(card, flush=True)
+        return 0
     cfg = bench_raster_config()
     scene = bench_scene(5, 9, 32, DEVICE)
     print(f"bench scene: {scene.num_triangles} triangles, "
@@ -1712,9 +1955,7 @@ def main() -> int:
     scene_csm, atlas = csm_scene(5, 9, 32, DEVICE)
     k1_csm = phase_raster(scene_csm, render_info(W, H, DEVICE, csm=True), cfg,
                           use_textures=True, label="csm")
-    k1["max_abs_err"] = max(k1["max_abs_err"], k1_csm["max_abs_err"])
-    k1["csm_inputs"] = {key: k1_csm[key] for key in (
-        "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}
+    merge_k1(k1, k1_csm, "csm_inputs")
     k4 = phase_shadow_raster(cfg, scene_csm)
     csm_tm, csm_scene_, csm_info, csm_launches, csm_ms, csm_dev_ms = \
         phase_csm_frame(cfg, scene_csm, atlas, args.frames, args.out_png,
@@ -1732,9 +1973,8 @@ def main() -> int:
     check(scene_fc.num_triangles == 112592, "the atrium scene's triangles")
     k1_fc = phase_raster(scene_fc, full_chain_info(0, W, H, DEVICE), fc_cfg,
                          label="full-chain")
-    k1["max_abs_err"] = max(k1["max_abs_err"], k1_fc["max_abs_err"])
-    k1["full_chain_inputs"] = {key: k1_fc[key] for key in (
-        "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}
+    merge_k1(k1, k1_fc, "full_chain_inputs")
+    print_raster_goals(k1, k4)
     (fc_tm, fc_info, fc_launches, fc_ms, fc_dev_ms, fc_gb, fc_state,
      fc_last) = phase_full_chain_frame(fc_cfg, scene_fc, args.frames,
                                        args.out_png, tm.renderer)
@@ -1776,6 +2016,9 @@ def main() -> int:
     print(f"full_chain_frame_ms_median {fc_ms:.3f} (CUDA events "
           f"{fc_dev_ms:.3f}) over {args.frames} frames at {W}x{H} on "
           f"{card}; total run {time.perf_counter() - t_start:.1f} s")
+    if DEVICE_MS_FROM_EVENTS:
+        print(f"device_ms from CUDA events, the profiler showing no device "
+              f"time, for kernels named {DEVICE_MS_FROM_EVENTS}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

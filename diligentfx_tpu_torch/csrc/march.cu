@@ -22,11 +22,16 @@
 // each side (a row outside that range has an empty t-interval, so it could
 // not update the result), and reads the table from shared memory.
 //
-// Design: one block per 8 x 128 tile, one thread per pixel; the table (at
-// most 48 KB, checked by the wrapper) is staged in shared memory once per
-// block.  What bounds it on an H100: operations.  A pixel reads 24 bytes
-// and writes 9, but runs about 100 flops for each table row it crosses
-// (dozens of rows for a ray that travels up the screen).  Built with
+// Design: one block per 8 x 128 tile, one thread per pixel; a table of up
+// to 232,448 bytes (454 rows of 128 columns; the launcher opts in to
+// Hopper's dynamic shared memory above 48 KB) is staged in shared memory
+// once per block.  A taller table, which the reference also marches, takes
+// the same kernel reading its rows from global memory through the
+// read-only cache (kShared false); the wrapper picks the variant
+// (ops/march.py `table_in_shared`).  What bounds it on an H100:
+// operations.  A pixel reads 24 bytes and writes 9, but runs about 100
+// flops for each table row it crosses (dozens of rows for a ray that
+// travels up the screen).  Built with
 // -fmad=false and IEEE division so it rounds like the plain PyTorch
 // version (ops/march.py `march_dda_plain`).
 #include <cuda_runtime.h>
@@ -56,7 +61,13 @@ __device__ __forceinline__ void fold(bool ok, float f0, float f1, float eps0,
   }
 }
 
+template <bool kShared>
+__device__ __forceinline__ float texel(const float* row, int x) {
+  return kShared ? row[x] : __ldg(row + x);
+}
+
 // One sub-interval [t0, t1] of a crossed row.
+template <bool kShared>
 __device__ __forceinline__ void sub_interval(const float* row, int cols,
                                              float t0, float t1, float ou,
                                              float du, float oz, float dz,
@@ -66,8 +77,8 @@ __device__ __forceinline__ void sub_interval(const float* row, int cols,
   const float u1 = ou + du * t1;
   const int x0 = min(max((int)floorf(u0 * (float)cols), 0), cols - 1);
   const int x1 = min(max((int)floorf(u1 * (float)cols), 0), cols - 1);
-  const float d0 = row[x0];
-  const float d1 = row[x1];
+  const float d0 = texel<kShared>(row, x0);
+  const float d1 = texel<kShared>(row, x1);
   const float z0 = oz + dz * t0;
   const float z1 = oz + dz * t1;
   const float slop = fabsf(dz) * (t1 - t0);
@@ -80,15 +91,20 @@ __device__ __forceinline__ void sub_interval(const float* row, int cols,
   fold(ok, z0 - d0, z1 - d1, eps0, win, t0, t_span, t_lo, t_hit);
 }
 
+template <bool kShared>
 __global__ void __launch_bounds__(kThreads)
 march_kernel(const float* __restrict__ coarse,
              const float* __restrict__ origin, const float* __restrict__ dir,
              const float* __restrict__ thick_p, float* __restrict__ t_lo_out,
              float* __restrict__ t_hit_out, unsigned char* __restrict__ hit_out,
              int rows, int cols, int W) {
-  extern __shared__ float tab[];
-  for (int i = threadIdx.x; i < rows * cols; i += kThreads) tab[i] = coarse[i];
-  __syncthreads();
+  extern __shared__ float tab_sh[];
+  if (kShared) {
+    for (int i = threadIdx.x; i < rows * cols; i += kThreads)
+      tab_sh[i] = coarse[i];
+    __syncthreads();
+  }
+  const float* tab = kShared ? tab_sh : coarse;
 
   const int tiles_x = W / kTileW;
   const int y = (blockIdx.x / tiles_x) * kTileH + threadIdx.x / kTileW;
@@ -126,8 +142,10 @@ march_kernel(const float* __restrict__ coarse,
     }
     const float tm = 0.5f * (tin + tout);
     const float* row = tab + r * cols;
-    sub_interval(row, cols, tin, tm, ou, du, oz, dz, thick, t_lo, t_hit);
-    sub_interval(row, cols, tm, tout, ou, du, oz, dz, thick, t_lo, t_hit);
+    sub_interval<kShared>(row, cols, tin, tm, ou, du, oz, dz, thick, t_lo,
+                          t_hit);
+    sub_interval<kShared>(row, cols, tm, tout, ou, du, oz, dz, thick, t_lo,
+                          t_hit);
   }
   const bool found = t_hit < 1.5f;
   t_lo_out[pix] = found ? t_lo : 0.0f;
@@ -137,18 +155,33 @@ march_kernel(const float* __restrict__ coarse,
 
 }  // namespace
 
+// table_in_shared: stage the table in shared memory (rows * cols * 4 bytes,
+// at most 232,448: ops/march.py `table_in_shared` decides) or read it from
+// global memory.
 extern "C" int dfx_march_small_table(const void* coarse, const void* origin,
                                      const void* dir, const void* thick,
                                      void* t_lo, void* t_hit, void* hit,
                                      int rows, int cols, int H, int W,
-                                     void* stream) {
+                                     int table_in_shared, void* stream) {
   if (rows < 1 || cols < 1 || cols > kTileW || H % kTileH || W % kTileW)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)rows * cols * sizeof(float);
+  if (H == 0 || W == 0) return 0;
   const int blocks = (H / kTileH) * (W / kTileW);
-  march_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)coarse, (const float*)origin, (const float*)dir,
-      (const float*)thick, (float*)t_lo, (float*)t_hit, (unsigned char*)hit,
-      rows, cols, W);
+  cudaStream_t st = (cudaStream_t)stream;
+  const float* c = (const float*)coarse;
+  if (table_in_shared) {
+    const size_t smem = (size_t)rows * cols * sizeof(float);
+    const cudaError_t err = cudaFuncSetAttribute(
+        march_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    march_kernel<true><<<blocks, kThreads, smem, st>>>(
+        c, (const float*)origin, (const float*)dir, (const float*)thick,
+        (float*)t_lo, (float*)t_hit, (unsigned char*)hit, rows, cols, W);
+  } else {
+    march_kernel<false><<<blocks, kThreads, 0, st>>>(
+        c, (const float*)origin, (const float*)dir, (const float*)thick,
+        (float*)t_lo, (float*)t_hit, (unsigned char*)hit, rows, cols, W);
+  }
   return (int)cudaGetLastError();
 }

@@ -11,38 +11,34 @@
 //   * z-loop over the tile's first min(count, cap) candidates, in order:
 //     the candidate's edge planes l0, l1 and l2 = 1-l0-l1 (all >= 0 means
 //     covered) and its depth plane; the nearest covered candidate wins and
-//     ties go to the first in candidate order.  One strict-less test per
-//     candidate in order gives the TPU kernel's winner (its chunk argmin
-//     takes the first minimum, and chunks merge with strict less).
+//     ties go to the first in candidate order (the TPU kernel's chunk
+//     argmin takes the first minimum, and chunks merge with strict less).
 //   * epilogue: from the winner's setup row, the original triangle id
 //     (column 15) and the original-triangle barycentric planes (columns
 //     9-14) evaluated at the pixel centre.  A miss keeps the clear values:
 //     depth +inf (-inf for reversed depth), id -1, barycentrics 0.
 //   Outputs are in tile layout, (tiles, th, tw) each.
 //
-// What bounds it on an H100: operations.  At the --csm frame's shadow
-// cascades (1024 tiles of 32 x 128 at 2048^2, up to 1,103 candidates a
-// tile) the z-loop is about 1.2 G candidate-pixel tests of ~14 flops a
-// frame, while the outputs are 16 B a pixel.  So the per-pixel running
-// (z, slot) stays in registers (each thread owns th*tw/256 pixels), the
-// candidates' nine plane coefficients are staged through shared memory a
-// chunk at a time (one global read per candidate per block), and every
-// output is written once with coalesced stores.  Built with -fmad=false,
-// the plane evaluations (a*px + b*py) + c round exactly like the plain
-// PyTorch version, so coverage on shared edges agrees bit for bit.
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+// What bounds it on an H100: bytes, once the z-loop tests only what its
+// inputs need.  At the --csm frame's four 2048^2 shadow cascades the loop
+// needs about 40 M candidate-pixel tests inside the candidates' rectangles
+// (about 0.6 G flops: microseconds at the fp32 rate), while the outputs are
+// 16 B a pixel, 268 MB for the four cascades (80 us at 3.35 TB/s).  Testing
+// every candidate on its whole tile cost 1.16 G tests, which set the time.
+// The z-loop (csrc/raster_zloop.cuh) culls each candidate to its rectangle,
+// scatters the small ones over every thread of the block (the heavy tiles
+// of the far cascades) and runs the large ones on warp blocks, with the
+// candidate stage overlapping the tests; the epilogue reads each winner's
+// setup row with two float4 loads and writes every output once, four pixels
+// to a thread in 16-byte stores.  Any tile of a multiple of 8 rows by a
+// multiple of 32 columns runs, in passes of 8 warp blocks.
+#include "raster_zloop.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;   // threads per block
-constexpr int kStage = 64;      // candidates staged in shared memory per round
-constexpr int kCoefs = 9;       // l0 (a,b,c), l1 (a,b,c), z (a,b,c)
-constexpr int kSetupDim = 16;   // setup row width (raster._triangle_setup)
-
 struct Args {
   const float* setup;   // (P, 16)
+  const int4* rects;    // (P, 4) candidate pixel rectangles
   const int* cand;      // (num_tiles, cap)
   const int* counts;    // (num_tiles,)
   float* z_out;         // (num_tiles, th, tw)
@@ -54,89 +50,100 @@ struct Args {
   int off_x, off_y;
 };
 
-template <int NK>
-__global__ void __launch_bounds__(kThreads)
+template <int R>
+__global__ void __launch_bounds__(zloop::kThreads, 2)
 raster_tiles_kernel(Args a) {
-  __shared__ float stage[kStage * kCoefs];
+  extern __shared__ __align__(16) unsigned char smem[];
+  zloop::Shared& sh = *reinterpret_cast<zloop::Shared*>(smem);
+  __shared__ zloop::Seg segs[2];
   const int tile = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int npx = a.th * a.tw;
-  const float x0 = (float)((tile % a.tiles_x) * a.tw + a.off_x);
-  const float y0 = (float)((tile / a.tiles_x) * a.th + a.off_y);
+  const int tx = tile % a.tiles_x, ty = tile / a.tiles_x;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int* cand_row = a.cand + (size_t)tile * a.cap;
-  const int count = max(min(a.counts[tile], a.cap), 0);
-
-  float zr[NK];
-  int sr[NK];
-  float pxr[NK], pyr[NK];
-#pragma unroll
-  for (int k = 0; k < NK; ++k) {
-    const int p = tid + k * kThreads;
-    zr[k] = INFINITY;
-    sr[k] = 0;
-    pxr[k] = x0 + (float)(p % a.tw) + 0.5f;
-    pyr[k] = y0 + (float)(p / a.tw) + 0.5f;
+  zloop::Tile t;
+  t.x0 = tx * a.tw;
+  t.y0 = ty * a.th;
+  t.tw = a.tw;
+  t.cols = a.tw / 32;                         // warp blocks across the tile
+  t.nb = t.cols * (a.th / R);                 // warp blocks in the tile
+  t.offx = a.off_x;
+  t.offy = a.off_y;
+  if (threadIdx.x == 0) {
+    segs[0] = {0, 0, t.y0, t.y0 + a.th - 1};
+    segs[1] = {max(min(a.counts[tile], a.cap), 0), 0, 0, -1};
   }
 
-  for (int base = 0; base < count; base += kStage) {
-    const int n = min(kStage, count - base);
-    __syncthreads();  // previous round's stage fully consumed
-    for (int e = tid; e < n * kCoefs; e += kThreads) {
-      const int j = e / kCoefs;
-      const int id = max(cand_row[base + j], 0);
-      stage[e] = a.setup[(size_t)id * kSetupDim + (e - j * kCoefs)];
-    }
-    __syncthreads();
-    for (int j = 0; j < n; ++j) {
-      const float* s = stage + j * kCoefs;
-      const float a0 = s[0], b0 = s[1], c0 = s[2];
-      const float a1 = s[3], b1 = s[4], c1 = s[5];
-      const float az = s[6], bz = s[7], cz = s[8];
-      const int sl = base + j;
+  for (t.pass = 0; t.pass < t.nb; t.pass += zloop::kWarps) {
+    const int last = min(t.pass + zloop::kWarps, t.nb) - 1;
+    t.plo = t.y0 + (t.pass / t.cols) * R;
+    t.phi = t.y0 + (last / t.cols) * R + R - 1;
+    const int wb = t.pass + warp;
+    const int lx = (wb % t.cols) * 32 + lane;   // tile-local column
+    zloop::Block b;
+    b.active = wb < t.nb;
+    b.x0 = t.x0 + lx - lane;
+    b.y0 = t.y0 + (wb / t.cols) * R;
+    b.key0 = warp * 32 * R;
+    b.px = (float)(t.x0 + a.off_x + lx) + 0.5f;
+    b.py0 = (float)(b.y0 + a.off_y) + 0.5f;
+    zloop::run<R>(a.setup, a.rects, cand_row, segs, 1, sh, t, b, a.sign);
+
+    // ---- epilogue, four pixels a thread: the winner's original id and
+    // barycentric planes -----------------------------------------------------
+    zloop::for_quads<R>(t, [&](int key0, int ly, int qx) {
+      const ulonglong2 k01 =
+          *reinterpret_cast<const ulonglong2*>(sh.key + key0);
+      const ulonglong2 k23 =
+          *reinterpret_cast<const ulonglong2*>(sh.key + key0 + 2);
+      const unsigned long long keys[4] = {k01.x, k01.y, k23.x, k23.y};
+      const float py = (float)(t.y0 + ly + a.off_y) + 0.5f;
+      float z[4], b0[4], b1[4];
+      int id[4];
 #pragma unroll
-      for (int k = 0; k < NK; ++k) {
-        const float l0 = a0 * pxr[k] + b0 * pyr[k] + c0;
-        const float l1 = a1 * pxr[k] + b1 * pyr[k] + c1;
-        const float l2 = 1.0f - l0 - l1;
-        const float zc = a.sign * (az * pxr[k] + bz * pyr[k] + cz);
-        if (l0 >= 0.0f && l1 >= 0.0f && l2 >= 0.0f && zc < zr[k]) {
-          zr[k] = zc;
-          sr[k] = sl;
+      for (int i = 0; i < 4; ++i) {
+        const float zs = __uint_as_float((unsigned)(keys[i] >> 32));
+        z[i] = a.sign * zs;
+        id[i] = -1;
+        b0[i] = b1[i] = 0.0f;
+        if (zs < INFINITY) {
+          const float px = (float)(t.x0 + a.off_x + qx + i) + 0.5f;
+          const float4* s =
+              reinterpret_cast<const float4*>(a.setup) +
+              (size_t)max(__ldg(cand_row + (unsigned)keys[i]), 0) *
+                  (zloop::kSetupDim / 4);
+          const float4 p = __ldg(s + 2);      // columns 8-11
+          const float4 q = __ldg(s + 3);      // columns 12-15
+          b0[i] = (p.y * px + p.z * py) + p.w;
+          b1[i] = (q.x * px + q.y * py) + q.z;
+          id[i] = (int)q.w;
         }
       }
-    }
-  }
-
-  // ---- epilogue: the winner's original id and barycentric planes --------
-  const size_t o0 = (size_t)tile * npx;
-#pragma unroll
-  for (int k = 0; k < NK; ++k) {
-    const int p = tid + k * kThreads;
-    const bool hit = zr[k] < INFINITY;
-    int id = -1;
-    float bary0 = 0.0f, bary1 = 0.0f;
-    if (hit) {
-      const float* s = a.setup + (size_t)max(cand_row[sr[k]], 0) * kSetupDim;
-      bary0 = s[9] * pxr[k] + s[10] * pyr[k] + s[11];
-      bary1 = s[12] * pxr[k] + s[13] * pyr[k] + s[14];
-      id = (int)s[15];
-    }
-    a.z_out[o0 + p] = a.sign * zr[k];
-    a.id_out[o0 + p] = id;
-    a.b0_out[o0 + p] = bary0;
-    a.b1_out[o0 + p] = bary1;
+      const size_t o = (size_t)tile * a.th * a.tw + (size_t)ly * a.tw + qx;
+      *reinterpret_cast<float4*>(a.z_out + o) =
+          make_float4(z[0], z[1], z[2], z[3]);
+      *reinterpret_cast<int4*>(a.id_out + o) =
+          make_int4(id[0], id[1], id[2], id[3]);
+      *reinterpret_cast<float4*>(a.b0_out + o) =
+          make_float4(b0[0], b0[1], b0[2], b0[3]);
+      *reinterpret_cast<float4*>(a.b1_out + o) =
+          make_float4(b1[0], b1[1], b1[2], b1[3]);
+    });
   }
 }
 
 }  // namespace
 
 extern "C" int dfx_raster_tiles(
-    const void* setup, const void* cand, int cap, const void* counts,
-    void* z_out, void* id_out, void* b0_out, void* b1_out, int num_tiles,
-    int tiles_x, int th, int tw, int depth_less, int off_x, int off_y,
-    void* stream) {
+    const void* setup, const void* rects, const void* cand, int cap,
+    const void* counts, void* z_out, void* id_out, void* b0_out,
+    void* b1_out, int num_tiles, int tiles_x, int th, int tw, int depth_less,
+    int off_x, int off_y, void* stream) {
+  if (th < 8 || th % 8 || tw < 32 || tw % 32)
+    return (int)cudaErrorInvalidValue;   // the wrapper rejects these
+  if (num_tiles == 0) return 0;
   Args a;
   a.setup = (const float*)setup;
+  a.rects = (const int4*)rects;
   a.cand = (const int*)cand;
   a.counts = (const int*)counts;
   a.z_out = (float*)z_out;
@@ -151,11 +158,12 @@ extern "C" int dfx_raster_tiles(
   a.off_x = off_x;
   a.off_y = off_y;
   cudaStream_t st = (cudaStream_t)stream;
-  switch (th * tw / kThreads) {
-    case 4: raster_tiles_kernel<4><<<num_tiles, kThreads, 0, st>>>(a); break;
-    case 8: raster_tiles_kernel<8><<<num_tiles, kThreads, 0, st>>>(a); break;
-    case 16: raster_tiles_kernel<16><<<num_tiles, kThreads, 0, st>>>(a); break;
-    default: return (int)cudaErrorInvalidValue;  // the wrapper rejects these
-  }
+  const int smem = (int)sizeof(zloop::Shared);
+  auto kernel = zloop::block_rows(th, tw) == 16 ? raster_tiles_kernel<16>
+                                                : raster_tiles_kernel<8>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<num_tiles, zloop::kThreads, smem, st>>>(a);
   return (int)cudaGetLastError();
 }

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` compiles with nvcc for ``sm_90a`` into a shared
 library with a plain C interface, loaded with ctypes.  Libraries land in
 ``build/kernels/`` at the repository root (listed in .gitignore), named by
-a hash of the source and flags, so an edited source rebuilds and an
-unchanged one loads at once.  Nothing here runs at import time.
+a hash of the source, the csrc headers and the flags, so an edited source
+or header rebuilds and an unchanged one loads at once.  Nothing here runs
+at import time.
 """
 from __future__ import annotations
 
@@ -40,9 +41,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}_{tag}.so"
+    """The library of csrc/<name>.cu, tagged with a hash of the source,
+    every csrc header (a source may include any of them) and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:12]}.so"
 
 
 def _start_build(name: str):

@@ -27,9 +27,16 @@ Tensor = torch.Tensor
 
 TILE_H = 8
 TILE_W = 128
-# the kernel stages the whole (8-row padded, 128-column) table in shared
-# memory; 48 KB is what a block gets without opting in to more
-MAX_TABLE_BYTES = 48 * 1024
+# shared memory a block of an H100 can have once the launcher opts in
+SMEM_BYTES = 232448
+
+
+def table_in_shared(rows: int, cols: int) -> bool:
+    """Whether the kernel stages the (rows, cols) table in shared memory
+    (rows * cols * 4 bytes, as csrc/march.cu's launcher counts them); a
+    taller table takes the kernel variant that reads its rows from global
+    memory."""
+    return rows * cols * 4 <= SMEM_BYTES
 
 
 def _row_plain(row_vals: Tensor, t0: Tensor, t1: Tensor, has: Tensor,
@@ -128,8 +135,8 @@ def _check_inputs(coarse: Tensor, origin_uvz: Tensor, dir_uvz: Tensor
 
 
 # dfx_march_small_table(coarse, origin, dir, thickness, t_lo, t_hit, hit,
-#                       rows, cols, h, w, stream)
-_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+#                       rows, cols, h, w, table_in_shared, stream)
+_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
 def _launch(coarse: Tensor, origin_uvz: Tensor, dir_uvz: Tensor,
@@ -143,12 +150,6 @@ def _launch(coarse: Tensor, origin_uvz: Tensor, dir_uvz: Tensor,
     if not (coarse.is_contiguous() and origin_uvz.is_contiguous()
             and dir_uvz.is_contiguous()):
         raise ValueError("march_small_table takes contiguous tensors")
-    rows_pad = -(-rows // TILE_H) * TILE_H
-    smem = rows_pad * TILE_W * 4
-    if smem > MAX_TABLE_BYTES:
-        raise ValueError(f"coarse table {rows}x{cols} needs {smem} bytes of "
-                         f"shared memory; the kernel is built for at most "
-                         f"{MAX_TABLE_BYTES}")
     thick = torch.as_tensor(thickness_ndc, dtype=torch.float32,
                             device=dev).reshape(1).contiguous()
     fn = cuda_build.bind("march", "dfx_march_small_table", _ARGTYPES)
@@ -159,7 +160,8 @@ def _launch(coarse: Tensor, origin_uvz: Tensor, dir_uvz: Tensor,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(coarse.data_ptr(), origin_uvz.data_ptr(), dir_uvz.data_ptr(),
                  thick.data_ptr(), t_lo.data_ptr(), t_hit.data_ptr(),
-                 hit.data_ptr(), rows, cols, h, w, stream)
+                 hit.data_ptr(), rows, cols, h, w,
+                 int(table_in_shared(rows, cols)), stream)
     cuda_build.check(err, "march kernel launch")
     march_small_table.launches += 1
     return t_lo, t_hit, hit
@@ -167,10 +169,12 @@ def _launch(coarse: Tensor, origin_uvz: Tensor, dir_uvz: Tensor,
 
 def march_small_table(coarse: Tensor, origin_uvz: Tensor, dir_uvz: Tensor,
                       thickness_ndc) -> Tuple[Tensor, Tensor, Tensor]:
-    """Row-DDA SSR march: coarse (rows, cols <= 128) min-depth table,
-    origin/dir (h, w, 3) in (u, v, ndc z) with h % 8 == 0 and w % 128 == 0,
-    thickness_ndc a scalar (a tensor stays on its device).  Returns
-    (t_lo (h, w), t_hit (h, w), hit (h, w) bool).
+    """Row-DDA SSR march: coarse (rows, cols <= 128) min-depth table of any
+    height (the kernel stages it in shared memory where `table_in_shared`
+    says so, else reads it from global memory), origin/dir (h, w, 3) in (u,
+    v, ndc z) with h % 8 == 0 and w % 128 == 0, thickness_ndc a scalar (a
+    tensor stays on its device).  Returns (t_lo (h, w), t_hit (h, w), hit
+    (h, w) bool).
 
     A CUDA tensor goes to the kernel (or this raises); a CPU tensor runs
     the plain version.  `march_small_table.launches` counts kernel

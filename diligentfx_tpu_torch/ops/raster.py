@@ -13,7 +13,9 @@ diligentfx_tpu/ops/raster.py): the fused path and the two-pass path.
   3. Either the fused tile kernel (ops/raster_kernel.py, K1): z-loop +
      interpolation + material fetch; or the two-pass tile kernel
      (ops/raster_tiles.py, K4): z-loop -> depth, original triangle id and
-     barycentrics, which `interpolate_all` turns into attributes.
+     barycentrics, which `interpolate_all` turns into attributes.  Both
+     kernels test a candidate only inside its conservative pixel rectangle
+     (`candidate_rects`).
 
 Candidate order within a bin is submission order, so winners (nearest,
 first in submission order on ties) match the JAX package's.
@@ -241,6 +243,89 @@ def _triangle_setup(clip: Tensor, indices: Tensor, width: int, height: int,
     return setup, valid, bbox, orig, planes, clip_ovf
 
 
+# the fp32 unit roundoff, which bounds the rounding of the coverage test
+_U32 = 2.0 ** -24
+
+
+def candidate_rects(setup: Tensor, width: int, height: int,
+                    screen_offset=(0, 0)) -> Tensor:
+    """Each setup row's conservative pixel rectangle, (P, 4) int32: x0, y0,
+    x1, y1, inclusive framebuffer pixels (pixel (x, y) has its centre at
+    screen_offset + (x + 0.5, y + 0.5)).  Every framebuffer pixel whose
+    centre the tile rasters' fp32 coverage test finds covered (l0, l1 and
+    l2 = (1 - l0) - l1 all >= 0, each plane (a*px + b*py) + c evaluated
+    without FMA) lies inside it, with a pixel to spare on each side.
+
+    The rectangle comes from the rounded plane coefficients, not from the
+    vertices' box: a sliver's fp32 planes can meet far from its vertices,
+    and those planes are what the kernels test.  Over the framebuffer each
+    plane evaluation is off by at most d_k (a few ulps of its largest term,
+    and for l2 those of l0 and l1), so a pixel the test covers lies in the
+    triangle L0 >= -d0, L1 >= -d1, L0 + L1 <= 1 + d2 of the exact planes.
+    Its corners are solved in float64 in framebuffer pixels, and their box
+    is widened by one pixel and 1e-6 of its extent (float64's own rounding)
+    and clamped to [-1, width] x [-1, height], so that a rectangle off the
+    framebuffer stays empty.  A row with singular or non-finite planes gets
+    the whole framebuffer.
+
+    The frames call this once a raster call and wait on the host for its
+    launches, so it is written as about 30 small elementwise PyTorch
+    operations over (P, 2, ...) tensors, with its constants copied in once
+    (`_rect_constants`); a matrix product here would run as a float64
+    GEMM of inner size 12, slower than the rest together."""
+    k = _rect_constants(width, height, screen_offset)
+    if setup.device.type == "cuda":      # no wait for the copy of 36 floats
+        k = k.pin_memory().to(setup.device, non_blocking=True)
+    coef, bias, mask = k[:12].view(2, 6), k[12:14], k[14:20].view(2, 3)
+    sign = k[20:24].view(2, 2)
+    p = setup[:, :6].to(torch.float64).view(-1, 2, 3)   # plane k: a, b, c
+    # per plane: t_k (the plane at pixel (0, 0)'s centre plus its rounding
+    # bound d_k) and its share of E
+    y = (torch.cat([p, p.abs()], -1)[:, :, None, :] * coef).sum(-1) + bias
+    e = y[..., 1].sum(-1)
+    r = mask * e[:, None, None] - y[..., :1]          # (P, 2, 3) L - c'
+    adj = p[..., :2].flip(1, 2).transpose(1, 2) * sign  # [[b1 -b0] [-a1 a0]]
+    det = (p[:, 0, :2] * adj[..., 0]).sum(-1)
+    xy = (adj[..., None] * r[:, None]).sum(2)          # det * corners' x, y
+    lo, hi = torch.aminmax(xy.div_(det[:, None, None]), dim=-1)  # (P, 2)
+    ext = hi - lo
+    ok = torch.isfinite(ext).all(-1, keepdim=True)
+    pad = ext.mul_(1e-6).add_(1.0)
+    r = torch.cat([(lo - pad).floor_(), (hi + pad).ceil_()], 1)
+    r = torch.where(ok, r.clamp_(k[24:28], k[28:32]), k[32:36])
+    return r.to(torch.int32)
+
+
+def _rect_constants(width: int, height: int, screen_offset) -> Tensor:
+    """candidate_rects' 36 float64 constants: `coef` (2, 6) and `bias` (2)
+    taking a plane's [a b c |a| |b| |c|] to [t_k, its share of E]; `mask`
+    (2, 3), where plane k's corner value is raised by E; the adjugate's
+    signs (2, 2); the clamp's low and high ends (4 each); the whole
+    framebuffer's rectangle (4).
+
+    With pixel (0, 0)'s centre (cx, cy), each plane at that centre is c_k +
+    a_k cx + b_k cy, and its rounding bound is d_k = 4u m_k + 1e-37 (three
+    roundings, and underflow), m_k = |a_k| xm + |b_k| ym + |c_k| over the
+    framebuffer's |pixel centre| bounds; 1 + d2 = 1 + d0 + d1 + 3u (1 + 2
+    (m0 + m1)) + 1e-37.  The corners' (L0, L1) are (-d0, -d1), (-d0, 1 + d2
+    + d0) and (1 + d2 + d1, -d1), so L - c' = -t_k + E at plane 0's corner
+    2 and plane 1's corner 1, with t_k = c_k + a_k cx + b_k cy + d_k and E
+    = 1 + d2 + d0 + d1 = 1 + 3u + 5e-37 + 14u (m0 + m1)."""
+    ox, oy = float(screen_offset[0]), float(screen_offset[1])
+    xm = max(abs(ox), abs(ox + width))
+    ym = max(abs(oy), abs(oy + height))
+    u = _U32
+    coef = [ox + 0.5, oy + 0.5, 1.0, 4 * u * xm, 4 * u * ym, 4 * u,
+            0.0, 0.0, 0.0, 14 * u * xm, 14 * u * ym, 14 * u]
+    bias = [1e-37, (1 + 3 * u + 5e-37) / 2]
+    mask = [0.0, 0.0, 1.0, 0.0, 1.0, 0.0]
+    sign = [1.0, -1.0, -1.0, 1.0]
+    limits = [-1.0] * 4 + [float(width), float(height)] * 2
+    whole = [0.0, 0.0, float(width - 1), float(height - 1)]
+    return torch.tensor(coef + bias + mask + sign + limits + whole,
+                        dtype=torch.float64)
+
+
 def _tile_span(v: Tensor, size: int, n: int) -> Tensor:
     """clip(floor(v / size), 0, n - 1) as int64, clamped before the cast
     (XLA's float->int convert saturates and maps NaN to 0)."""
@@ -459,6 +544,7 @@ class FusedKernelInputs(NamedTuple):
     candidates: Tensor
     counts: Tensor
     mat_table: Optional[Tensor]
+    rects: Tensor
     kernel_kw: dict
     stats: RasterStats
 
@@ -502,7 +588,8 @@ def prepare_fused(clip: Tensor, indices: Tensor, attrs: Tensor, winv: Tensor,
                         bin_overflow=overflow + clip_ovf,
                         big_overflow=big_overflow,
                         num_culled=(~valid).sum())
-    return FusedKernelInputs(setup, planes, cand, counts, mat_table,
+    rects = candidate_rects(setup, width, height, screen_offset)
+    return FusedKernelInputs(setup, planes, cand, counts, mat_table, rects,
                              kernel_kw, stats)
 
 
@@ -534,7 +621,8 @@ def rasterize_fused(clip: Tensor, indices: Tensor, attrs: Tensor,
                       depth_less=depth_less, near_eps=near_eps,
                       screen_size=screen_size, screen_offset=screen_offset)
     z, tid, out = raster_tiles_fused(k.setup, k.planes, k.candidates,
-                                     k.counts, k.mat_table, **k.kernel_kw)
+                                     k.counts, k.mat_table, k.rects,
+                                     **k.kernel_kw)
     return VisibilityBuffer(depth=z, tri_id=tid), out, k.stats
 
 
@@ -574,9 +662,10 @@ def rasterize(clip: Tensor, indices: Tensor, *, width: int, height: int,
         valid, bbox, width, height, cfg)
     tiles_x = width // cfg.tile_w
     th, tw = cfg.tile_h, cfg.tile_w
-    zt, idt, b0t, b1t = raster_tiles(setup, compact, counts, th=th, tw=tw,
-                                     tiles_x=tiles_x, depth_less=depth_less,
-                                     chunk=cfg.chunk,
+    rects = candidate_rects(setup, width, height, screen_offset)
+    zt, idt, b0t, b1t = raster_tiles(setup, compact, counts, rects, th=th,
+                                     tw=tw, tiles_x=tiles_x,
+                                     depth_less=depth_less, chunk=cfg.chunk,
                                      screen_offset=screen_offset)
     vb = VisibilityBuffer(
         depth=_untile(zt, tiles_x, th, tw), tri_id=_untile(idt, tiles_x, th, tw),

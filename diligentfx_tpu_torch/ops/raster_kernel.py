@@ -4,6 +4,9 @@ of diligentfx_tpu/ops/raster_pallas.py `raster_tiles_fused_pallas`).
 `raster_tiles_fused` launches the hand-written CUDA kernel
 csrc/raster_fused.cu on CUDA tensors and runs `raster_tiles_fused_plain`
 (the same function in PyTorch, also the kernel's oracle) on CPU tensors.
+Both tile rasters (this one and ops/raster_tiles.py) take each candidate's
+pixel rectangle (ops/raster.py `candidate_rects`), which the kernels cull
+with and the plain versions ignore.
 """
 from __future__ import annotations
 
@@ -15,6 +18,52 @@ import torch
 from diligentfx_tpu_torch.ops import cuda_build
 
 Tensor = torch.Tensor
+
+SMEM_BYTES = 232448     # a block's shared memory on an H100, after opting in
+# csrc/raster_zloop.cuh zloop::Shared: the candidate stage, a pass's keys
+# and block-route slots
+SHARED_BYTES = 58880
+
+
+def check_tile_shape(th: int, tw: int, sub: int = 0, n_mrow: int = 0,
+                     n_mat: int = 0) -> int:
+    """The tile rasters' shape check: a tile of `th` rows (a multiple of 8)
+    by `tw` columns (a multiple of 32), `sub` sub-bin segments dividing th
+    (0: one unsegmented list).  Returns the shared memory a block of
+    csrc/raster_fused.cu needs with an (n_mrow, n_mat) material table: the
+    candidate stage, a pass's keys and slots, the segment counts and table,
+    the material table (csrc/raster_fused.cu `dynamic_bytes`).  Raises
+    ValueError on another shape, or where that exceeds a block's shared
+    memory; K4's block needs the stage, the keys, the slots and one
+    segment, so every tile shape fits."""
+    if th < 8 or th % 8 or tw < 32 or tw % 32:
+        raise ValueError(f"tile {th}x{tw}: the tile rasters take multiples "
+                         "of 8 rows by multiples of 32 columns")
+    if sub < 0 or (sub > 0 and th % sub):
+        raise ValueError(f"{sub} sub-bins do not divide {th} tile rows")
+    nseg = sub + 1 if sub > 0 else 1
+    smem = SHARED_BYTES + 4 * (nseg + 4 * (nseg + 1) + n_mrow * n_mat)
+    if smem > SMEM_BYTES:
+        raise ValueError(f"the candidate stage, {nseg} segments and a "
+                         f"{n_mrow}x{n_mat} material table need {smem} B of "
+                         f"shared memory, more than a block has "
+                         f"({SMEM_BYTES})")
+    return smem
+
+
+def check_rects(rects: Tensor, setup: Tensor, what: str) -> None:
+    """The kernels' checks of the candidate rectangles: (P, 4) int32 beside
+    the (P, 16) setup, both 16-byte aligned (the stage copies their rows
+    with 16-byte cp.async)."""
+    if rects.device != setup.device:
+        raise ValueError(f"{what}: inputs on different devices")
+    if rects.dtype != torch.int32:
+        raise TypeError("rects must be int32")
+    if tuple(rects.shape) != (setup.shape[0], 4):
+        raise ValueError(f"rects must be ({setup.shape[0]}, 4), got "
+                         f"{tuple(rects.shape)}")
+    if setup.data_ptr() % 16 or rects.data_ptr() % 16:
+        raise ValueError(f"{what} takes 16-byte aligned setup and rects")
 
 
 def _out_channels(n_ch: int, n_const: int, deriv_channels: tuple,
@@ -102,7 +151,8 @@ def raster_tiles_winners_plain(setup: Tensor, candidates: Tensor,
 
 
 def raster_tiles_fused_plain(setup: Tensor, planes: Tensor, candidates: Tensor,
-                             counts: Tensor, mat_table: Optional[Tensor], *,
+                             counts: Tensor, mat_table: Optional[Tensor],
+                             rects: Tensor, *,
                              th: int, tw: int, tiles_x: int, n_ch: int,
                              n_const: int, deriv_channels: tuple = (),
                              depth_less: bool = True, chunk: int = 8,
@@ -111,7 +161,10 @@ def raster_tiles_fused_plain(setup: Tensor, planes: Tensor, candidates: Tensor,
                              ) -> Tuple[Tensor, Tensor, Tensor]:
     """Plain PyTorch version of the fused tile kernel: the z-loop of
     `raster_tiles_winners_plain`, then the epilogue.  Same inputs and
-    outputs as `raster_tiles_fused`."""
+    outputs as `raster_tiles_fused`; `rects` is ignored (every candidate is
+    tested on all of its segment's rows: the unculled oracle of the
+    kernel's culling)."""
+    del rects
     dev = setup.device
     num_tiles = candidates.shape[0]
     tiles_y = num_tiles // tiles_x
@@ -158,20 +211,21 @@ def raster_tiles_fused_plain(setup: Tensor, planes: Tensor, candidates: Tensor,
     return z_img, id_img, out
 
 
-# dfx_raster_fused(setup, planes, n_planes, cand, cap, counts, counts_stride,
-#                  mat, n_mrow, n_mat, z_out, id_out, ch_out, 13 ints, stream)
-_ARGTYPES = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+# dfx_raster_fused(setup, rects, planes, n_planes, cand, cap, counts,
+#                  counts_stride, mat, n_mrow, n_mat, z_out, id_out, ch_out,
+#                  13 ints, stream)
+_ARGTYPES = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
               ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
               ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
               ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
              + [ctypes.c_int] * 13 + [ctypes.c_void_p])
 
 
-def _launch(setup, planes, candidates, counts, mat_table, *, th, tw, tiles_x,
-            n_ch, n_const, deriv_channels, depth_less, sub, cap_sub, big_cap,
-            screen_offset):
+def _launch(setup, planes, candidates, counts, mat_table, rects, *, th, tw,
+            tiles_x, n_ch, n_const, deriv_channels, depth_less, sub, cap_sub,
+            big_cap, screen_offset):
     dev = setup.device
-    tensors = [setup, planes, candidates, counts] + (
+    tensors = [setup, planes, candidates, counts, rects] + (
         [mat_table] if mat_table is not None else [])
     for t in tensors:
         if t.device != dev:
@@ -192,10 +246,7 @@ def _launch(setup, planes, candidates, counts, mat_table, *, th, tw, tiles_x,
             planes.shape[1] != 3 * (n_ch + 1) + n_const:
         raise ValueError(f"planes shape {tuple(planes.shape)} does not match "
                          f"n_ch={n_ch}, n_const={n_const}")
-    seg_rows = [th // sub] * sub + [th] if sub > 0 else [th]
-    if any(r * tw % 256 or r * tw // 256 not in (4, 8, 16)
-           for r in seg_rows):
-        raise ValueError(f"unsupported tile/segment shape {th}x{tw}, sub={sub}")
+    check_rects(rects, setup, "raster_tiles_fused")
     if sub > 0:
         if tuple(counts.shape) != (num_tiles, sub + 1) or \
                 cap != sub * cap_sub + big_cap:
@@ -205,10 +256,7 @@ def _launch(setup, planes, candidates, counts, mat_table, *, th, tw, tiles_x,
     if any(c >= n_ch for c in deriv_channels) or n_ch > 31:
         raise ValueError("deriv channels out of range")
     n_mrow, n_mat = (mat_table.shape if mat_table is not None else (0, 1))
-    smem = 4 * (2 * th * tw + 64 * 9 + n_mrow * n_mat)
-    if smem > 232448:
-        raise ValueError(f"tile + material table need {smem} B of shared "
-                         "memory, more than a block has")
+    check_tile_shape(th, tw, sub, n_mrow, n_mat)
     tiles_y = num_tiles // tiles_x
     h, w = tiles_y * th, tiles_x * tw
     out_ch = _out_channels(n_ch, n_const, deriv_channels, mat_table)
@@ -219,8 +267,9 @@ def _launch(setup, planes, candidates, counts, mat_table, *, th, tw, tiles_x,
     deriv_mask = sum(1 << c for c in set(deriv_channels))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(setup.data_ptr(), planes.data_ptr(), planes.shape[1],
-                 candidates.data_ptr(), cap, counts.data_ptr(),
+        err = fn(setup.data_ptr(), rects.data_ptr(), planes.data_ptr(),
+                 planes.shape[1], candidates.data_ptr(), cap,
+                 counts.data_ptr(),
                  counts.shape[1] if sub > 0 else 1,
                  mat_table.data_ptr() if mat_table is not None else None,
                  n_mrow, n_mat, z.data_ptr(), tid.data_ptr(), out.data_ptr(),
@@ -233,7 +282,8 @@ def _launch(setup, planes, candidates, counts, mat_table, *, th, tw, tiles_x,
 
 
 def raster_tiles_fused(setup: Tensor, planes: Tensor, candidates: Tensor,
-                       counts: Tensor, mat_table: Optional[Tensor], *,
+                       counts: Tensor, mat_table: Optional[Tensor],
+                       rects: Tensor, *,
                        th: int, tw: int, tiles_x: int, n_ch: int,
                        n_const: int, deriv_channels: tuple = (),
                        depth_less: bool = True, chunk: int = 8,
@@ -250,6 +300,11 @@ def raster_tiles_fused(setup: Tensor, planes: Tensor, candidates: Tensor,
         (tiles, sub+1).
       mat_table: optional (n_mrow, M) transposed material table; const 0 is
         then the material id.
+      rects: (P, 4) int32 conservative pixel rectangles of the setup rows
+        (raster.candidate_rects); the kernel tests a candidate only inside
+        its rectangle, the plain version ignores them.
+    Any tile of a multiple of 8 rows by a multiple of 32 columns and any
+    sub-bin count dividing the rows (`check_tile_shape`).
     Returns (z (H, W) f32, id (H, W) i32, out (OUT_CH, H, W) f32).
 
     A CUDA tensor goes to the kernel (or this raises); a CPU tensor runs
@@ -262,11 +317,11 @@ def raster_tiles_fused(setup: Tensor, planes: Tensor, candidates: Tensor,
         return _launch(setup.contiguous(), planes.contiguous(),
                        candidates.contiguous(), counts.contiguous(),
                        mat_table.contiguous() if mat_table is not None
-                       else None, **kw)
+                       else None, rects.contiguous(), **kw)
     if setup.device.type != "cpu":
         raise ValueError(f"raster_tiles_fused: unsupported device {setup.device}")
     return raster_tiles_fused_plain(setup, planes, candidates, counts,
-                                    mat_table, chunk=chunk, **kw)
+                                    mat_table, rects, chunk=chunk, **kw)
 
 
 raster_tiles_fused.launches = 0

@@ -145,7 +145,8 @@ def _fused_raster(scene: ScenePrimitives, info: RenderInfo, *, pad_w: int,
         k = fused_raster_inputs(scene, info, pad_w=pad_w, pad_h=pad_h,
                                 cfg=cfg, use_textures=use_textures)
     z, tid, out = raster_tiles_fused(k.setup, k.planes, k.candidates,
-                                     k.counts, k.mat_table, **k.kernel_kw)
+                                     k.counts, k.mat_table, k.rects,
+                                     **k.kernel_kw)
     return rz.VisibilityBuffer(depth=z, tri_id=tid), out, k.stats
 
 

@@ -52,6 +52,25 @@ def _triangles(n, seed, device):
             for a in (clip, idx, attrs, 1.0 / clip[:, 3], consts, mt)]
 
 
+def _small_triangles(n, seed, device):
+    """`_triangles`' layout with scene-like sizes: triangles of about 0.1
+    NDC units around random centres, every twentieth eight times larger."""
+    g = np.random.default_rng(seed)
+    centre = np.repeat(g.uniform(-1.1, 1.1, (n, 2)), 3, axis=0)
+    spread = np.where((np.arange(3 * n) // 3 % 20 == 0)[:, None], 0.4, 0.05)
+    xy = centre + g.standard_normal((3 * n, 2)) * spread
+    w = np.repeat(g.uniform(1.0, 3.0, (n, 1)), 3, axis=0)
+    clip = (np.concatenate([xy, g.uniform(0.1, 0.9, (3 * n, 1)),
+                            np.ones((3 * n, 1))], -1) * w).astype(np.float32)
+    idx = np.arange(3 * n, dtype=np.int32).reshape(n, 3)
+    attrs = g.standard_normal((3 * n, 4)).astype(np.float32)
+    consts = np.stack([g.integers(0, 5, n), g.integers(0, 9, n)],
+                      -1).astype(np.float32)
+    mt = g.standard_normal((6, 5)).astype(np.float32)
+    return [torch.from_numpy(a).to(device)
+            for a in (clip, idx, attrs, 1.0 / clip[:, 3], consts, mt)]
+
+
 @pytest.mark.parametrize("sub_bins", [1, 4])
 def test_raster_kernel_matches_plain(cuda, sub_bins):
     clip, idx, attrs, winv, consts, mt = _triangles(600, sub_bins, cuda)
@@ -63,7 +82,7 @@ def test_raster_kernel_matches_plain(cuda, sub_bins):
                          height=256, cfg=cfg, n_ch=4, deriv_channels=(2,),
                          double_sided=torch.ones(600, dtype=torch.bool,
                                                  device=cuda))
-    args = (k.setup, k.planes, k.candidates, k.counts, k.mat_table)
+    args = (k.setup, k.planes, k.candidates, k.counts, k.mat_table, k.rects)
     before = trk.raster_tiles_fused.launches
     z, tid, out = trk.raster_tiles_fused(*args, **k.kernel_kw)
     torch.cuda.synchronize()
@@ -90,7 +109,7 @@ def test_raster_kernel_unsegmented_at_cap_1536(cuda):
                                                  device=cuda))
     assert k.kernel_kw["sub"] == 0 and k.candidates.shape[1] >= 1536
     assert int(k.counts.max()) > 512
-    args = (k.setup, k.planes, k.candidates, k.counts, k.mat_table)
+    args = (k.setup, k.planes, k.candidates, k.counts, k.mat_table, k.rects)
     z, tid, out = trk.raster_tiles_fused(*args, **k.kernel_kw)
     torch.cuda.synchronize()
     zp, tidp, outp = trk.raster_tiles_fused_plain(*args, **k.kernel_kw)
@@ -106,18 +125,84 @@ def test_raster_wrapper_rejects_bad_inputs(cuda):
     planes = torch.zeros((4, 10), device=cuda)
     cand = torch.zeros((2, 8), dtype=torch.int32, device=cuda)
     counts = torch.zeros((2,), dtype=torch.int32, device=cuda)
+    rects = tr.candidate_rects(setup, 256, 8)
     kw = dict(th=8, tw=128, tiles_x=2, n_ch=2, n_const=1)
     with pytest.raises(TypeError):
         trk.raster_tiles_fused(setup.double(), planes, cand, counts, None,
-                               **kw)
+                               rects, **kw)
     with pytest.raises(ValueError):
-        trk.raster_tiles_fused(setup, planes.cpu(), cand, counts, None, **kw)
+        trk.raster_tiles_fused(setup, planes.cpu(), cand, counts, None,
+                               rects, **kw)
     with pytest.raises(ValueError):
         trk.raster_tiles_fused(setup, planes[:, :7], cand, counts, None,
-                               **kw)
+                               rects, **kw)
     with pytest.raises(ValueError):                  # 2 tiles, rows of 3
-        trk.raster_tiles_fused(setup, planes, cand, counts, None,
+        trk.raster_tiles_fused(setup, planes, cand, counts, None, rects,
                                **dict(kw, tiles_x=3))
+    with pytest.raises(TypeError):
+        trk.raster_tiles_fused(setup, planes, cand, counts, None,
+                               rects.long(), **kw)
+    with pytest.raises(ValueError):                  # one rectangle short
+        trk.raster_tiles_fused(setup, planes, cand, counts, None,
+                               rects[:3].contiguous(), **kw)
+    with pytest.raises(ValueError, match="shared memory"):
+        trk.raster_tiles_fused(setup, planes, cand, counts,
+                               torch.zeros((20, 3000), device=cuda), rects,
+                               **kw)
+    z, tid, out = trk.raster_tiles_fused(setup, planes, cand, counts, None,
+                                         rects, **kw)
+    assert bool(torch.isinf(z).all()) and bool((tid == -1).all())
+
+
+def _viewport(clip, idx, w, h, off, cuda, near=False):
+    """Setup rows of (clip, idx) seen through a w x h viewport at `off` of
+    a screen twice its height; with `near`, every tenth triangle's first
+    corner goes behind the camera, so that the near plane clips it."""
+    if near:
+        clip = clip.clone()
+        clip[0::30, 3] = -clip[0::30, 3].abs() - 0.2
+    ds = torch.ones(idx.shape[0], dtype=torch.bool, device=cuda)
+    return clip, ds, dict(screen_size=(w, 2 * h), screen_offset=off)
+
+
+@pytest.mark.parametrize("case", [(8, 128, 1, True, False),
+                                  (24, 128, 1, False, False),
+                                  (24, 128, 3, True, False),
+                                  (64, 128, 8, False, False),
+                                  (64, 128, 1, True, False),
+                                  (16, 256, 1, False, False),
+                                  (16, 256, 2, True, False),
+                                  (32, 128, 4, True, True),
+                                  (32, 128, 1, False, True)])
+def test_raster_kernel_tile_shapes(cuda, case):
+    """K1 vs its plain version at every tile shape the JAX config takes
+    (8, 24, 64 rows of 128 columns, 16 of 256), unsegmented and in sub-bins
+    of 8 rows, standard and reversed depth, under a viewport offset, on
+    scene-sized triangles (the culling skips most pairs); the last two
+    cases with triangles across the near plane."""
+    th, tw_, sub, depth_less, near = case
+    w, h, off = 512 if tw_ == 256 else 384, 192, (0, 96)
+    clip, idx, attrs, winv, consts, mt = _small_triangles(3000, th + sub,
+                                                          cuda)
+    clip, ds, vp = _viewport(clip, idx, w, h, off, cuda, near)
+    cfg = RasterizerConfig(tile_h=th, tile_w=tw_, bin_capacity=96 * sub,
+                           max_tiles_per_tri=8, big_tri_capacity=64, chunk=8,
+                           pair_compaction_cap=1 << 15, sub_bins=sub,
+                           big_tile_capacity=16)
+    k = tr.prepare_fused(clip, idx, attrs, winv, consts, mt, width=w,
+                         height=h, cfg=cfg, n_ch=4, deriv_channels=(1,),
+                         double_sided=ds, depth_less=depth_less, **vp)
+    assert k.kernel_kw["sub"] == (sub if sub > 1 else 1)
+    args = (k.setup, k.planes, k.candidates, k.counts, k.mat_table, k.rects)
+    z, tid, out = trk.raster_tiles_fused(*args, **k.kernel_kw)
+    torch.cuda.synchronize()
+    zp, tidp, outp = trk.raster_tiles_fused_plain(*args, **k.kernel_kw)
+    assert torch.equal(tid, tidp)
+    hit = tid >= 0
+    assert 0.2 < float(hit.float().mean()) < 1.0
+    assert torch.equal(z[hit], zp[hit])
+    torch.testing.assert_close(out[:, hit], outp[:, hit], rtol=1e-5,
+                               atol=1e-5)
 
 
 @pytest.mark.parametrize("case", [(1080, 1920, 1, (16, 64)),
@@ -322,10 +407,15 @@ def test_warp_multi_wrapper_rejects_bad_inputs(cuda):
 
 @pytest.mark.parametrize("case", [(67, 120, 544, 1024, 0.05),
                                   (16, 32, 64, 128, 0.0),
-                                  (24, 100, 64, 256, 0.4)])
+                                  (24, 100, 64, 256, 0.4),
+                                  (128, 128, 64, 256, 0.05),
+                                  (454, 128, 64, 256, 0.05),
+                                  (600, 128, 64, 256, 0.05)])
 def test_march_kernel_matches_plain(cuda, case):
     """K3 vs march_dda_plain: the same hits and t (the bench frame's table
-    size, a small table, and 40% nearly horizontal rays)."""
+    size, a small table, 40% nearly horizontal rays, a 1024x1024 frame's
+    128-row table, the tallest table shared memory holds and a 600-row one,
+    which the kernel reads from global memory)."""
     import chip_smoke as cs
     rows, cols, h, w, flat = case
     g = torch.Generator(device=cuda)
@@ -343,10 +433,59 @@ def test_march_kernel_matches_plain(cuda, case):
     torch.testing.assert_close(got[1], want[1], rtol=0, atol=1e-6)
 
 
+def test_march_on_a_square_frame(cuda):
+    """K3 at a 1024x1024 frame: compute_ssr(use_pallas=True) at divisor 2
+    marches the 128 x 128 mip 2 of the 512^2 depth (65,536 bytes, beyond
+    48 KB) through the kernel; the kernel equals march_dda_plain on the
+    frame's own rays."""
+    import chip_smoke as cs
+    from diligentfx_tpu_torch.config import PBRRendererCreateInfo
+    from diligentfx_tpu_torch.pbr.deferred import render_gbuffer
+    from diligentfx_tpu_torch.pbr.renderer import PBRRenderer
+    from diligentfx_tpu_torch.postfx import ssr
+    n = 1024
+    ren = PBRRenderer(PBRRendererCreateInfo(
+        brdf_lut_dim=8, num_brdf_samples=4, irradiance_cube_dim=8,
+        prefiltered_env_map_dim=8, num_specular_env_samples=4),
+        raster_cfg=cs.bench_raster_config(), device=cuda)
+    info = cs.render_info(n, n, cuda)
+    gb = render_gbuffer(cs.bench_scene(2, 2, 12, cuda), info, ren.ibl_maps,
+                        ren.env_oct, width=n, height=n, cfg=ren.raster_cfg,
+                        fast_env=True)
+    st = cs.bench_settings().ssr
+    depth_r = gb.depth[::2, ::2]
+    *_, origin, direction = ssr._ray_setup(
+        depth_r, gb.normal_view[::2, ::2], gb.material_data[::2, ::2, 1:2],
+        info.camera, 1, st)
+    coarse = ssr._coarse_table(ssr.build_min_depth_pyramid(depth_r, 4), 2,
+                               True)
+    assert tuple(coarse.shape) == (128, 128)
+    args = ssr._kernel_march_args(coarse, origin, direction)
+    thick = ssr._thickness_ndc(st, info.camera)
+    got = tm.march_small_table(*args, thick)
+    torch.cuda.synchronize()
+    want = tm.march_dda_plain(*args, thick)
+    assert torch.equal(got[2], want[2]) and bool(want[2].any())
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=1e-6)
+    torch.testing.assert_close(got[1], want[1], rtol=0, atol=1e-6)
+    lit = gb.direct + gb.ambient_diffuse + gb.ambient_specular
+    before = tm.march_small_table.launches
+    out, _ = ssr.compute_ssr(lit, gb.depth, gb.normal_view,
+                             gb.material_data[..., 1:2], info.camera, 1, st,
+                             half_resolution=True, resolution_divisor=2,
+                             use_pallas=True)
+    torch.cuda.synchronize()
+    assert tm.march_small_table.launches == before + 1
+    assert out.shape == (n, n, 4) and bool(torch.isfinite(out).all())
+
+
 def test_march_wrapper_rejects_bad_inputs(cuda):
     o = torch.zeros((8, 128, 3), device=cuda)
-    with pytest.raises(ValueError, match="shared memory"):
-        tm.march_small_table(torch.zeros((100, 128), device=cuda), o, o, 0.1)
+    # a 100-row table (51,200 bytes) runs: the kernel opts in to more than
+    # 48 KB of shared memory
+    t_lo, t_hit, hit = tm.march_small_table(
+        torch.zeros((100, 128), device=cuda), o, o, 0.1)
+    assert not bool(hit.any()) and bool((t_hit == 1.0).all())
     with pytest.raises(TypeError):
         tm.march_small_table(torch.zeros((8, 64), device=cuda).double(), o,
                              o, 0.1)
@@ -411,28 +550,39 @@ def test_small_frame_matches_cpu_path(cuda, config):
 
 
 @pytest.mark.parametrize("case", [(32, 1, True), (8, 4, False),
-                                  (16, 1, True)])
+                                  (16, 1, True),
+                                  (24, 2, False, 128, False, True),
+                                  (64, 3, True, 128, False, True),
+                                  (16, 5, False, 256, False, True),
+                                  (32, 6, True, 128, True, True),
+                                  (24, 7, False, 128, True, False)])
 def test_raster_tiles_kernel_matches_plain(cuda, case):
-    """K4 vs raster_tiles_plain: ids exact, z / b0 / b1 equal; 8, 16 and 32
-    rows a tile, a tile list capped below the big-triangle count (tiles
-    at the cap), reversed depth, a viewport offset."""
-    th, seed, depth_less = case
-    clip, idx, *_ = _triangles(800, seed, cuda)
-    cfg = RasterizerConfig(tile_h=th, tile_w=128, bin_capacity=96,
+    """K4 vs raster_tiles_plain: ids exact, z / b0 / b1 equal; 8, 16, 24,
+    32 and 64 rows of 128 columns and 16 of 256, a tile list capped below
+    the big-triangle count (tiles at the cap), reversed depth, a viewport
+    offset, large and scene-sized triangles; two cases with triangles
+    across the near plane."""
+    th, seed, depth_less, tw_, near, small = \
+        case + (128, False, False)[len(case) - 3:]
+    clip, idx, *_ = (_small_triangles(3000, seed, cuda) if small
+                     else _triangles(800, seed, cuda))
+    cfg = RasterizerConfig(tile_h=th, tile_w=tw_, bin_capacity=96,
                            max_tiles_per_tri=8, big_tri_capacity=32, chunk=8)
-    w, h, off = 384, 256, (0, 64)
-    setup, valid, bbox, _, _ = tr._triangle_setup(
-        clip, idx, w, h, torch.ones(800, dtype=torch.bool, device=cuda), True,
-        1e-3, screen_size=(w, 2 * h), screen_offset=off)
+    w, h, off = 512 if tw_ == 256 else 384, 192 if th in (24, 64) else 256, \
+        (0, 64)
+    clip, ds, vp = _viewport(clip, idx, w, h, off, cuda, near)
+    setup, valid, bbox, _, _ = tr._triangle_setup(clip, idx, w, h, ds, True,
+                                                  1e-3, **vp)
     cand, counts, *_ = tr._bin_triangles(valid, bbox, w, h, cfg)
-    assert int(counts.max()) > cand.shape[1] or th != 32  # tiles at the cap
-    kw = dict(th=th, tw=128, tiles_x=w // 128, depth_less=depth_less,
+    assert int(counts.max()) > cand.shape[1] or th != 32 or small  # the cap
+    rects = tr.candidate_rects(setup, w, h, off)
+    kw = dict(th=th, tw=tw_, tiles_x=w // tw_, depth_less=depth_less,
               screen_offset=off)
     before = trt.raster_tiles.launches
-    a = trt.raster_tiles(setup, cand, counts, **kw)
+    a = trt.raster_tiles(setup, cand, counts, rects, **kw)
     torch.cuda.synchronize()
     assert trt.raster_tiles.launches == before + 1
-    b = trt.raster_tiles_plain(setup, cand, counts, **kw)
+    b = trt.raster_tiles_plain(setup, cand, counts, rects, **kw)
     assert torch.equal(a[1], b[1])
     hit = b[1] >= 0
     assert float(hit.float().mean()) > 0.2
@@ -444,20 +594,28 @@ def test_raster_tiles_rejects_bad_inputs(cuda):
     setup = torch.zeros((4, 16), device=cuda)
     cand = torch.zeros((2, 8), dtype=torch.int32, device=cuda)
     counts = torch.zeros((2,), dtype=torch.int32, device=cuda)
+    rects = tr.candidate_rects(setup, 256, 24)
     kw = dict(th=8, tw=128, tiles_x=2)
     with pytest.raises(TypeError):
-        trt.raster_tiles(setup.double(), cand, counts, **kw)
+        trt.raster_tiles(setup.double(), cand, counts, rects, **kw)
     with pytest.raises(TypeError):
-        trt.raster_tiles(setup, cand.long(), counts, **kw)
+        trt.raster_tiles(setup, cand.long(), counts, rects, **kw)
     with pytest.raises(ValueError):
-        trt.raster_tiles(setup, cand.cpu(), counts, **kw)
+        trt.raster_tiles(setup, cand.cpu(), counts, rects, **kw)
     with pytest.raises(ValueError):
-        trt.raster_tiles(setup[:, :9], cand, counts, **kw)
+        trt.raster_tiles(setup[:, :9], cand, counts, rects, **kw)
     with pytest.raises(ValueError):                  # 2 tiles, rows of 3
-        trt.raster_tiles(setup, cand, counts, **dict(kw, tiles_x=3))
-    with pytest.raises(ValueError):                  # 24 rows: no variant
-        trt.raster_tiles(setup, cand, counts, **dict(kw, th=24))
-    z, tid, b0, b1 = trt.raster_tiles(setup, cand, counts, **kw)
+        trt.raster_tiles(setup, cand, counts, rects, **dict(kw, tiles_x=3))
+    with pytest.raises(ValueError):                  # rows not a multiple of 8
+        trt.raster_tiles(setup, cand, counts, rects, **dict(kw, th=12))
+    with pytest.raises(ValueError):                  # a misaligned view
+        trt.raster_tiles(setup.flatten()[1:49].reshape(3, 16), cand, counts,
+                         rects[:3].contiguous(), **kw)
+    # 24 rows a tile runs (any multiple of 8)
+    z, tid, b0, b1 = trt.raster_tiles(setup, cand, counts, rects,
+                                      **dict(kw, th=24))
+    assert z.shape == (2, 24, 128) and bool(torch.isinf(z).all())
+    z, tid, b0, b1 = trt.raster_tiles(setup, cand, counts, rects, **kw)
     assert bool(torch.isinf(z).all()) and bool((tid == -1).all())
 
 

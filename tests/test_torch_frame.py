@@ -501,7 +501,8 @@ def test_csm_gbuffer_matches_jax(csm_inputs):
     k = td.fused_raster_inputs(pscene, pinfo, pad_w=W, pad_h=H,
                                cfg=kw["cfg"], use_textures=True)
     z, tid, out = raster_tiles_fused(k.setup, k.planes, k.candidates,
-                                     k.counts, k.mat_table, **k.kernel_kw)
+                                     k.counts, k.mat_table, k.rects,
+                                     **k.kernel_kw)
     assert out.shape[0] == 12 + 4 + 2 + 20     # channels, derivs, ids, mat
     vb = jr.VisibilityBuffer(depth=jax.numpy.asarray(z.numpy()),
                              tri_id=jax.numpy.asarray(tid.numpy()),

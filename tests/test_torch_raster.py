@@ -240,8 +240,9 @@ def test_fused_kernel_plain_vs_pallas_options(monkeypatch):
     _interpret(monkeypatch)
     jz, jid, jout = jrp.raster_tiles_fused_pallas(setup, planes, cand, counts,
                                                   mt.T, **kw)
+    rects = tr.candidate_rects(_t(setup), ws, hs, off)
     tz, tid, tout = trk.raster_tiles_fused(_t(setup), _t(planes), _t(cand),
-                                           _t(counts), _t(mt.T), **kw)
+                                           _t(counts), _t(mt.T), rects, **kw)
     ja = np.asarray(jid)
     np.testing.assert_array_equal(tid.numpy(), ja)
     hit = ja >= 0
@@ -259,12 +260,14 @@ def test_fused_kernel_wrapper_checks():
     planes = torch.zeros((4, 3 * 3 + 1))
     cand = torch.zeros((2, 8), dtype=torch.int32)
     counts = torch.zeros((2,), dtype=torch.int32)
+    rects = tr.candidate_rects(setup, 256, 8)
     with pytest.raises(ValueError):
         trk.raster_tiles_fused(setup.to("meta"), planes, cand, counts, None,
-                               th=8, tw=128, tiles_x=2, n_ch=2, n_const=1)
+                               rects, th=8, tw=128, tiles_x=2, n_ch=2,
+                               n_const=1)
     z, tid, out = trk.raster_tiles_fused(setup, planes, cand, counts, None,
-                                         th=8, tw=128, tiles_x=2, n_ch=2,
-                                         n_const=1)
+                                         rects, th=8, tw=128, tiles_x=2,
+                                         n_ch=2, n_const=1)
     assert z.shape == (8, 256) and bool(torch.isinf(z).all())
     assert bool((tid == -1).all()) and out.shape == (2, 8, 256)
 
@@ -397,8 +400,9 @@ def test_raster_tiles_plain_vs_pallas(monkeypatch, depth_less):
     _interpret(monkeypatch)
     ja = [np.asarray(x) for x in jrp.raster_tiles_pallas(setup, cand, counts,
                                                          **kw)]
+    rects = tr.candidate_rects(_t(setup), ws, hs, off)
     ta = [x.numpy() for x in raster_tiles(_t(setup), _t(cand), _t(counts),
-                                          **kw)]
+                                          rects, **kw)]
     np.testing.assert_array_equal(ta[1], ja[1])
     hit = ja[1] >= 0
     assert hit.mean() > 0.1
@@ -433,11 +437,14 @@ def test_raster_tiles_wrapper_checks():
     setup = torch.zeros((4, 16))
     cand = torch.full((2, 8), -1, dtype=torch.int32)
     counts = torch.zeros((2,), dtype=torch.int32)
+    rects = tr.candidate_rects(setup, 256, 8)
     for depth_less, clear in ((True, np.inf), (False, -np.inf)):
-        z, tid, b0, b1 = raster_tiles(setup, cand, counts, th=8, tw=128,
-                                      tiles_x=2, depth_less=depth_less)
+        z, tid, b0, b1 = raster_tiles(setup, cand, counts, rects, th=8,
+                                      tw=128, tiles_x=2,
+                                      depth_less=depth_less)
         assert z.shape == tid.shape == b0.shape == (2, 8, 128)
         assert bool((z == clear).all()) and bool((tid == -1).all())
         assert bool((b0 == 0).all()) and bool((b1 == 0).all())
     with pytest.raises(ValueError):
-        raster_tiles(setup.to("meta"), cand, counts, th=8, tw=128, tiles_x=2)
+        raster_tiles(setup.to("meta"), cand, counts, rects, th=8, tw=128,
+                     tiles_x=2)
