@@ -27,13 +27,19 @@ Phases (any failure exits non-zero; no phase is skipped):
      counts are zeroed just before and read just after the timed frames
      (K1 1, K2 20, K3 1 a frame);
   5. K3, the SSR row-DDA march, vs march_dda_plain at the inputs compute_ssr
-     builds from the frame's G-buffer, on random rays with flat ones, and
-     on a 128-row and a 600-row table (shared memory above 48 KB; global
-     memory);
+     builds from the frame's G-buffer (exact), on random rays with flat
+     ones, and on 128-, 447-, 454- and 600-row tables (both kernel
+     variants and both shared pitches); its lane efficiency at the frame's rays (the rows each ray
+     walks over 32 x the longest walk of each warp);
   6. K5, the fused GTAO, vs gtao_fused_plain and against the per-tap route
-     on the frame's half-resolution depth and normals; then its own path,
-     apply_ssao(use_pallas=True, fused=True) on the frame's G-buffer, with
-     the counts zeroed just before and read just after;
+     on the frame's half-resolution depth and normals, and vs
+     gtao_fused_plain on random 64 x 256 and 100 x 700 inputs; the mean
+     32-byte sectors a warp-wide tap load touches in global memory;
+     then its own path, apply_ssao(use_pallas=True, fused=True) on the
+     frame's G-buffer, with the counts zeroed just before and read just
+     after (both phases time the kernel by CUDA events and by the
+     profiler's device time, with the card's SM clock and power draw
+     sampled under load);
   7. the bench frame and the first slice's frame (SSAO and SSR off) at
      256x128 on the GPU against the port's CPU path (the plain versions,
      which the CPU tests hold against the JAX package);
@@ -77,10 +83,12 @@ Usage: python3 chip_smoke.py [--frames N] [--out-png PATH] [--profile PATH]
        python3 chip_smoke.py --only warp [--root DIR]
        python3 chip_smoke.py --only raster [--root DIR]
        python3 chip_smoke.py --only csm [--profile PATH] [--root DIR]
+       python3 chip_smoke.py --only march_gtao [--root DIR]
 (the second runs phases 1, 3 and 13 alone, K6 on random taps; the third
 phases 1, 2, 8 without the csm frame, and 11 without the full-chain frame;
-the fourth phases 1 and 9; each on the port of the checkout DIR: run it in
-two checkouts in turn, A B B A, to compare them in one call)
+the fourth phases 1 and 9; the fifth phase 1, one bench frame for its
+G-buffer, and phases 5 and 6; each on the port of the checkout DIR: run it
+in two checkouts in turn, A B B A, to compare them in one call)
 """
 import argparse
 import json
@@ -113,6 +121,22 @@ def fail(msg: str) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         fail(msg)
+
+
+# `--only march_gtao --root DIR` may time an earlier checkout of the port,
+# which lacks the counters of K3's and K5's work; everywhere else they are
+# required
+EARLIER_CHECKOUT_OK = False
+
+
+def counter_fn(module, name: str):
+    """module.name; under `--only march_gtao --root` an earlier checkout
+    may lack it (None, with a note), anywhere else its absence fails."""
+    fn = getattr(module, name, None)
+    if fn is None:
+        check(EARLIER_CHECKOUT_OK, f"{module.__name__} has no {name}")
+        print(f"{module.__name__}: this checkout has no {name}", flush=True)
+    return fn
 
 
 def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
@@ -842,15 +866,71 @@ def _flat_rays(gen, h, w, rows, cols, flat_share=0.2):
     return coarse.contiguous(), o.contiguous(), d.contiguous()
 
 
+def march_lanes(origin, direction, rows):
+    """K3's lane efficiency at these rays: the rows each ray walks
+    (ops/march.py `march_row_span`, the kernel's loop bounds) summed, over
+    the sum over warps of 32 x the longest walk in the warp; with warps as
+    csrc/march.cu maps them where it sorts (ops/march.py
+    `march_warp_walks`) and as 32 neighbouring rays of one grid row (the
+    unsorted mapping).  Empty, and the sorted one left out, where an
+    earlier checkout lacks those functions (`counter_fn`)."""
+    from diligentfx_tpu_torch.ops import march
+    row_span = counter_fn(march, "march_row_span")
+    if row_span is None:
+        return {}
+    r0, r1 = row_span(origin[..., 1], direction[..., 1], rows)
+    walk = (r1 - r0).clamp(min=0)
+    h, w = walk.shape
+
+    def efficiency(warps):
+        return float(walk.sum()) / float(32 * warps.max(-1).values.sum())
+    row_eff = efficiency(walk.reshape(h, w // 32, 32))
+    out = dict(rows_walked_per_ray=float(walk.float().mean()),
+               lane_efficiency_grid_rows=row_eff)
+    warp_walks = counter_fn(march, "march_warp_walks")
+    if warp_walks is not None:
+        out["lane_efficiency"] = efficiency(warp_walks(walk))
+    print(f"march lanes: {out['rows_walked_per_ray']:.2f} rows walked a ray; "
+          f"lane efficiency {out.get('lane_efficiency', row_eff):.4f} as the "
+          f"kernel maps warps, {row_eff:.4f} for warps of one grid row",
+          flush=True)
+    return out
+
+
+def card_under_load(fn, seconds=0.5):
+    """nvidia-smi's name, power limit, SM clock and power draw, sampled
+    every 50 ms while fn runs back to back for about `seconds` (the median
+    sample); the sampler is stopped before this returns."""
+    import torch
+    proc = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,power.draw",
+         "--format=csv,noheader", "-lms", "50"], stdout=subprocess.PIPE,
+        stderr=subprocess.DEVNULL, text=True)
+    try:
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            for _ in range(50):
+                fn()
+            torch.cuda.synchronize()
+    finally:
+        proc.terminate()
+        out, _ = proc.communicate(timeout=30)
+    lines = [ln.strip() for ln in out.splitlines() if ln.strip()]
+    return lines[len(lines) // 2] if lines else "nvidia-smi gave no sample"
+
+
 def phase_march(gb, info):
     """K3 vs march_dda_plain at the inputs compute_ssr builds from the
     frame's G-buffer (the kernel route: mip 3 of the divisor-2 grid, rays
-    padded to 544 x 1024), on random rays with flat ones, and on a 128-row
-    and a 600-row table (shared memory above 48 KB; global memory)."""
+    padded to 544 x 1024; exact there), on random rays with flat ones, and
+    on 128-, 447-, 454- and 600-row tables (the table in shared memory at
+    an odd pitch and at pitch 128, and read from global memory); its
+    events and device time, the lane efficiency at the frame's rays and the
+    card's clock and power under load."""
     import torch
+    from diligentfx_tpu_torch.ops import march
     from diligentfx_tpu_torch.ops.march import (march_dda_plain,
-                                                march_small_table,
-                                                table_in_shared)
+                                                march_small_table)
     from diligentfx_tpu_torch.postfx import ssr
     st = bench_settings().ssr
     depth_r = gb.depth[::2, ::2]
@@ -871,11 +951,23 @@ def phase_march(gb, info):
     gen.manual_seed(3)
     max_err = 0.0
     # beside the frame's table: flat rays, a 1024x1024 frame's 128 x 128
-    # mip 2 (64 KB: shared memory above 48 KB) and a 600-row table (read
-    # from global memory)
+    # mip 2 (64 KB: shared memory above 48 KB), 447 rows (the tallest
+    # table shared memory holds, at pitch 128) and 454 and 600 rows (read
+    # from global memory): both kernel variants and both shared pitches
+    pitch_of = counter_fn(march, "march_table_pitch")
+
+    def route(rows, cols):
+        if pitch_of is None:
+            return "route not known"
+        pitch = pitch_of(rows, cols)
+        return f"shared, pitch {pitch}" if pitch else "global"
     for name, case in (("frame", args),
                        ("flat_rays", _flat_rays(gen, 64, 256, 67, 120)),
                        ("table_128x128", _flat_rays(gen, 64, 256, 128, 128,
+                                                    0.05)),
+                       ("table_447x128", _flat_rays(gen, 64, 256, 447, 128,
+                                                    0.05)),
+                       ("table_454x128", _flat_rays(gen, 64, 256, 454, 128,
                                                     0.05)),
                        ("table_600x128", _flat_rays(gen, 64, 256, 600, 128,
                                                     0.05))):
@@ -885,17 +977,22 @@ def phase_march(gb, info):
         flips = int((a[2] != b[2]).sum())
         err = max(float((a[0] - b[0]).abs().max()),
                   float((a[1] - b[1]).abs().max()))
-        print(f"march {name}: table {tuple(case[0].shape)} in "
-              f"{'shared' if table_in_shared(*case[0].shape) else 'global'} "
-              f"memory, hit {float(b[2].float().mean()):.4f} of "
+        print(f"march {name}: table {tuple(case[0].shape)} "
+              f"({route(*case[0].shape)}), hit "
+              f"{float(b[2].float().mean()):.4f} of "
               f"{b[2].numel()}, hit mismatches {flips}, t max err {err:.3g}",
               flush=True)
         check(flips == 0, f"march kernel hits differ from the plain version "
                           f"({name}: {flips})")
-        check(err <= 1e-6, f"march kernel t error {err} ({name})")
+        check(err <= (0.0 if name == "frame" else 1e-6),
+              f"march kernel t error {err} ({name})")
         max_err = max(max_err, err)
-    ms = cuda_ms(lambda: march_small_table(*args, thick), 20, 2)
+    def run():
+        return march_small_table(*args, thick)
+    ms = cuda_ms(run, 20, 2)
+    dev_ms = kernel_device_ms(run, "march_kernel", 20)
     plain_ms = cuda_ms(lambda: march_dda_plain(*args, thick), 3, 1)
+    card = card_under_load(run)
     # the work over the rays compute_ssr keeps (540 x 960; the edge-padded
     # copies up to 544 x 1024 are cropped away): table and rays read once,
     # t_lo, t_hit and hit written once
@@ -903,14 +1000,19 @@ def phase_march(gb, info):
     px = origin.shape[0] * origin.shape[1]
     n_bytes = 4 * coarse.numel() + px * (24 + 9)
     b_ms, b_by = bound_ms(n_bytes, MARCH_OPS_PER_ROW * crossed)
+    lanes = march_lanes(args[1], args[2], coarse.shape[0])
     print(f"march: {crossed / px:.2f} crossed rows a ray over {px} rays "
           f"({args[1].shape[0] * args[1].shape[1]} launched), "
-          f"{MARCH_OPS_PER_ROW * crossed / 1e6:.1f} M ops", flush=True)
+          f"{MARCH_OPS_PER_ROW * crossed / 1e6:.1f} M ops; {ms:.4f} ms "
+          f"events, {dev_ms:.4f} device, bound {b_ms:.4f} ({b_by}): "
+          f"{b_ms / dev_ms:.1%} of it; {card}", flush=True)
     return dict(name="march_small_table", route="cuda",
                 source="diligentfx_tpu_torch/csrc/march.cu",
                 replaces="diligentfx_tpu/ops/march_pallas.py:95",
                 max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None,
+                bound_by=b_by, library_ms=None, device_ms=dev_ms,
+                rows_crossed_per_ray=crossed / px, **lanes,
+                card_under_load=card,
                 shapes=f"table {tuple(coarse.shape)}, rays "
                        f"{tuple(origin.shape)} padded to "
                        f"{tuple(args[1].shape)}")
@@ -925,10 +1027,47 @@ def _gtao_ops(px: int, slices: int, steps: int) -> int:
     return px * (45 + slices * (75 + 2 * steps * 55))
 
 
+def gtao_sectors(d2, sc, kw):
+    """K5's sectors a tap load: the mean number of distinct 32-byte
+    sectors of the padded depth that one warp-wide texel load touches,
+    over every launched warp (32 neighbouring pixels of one row) and each
+    of a tap's four texel loads (the second row's where it is read), from
+    the plain version's tap coordinates (ops/gtao.py `gtao_taps`).  Empty
+    where an earlier checkout lacks `gtao_taps` (`counter_fn`)."""
+    import torch
+    from diligentfx_tpu_torch.ops import gtao
+    taps = counter_fn(gtao, "gtao_taps")
+    if taps is None:
+        return {}
+    sectors = loads = 0.0
+    for t in taps(d2, sc, **kw):
+        hp, wp = t.r0.shape
+        for r, c, live in ((t.r0, t.c0, None), (t.r0, t.c1, None),
+                           (t.r1, t.c0, t.has1), (t.r1, t.c1, t.has1)):
+            sec = (r * wp + c) // 8
+            if live is not None:
+                sec = torch.where(live, sec, -1)
+            sec = sec.reshape(hp, wp // 32, 32).sort(-1).values
+            distinct = 1 + (sec[..., 1:] != sec[..., :-1]).sum(-1)
+            if live is not None:          # idle lanes load nothing
+                idle = (sec[..., 0] < 0).long()
+                distinct = distinct - idle
+                loads += float((distinct > 0).sum())
+            else:
+                loads += distinct.numel()
+            sectors += float(distinct.sum())
+    print(f"gtao: {sectors / loads:.2f} sectors a warp-wide tap load",
+          flush=True)
+    return dict(sectors_per_tap_load=sectors / loads)
+
+
 def phase_gtao(gb, info, frame_state):
     """K5 vs gtao_fused_plain and against the per-tap route on the frame's
-    half-resolution depth and normals, then its own path: apply_ssao on the
-    kernel route with fused=True, on the frame's G-buffer."""
+    half-resolution depth and normals (and vs gtao_fused_plain on random
+    64 x 256 and 100 x 700 inputs), its events and device time, the sectors
+    a warp-wide tap load touches and the card's clock and power under load;
+    then its own path: apply_ssao on the kernel route with fused=True, on
+    the frame's G-buffer."""
     import torch
     from diligentfx_tpu_torch.ops.gtao import gtao_fused, gtao_fused_plain
     from diligentfx_tpu_torch.postfx import ssao
@@ -952,12 +1091,31 @@ def phase_gtao(gb, info, frame_state):
     check(bool(torch.isfinite(a).all()) and float(a.min()) >= 0.0
           and float(a.max()) <= 1.0, "gtao output outside [0, 1]")
     check(err <= 1e-5, f"gtao kernel error {err}")
+    # random depth at the smallest open-halo grid and at a grid whose
+    # window widens and whose origin rounds down (the reach clipped)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(5)
+    for h3, w3 in ((64, 256), (100, 700)):
+        d3 = 0.3 + 0.6 * torch.rand((h3, w3), generator=gen, device=DEVICE)
+        n3 = torch.nn.functional.normalize(torch.rand(
+            (h3, w3, 3), generator=gen, device=DEVICE) - 0.5, dim=-1)
+        e3 = float((gtao_fused(d3, n3, sc, **kw)
+                    - gtao_fused_plain(d3, n3, sc, **kw)).abs().max())
+        print(f"gtao {h3}x{w3} random: fused vs plain max err {e3:.3g}",
+              flush=True)
+        check(e3 <= 1e-5, f"gtao kernel error {e3} at {h3}x{w3}")
+        err = max(err, e3)
     # tests/test_gtao_pallas.py:41's bounds for the fused against per-tap
     check(p99 < 1e-3 and float(dev_tap.max()) < 6e-3,
           "fused GTAO disagrees with the per-tap route")
 
-    ms = cuda_ms(lambda: gtao_fused(d2, n2, sc, **kw), 20, 2)
+    def run():
+        return gtao_fused(d2, n2, sc, **kw)
+    ms = cuda_ms(run, 20, 2)
+    dev_ms = kernel_device_ms(run, "gtao_kernel", 20)
+    card = card_under_load(run)
     plain_ms = cuda_ms(lambda: gtao_fused_plain(d2, n2, sc, **kw), 3, 1)
+    sectors = gtao_sectors(d2, sc, kw)
     per_tap_ms = cuda_ms(lambda: ssao.compute_gtao(
         d2, n2, info.camera, 1, ssao.SSAOSettings(), use_pallas=True, **kw),
         10, 2)
@@ -965,8 +1123,10 @@ def phase_gtao(gb, info, frame_state):
     # 32 x 128 and crops): depth, normal and output once, the 8 scalars
     b_ms, b_by = bound_ms(4 * (h2 * w2 * (1 + 3 + 1)) + 32,
                           _gtao_ops(h2 * w2, kw["num_slices"], kw["num_steps"]))
-    print(f"gtao: fused {ms:.4f} ms, per-tap route (16 warp launches and "
-          f"glue) {per_tap_ms:.4f} ms", flush=True)
+    print(f"gtao: fused {ms:.4f} ms events, {dev_ms:.4f} device, bound "
+          f"{b_ms:.5f} ({b_by}): {b_ms / dev_ms:.1%} of it; per-tap route "
+          f"(16 warp launches and glue) {per_tap_ms:.4f} ms; {card}",
+          flush=True)
 
     # K5's path: the SSAO entry point with the fused kernel selected
     hist = frame_state.ssao
@@ -986,7 +1146,9 @@ def phase_gtao(gb, info, frame_state):
                 replaces="diligentfx_tpu/ops/gtao_pallas.py:63",
                 launches=launches["gtao_fused"], max_abs_err=err, ms=ms,
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None, per_tap_route_ms=per_tap_ms,
+                library_ms=None, device_ms=dev_ms,
+                per_tap_route_ms=per_tap_ms, **sectors,
+                card_under_load=card,
                 path="apply_ssao(use_pallas=True, fused=True) on the 1080p "
                      "G-buffer, once (the frame takes the per-tap route)",
                 shapes=f"depth ({h2},{w2}) padded to 544x1024")
@@ -1883,6 +2045,23 @@ def csm_only(frames, profile):
                 frames=frames)
 
 
+def march_gtao_only():
+    """Phases 5 and 6 at the inputs of one bench frame (its G-buffer and
+    SSAO state): K3 and K5 of two checkouts in one call."""
+    from diligentfx_tpu_torch.config import PBRRendererCreateInfo
+    from diligentfx_tpu_torch.hydrogent.task_manager import HnTaskManager
+    from diligentfx_tpu_torch.pbr.renderer import PBRRenderer
+    cfg = bench_raster_config()
+    tm = HnTaskManager(PBRRenderer(PBRRendererCreateInfo(), raster_cfg=cfg,
+                                   device=DEVICE), bench_task_manager_ci())
+    info = render_info(W, H, DEVICE)
+    out = tm.execute(bench_scene(5, 9, 32, DEVICE), info,
+                     tm.initial_state(W, H), width=W, height=H,
+                     settings=bench_settings())
+    return phase_march(out.gbuffer, info), phase_gtao(out.gbuffer, info,
+                                                      out.state)
+
+
 def card_line() -> str:
     r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,
@@ -1898,16 +2077,21 @@ def main() -> int:
     ap.add_argument("--profile", default="",
                     help="also profile 3 frames (device time by stage and by "
                          "kernel); write the profiler's table to this path")
-    ap.add_argument("--only", choices=("warp", "raster", "csm"),
+    ap.add_argument("--only", choices=("warp", "raster", "csm",
+                                        "march_gtao"),
                     help="warp: run only phases 1, 3 and 13 (K6 on random "
                          "taps within the halo); raster: only phases 1, 2, "
                          "8 (without the csm frame) and 11; csm: only "
-                         "phases 1 and 9 (with --profile, profiled); and "
-                         "print their JSON line")
+                         "phases 1 and 9 (with --profile, profiled); "
+                         "march_gtao: only phase 1, one bench frame and "
+                         "phases 5 and 6; and print their JSON line")
     ap.add_argument("--root", default=HERE,
                     help="import the port from this checkout (with --only, "
                          "to A/B two checkouts' kernels in one call)")
     args = ap.parse_args()
+    global EARLIER_CHECKOUT_OK
+    EARLIER_CHECKOUT_OK = (args.only == "march_gtao" and
+                           os.path.abspath(args.root) != HERE)
 
     if not os.path.isdir(os.path.join(args.root, "diligentfx_tpu_torch")):
         fail(f"the diligentfx_tpu_torch package is not in {args.root}")
@@ -1929,6 +2113,11 @@ def main() -> int:
     if args.only == "raster":
         k1, k4 = raster_only()
         print(json.dumps({"root": args.root, "kernels": [k1, k4]}))
+        print(card, flush=True)
+        return 0
+    if args.only == "march_gtao":
+        k3, k5 = march_gtao_only()
+        print(json.dumps({"root": args.root, "kernels": [k3, k5]}))
         print(card, flush=True)
         return 0
     if args.only == "csm":

@@ -4,9 +4,9 @@
 //
 // Replaces the TPU kernel diligentfx_tpu/ops/gtao_pallas.py `_gtao_kernel`
 // (:63, entry `gtao_pallas` :258) and reproduces its semantics:
-//   * the depth and normals are edge-padded to the 32 x 128 tile grid by the
-//     wrapper (ops/gtao.py), which also passes the halos after the small-
-//     image shrink and the window size after widening (:274-287);
+//   * the depth is edge-padded to the 32 x 128 tile grid by the wrapper
+//     (ops/gtao.py), which also passes the halos after the small-image
+//     shrink and the window size after widening (:274-287);
 //   * a pixel of the 32 x 128 tile (y0, x0) taps inside the window whose
 //     origin is clamp(y0 - halo_r, 0, hp - win_h) rounded down to 32 rows and
 //     clamp(x0 - halo_c, 0, wp - win_w) rounded down to 128 columns (:76-79);
@@ -18,19 +18,25 @@
 // tap's vertical reach; every row a tap needs lies inside that reach, so
 // reading the two rows directly gives the same value.
 //
-// Design: one thread per pixel in blocks of 2 x 128 pixels; the 32 x 128
-// tile a pixel belongs to fixes its window, so the block shape is free.
-// Taps read through L1/L2 from global memory: a tile's taps stay inside a
-// window of at most 96 x 384 texels, which the neighbouring threads share.
-// Staging that window in shared memory (147 KB) is later work.
-//
 // What bounds it on an H100: operations.  A pixel reads 16 bytes and
 // writes 4, but runs slices x (the slice geometry, two arccos, three cosines)
-// plus slices x 2 x steps taps of about 60 flops each (bilinear tap,
-// reconstruction, distance, falloff): about 1,200 flops at 2 slices x 4
-// steps, 75 flops a byte.  Built with -fmad=false and IEEE division and
-// square root; sinf/cosf are the precise library functions, so the kernel
-// rounds like the plain PyTorch version on the card.
+// plus slices x 2 x steps taps of about 170 instructions each (seven IEEE
+// divisions, an IEEE square root, the bilinear tap, reconstruction,
+// distance and falloff): about 3,500 instructions at 2 slices x 4 steps.
+// Design: one thread a pixel in blocks of 2 x 128 pixels (a block lies in
+// one 32 x 128 tile, whose window all its taps share); the taps read the
+// depth through L1 from global memory; only the h x w pixels the caller
+// keeps are computed and stored: the depth stays edge-padded to the tile
+// grid, since taps read the padding, while the normals are read only at
+// the pixel, unpadded.  Each pixel turns its slices by its own noise, so a
+// warp-wide texel load touches 16.9 distinct 32-byte sectors at the 1080p
+// frame's inputs; staging each block's tap reach in shared memory by bulk
+// copies took those loads off L1 and did not make the kernel faster
+// (PERF.md): the tap loop's exact IEEE divisions and square root, not its
+// loads, set the time, about a tenth of the operation bound.
+// Built with -fmad=false and IEEE division and square root; sinf/cosf are
+// the precise library functions, so the kernel rounds like the plain
+// PyTorch version on the card.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -40,6 +46,7 @@ constexpr int kTileH = 32;
 constexpr int kTileW = 128;
 constexpr int kBlockX = 128;
 constexpr int kBlockY = 2;
+constexpr int kMinBlocks = 4;
 constexpr double kPi = 3.141592653589793;
 
 __device__ __forceinline__ float clampf(float x, float lo, float hi) {
@@ -55,18 +62,19 @@ __device__ __forceinline__ float acos_hastings(float x) {
   return x >= 0.0f ? p : (float)kPi - p;
 }
 
-__global__ void __launch_bounds__(kBlockX * kBlockY)
+__global__ void __launch_bounds__(kBlockX * kBlockY, kMinBlocks)
 gtao_kernel(const float* __restrict__ depth, const float* __restrict__ normal,
             const float* __restrict__ sc, float* __restrict__ out, int hp,
-            int wp, int halo_r, int halo_c, int win_h, int win_w,
-            int num_slices, int num_steps, int fh, int wl) {
+            int wp, int h, int w, int halo_r, int halo_c, int win_h,
+            int win_w, int num_slices, int num_steps, int fh, int wl) {
   const int x = blockIdx.x * kBlockX + threadIdx.x;
   const int y = blockIdx.y * kBlockY + threadIdx.y;
-  if (x >= wp || y >= hp) return;
+  if (x >= w || y >= h) return;               // padding: computed by no one
   const float f_idx = sc[0], radius = sc[1], falloff_from = sc[2],
               falloff_range = sc[3], p00 = sc[4], p11 = sc[5], near = sc[6],
               far = sc[7];
 
+  // the tile's window, rounded down to the tile grid
   const int y0 = (y / kTileH) * kTileH;
   const int x0 = (x / kTileW) * kTileW;
   int ry = min(max(y0 - halo_r, 0), hp - win_h);
@@ -76,10 +84,10 @@ gtao_kernel(const float* __restrict__ depth, const float* __restrict__ normal,
 
   const float py = (float)y, px = (float)x;
   const float xi = px + 0.5f, yi = py + 0.5f;
-  const size_t pix = (size_t)y * wp + x;
+  const size_t pix = (size_t)y * w + x;
 
-  const float view_z =
-      near * far / fmaxf(far - depth[pix] * (far - near), 1e-12f);
+  const float view_z = near * far /
+      fmaxf(far - depth[(size_t)y * wp + x] * (far - near), 1e-12f);
   const float x_ndc = xi / (float)wl * 2.0f - 1.0f;
   const float y_ndc = 1.0f - yi / (float)fh * 2.0f;
   const float pos_x = x_ndc * view_z / p00;
@@ -201,18 +209,22 @@ gtao_kernel(const float* __restrict__ depth, const float* __restrict__ normal,
 
 }  // namespace
 
+// depth: the (hp, wp) edge-padded depth; normal (h, w, 3) and out (h, w):
+// the pixels the caller keeps.
 extern "C" int dfx_gtao_fused(const void* depth, const void* normal,
                               const void* scalars, void* out, int hp, int wp,
-                              int halo_r, int halo_c, int win_h, int win_w,
-                              int num_slices, int num_steps, int fh, int wl,
-                              void* stream) {
-  if (num_slices < 1 || num_steps < 1)
+                              int h, int w, int halo_r, int halo_c, int win_h,
+                              int win_w, int num_slices, int num_steps,
+                              int fh, int wl, void* stream) {
+  if (num_slices < 1 || num_steps < 1 || h > hp || w > wp || hp % kTileH ||
+      wp % kTileW)
     return (int)cudaErrorInvalidValue;
+  if (h == 0 || w == 0) return 0;
   dim3 block(kBlockX, kBlockY);
-  dim3 grid((wp + kBlockX - 1) / kBlockX, (hp + kBlockY - 1) / kBlockY);
+  dim3 grid((w + kBlockX - 1) / kBlockX, (h + kBlockY - 1) / kBlockY);
   gtao_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
       (const float*)depth, (const float*)normal, (const float*)scalars,
-      (float*)out, hp, wp, halo_r, halo_c, win_h, win_w, num_slices,
+      (float*)out, hp, wp, h, w, halo_r, halo_c, win_h, win_w, num_slices,
       num_steps, fh, wl);
   return (int)cudaGetLastError();
 }

@@ -18,9 +18,10 @@ window.  `gtao_fused` launches the kernel on a CUDA tensor and runs
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Iterator, NamedTuple, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from diligentfx_tpu_torch.ops import cuda_build
 from diligentfx_tpu_torch.postfx.context import edge_pad
@@ -65,26 +66,46 @@ def _acos(x: Tensor) -> Tensor:
     return torch.where(x >= 0.0, p, PI - p)
 
 
-def _pad(depth: Tensor, normal_vs: Tensor):
-    h, w = depth.shape
-    ph, pw = (-h) % TILE_H, (-w) % TILE_W
-    return (edge_pad(depth, ph, pw).contiguous(),
-            edge_pad(normal_vs, ph, pw).contiguous())
+def _pad(x: Tensor) -> Tensor:
+    """x (h, w, ...) edge-padded to the 32 x 128 tile grid."""
+    h, w = x.shape[:2]
+    return edge_pad(x, (-h) % TILE_H, (-w) % TILE_W).contiguous()
 
 
-def gtao_fused_plain(depth: Tensor, normal_vs: Tensor, scalars: Tensor, *,
-                     num_slices: int, num_steps: int, fh_log: int = 0,
-                     w_log: int = 0) -> Tensor:
-    """Plain PyTorch version of the fused GTAO kernel (same operation order
-    as gtao_pallas.py `_gtao_kernel`)."""
-    h, w = depth.shape
-    fh = fh_log or h
-    wl = w_log or w
-    dp, npad = _pad(depth, normal_vs)
+class _Pixels(NamedTuple):
+    """What every tap of a pixel shares: the window's size and tap clamps,
+    the pixel grid and window origins, the view-space position and view
+    vector, the noise, the tap radius and the divisors."""
+    win_h: int
+    win_w: int
+    cx: float
+    cy: float
+    ry: Tensor
+    rx: Tensor
+    py: Tensor
+    px: Tensor
+    xi: Tensor
+    yi: Tensor
+    pos: Tuple[Tensor, Tensor, Tensor]
+    v: Tuple[Tensor, Tensor, Tensor]
+    noise: Tensor
+    radius_px: Tensor
+    wl_t: Tensor
+    fh_t: Tensor
+    steps_t: Tensor
+
+
+def _view_z(d, near, far):
+    return near * far / torch.clamp(far - d * (far - near), min=1e-12)
+
+
+def _pixels(dp: Tensor, scalars: Tensor, num_steps: int, fh: int,
+            wl: int) -> _Pixels:
+    """The per-pixel part of the fused GTAO on the padded depth dp."""
     hp, wp = dp.shape
     halo_r, halo_c, win_h, win_w = gtao_geometry(hp, wp)
-    dev = depth.device
-    (f_idx, radius, falloff_from, falloff_range, p00, p11, near,
+    dev = dp.device
+    (f_idx, radius, _, _, p00, p11, near,
      far) = scalars.to(torch.float32).unbind()
 
     yy = torch.arange(hp, device=dev)[:, None]
@@ -103,10 +124,7 @@ def gtao_fused_plain(depth: Tensor, normal_vs: Tensor, scalars: Tensor, *,
         return torch.tensor(float(c), dtype=torch.float32, device=dev)
     wl_t, fh_t, steps_t = const(wl), const(fh), const(num_steps)
 
-    def to_view_z(d):
-        return near * far / torch.clamp(far - d * (far - near), min=1e-12)
-
-    view_z = to_view_z(dp)
+    view_z = _view_z(dp, near, far)
     x_ndc = xi / wl_t * 2.0 - 1.0
     y_ndc = 1.0 - yi / fh_t * 2.0
     pos_x = x_ndc * view_z / p00
@@ -126,34 +144,102 @@ def gtao_fused_plain(depth: Tensor, normal_vs: Tensor, scalars: Tensor, *,
 
     radius_px = radius * p11 * (fh * 0.5) / torch.clamp(view_z, min=1e-4)
     radius_px = torch.clamp(radius_px, 2.0, float(max(fh, wl)) * 0.25)
+    return _Pixels(win_h, win_w, float(max(halo_c - 1, 0)),
+                   float(max(halo_r - 1, 0)), ry, rx, py, px, xi, yi,
+                   (pos_x, pos_y, pos_z), (v_x, v_y, v_z), noise, radius_px,
+                   wl_t, fh_t, steps_t)
+
+
+def _slice_dir(g: _Pixels, s: int, num_slices: int):
+    phi = (s + g.noise) * (PI / num_slices)
+    return torch.cos(phi), torch.sin(phi)
+
+
+def _tap_offset(g: _Pixels, cos_p: Tensor, sin_p: Tensor, sgn: float,
+                step: int) -> Tuple[Tensor, Tensor]:
+    tt = (step + 0.5 + 0.5 * g.noise) / g.steps_t
+    tt = tt * tt
+    off_x = torch.clamp(cos_p * (sgn * tt * g.radius_px), -g.cx, g.cx)
+    off_y = torch.clamp(-sin_p * (sgn * tt * g.radius_px), -g.cy, g.cy)
+    return off_x, off_y
+
+
+class TapCoords(NamedTuple):
+    """One bilinear tap of every pixel on the padded depth: rows r0, r1
+    (r1 is read only where `has1`), columns c0, c1, weights fy, fx."""
+    r0: Tensor
+    r1: Tensor
+    c0: Tensor
+    c1: Tensor
+    fy: Tensor
+    fx: Tensor
+    has1: Tensor
+
+
+def gtao_tap_coords(g: _Pixels, off_x: Tensor, off_y: Tensor) -> TapCoords:
+    """The texels and weights of the tap at offset (off_x, off_y): window
+    coordinates clamped to the window, the x+1 / y+1 neighbours inside
+    it (the TPU kernel's bounded bilinear tap)."""
+    ryf, rxf = g.ry.to(torch.float32), g.rx.to(torch.float32)
+    sy = torch.clamp(g.py - ryf + off_y, 0.0, g.win_h - 1.0)
+    sx = torch.clamp(g.px - rxf + off_x, 0.0, g.win_w - 1.0)
+    yf, xf = torch.floor(sy), torch.floor(sx)
+    fy, fx = sy - yf, sx - xf
+    yi0, xi0 = yf.long(), xf.long()
+    xi1 = torch.clamp(xi0 + 1, max=g.win_w - 1)
+    has1 = yi0 + 1 < g.win_h
+    r0 = g.ry + yi0
+    r1 = g.ry + torch.clamp(yi0 + 1, max=g.win_h - 1)
+    return TapCoords(r0, r1, g.rx + xi0, g.rx + xi1, fy, fx, has1)
+
+
+def gtao_taps(depth: Tensor, scalars: Tensor, *, num_slices: int,
+              num_steps: int, fh_log: int = 0, w_log: int = 0
+              ) -> Iterator[TapCoords]:
+    """The tap coordinates of every pixel of the padded grid, in the
+    kernel's order (slice, side +1 then -1, step): what the fused GTAO
+    reads of the depth."""
+    h, w = depth.shape
+    dp = _pad(depth)
+    g = _pixels(dp, scalars, num_steps, fh_log or h, w_log or w)
+    for s in range(num_slices):
+        cos_p, sin_p = _slice_dir(g, s, num_slices)
+        for sgn in (1.0, -1.0):
+            for step in range(num_steps):
+                yield gtao_tap_coords(g, *_tap_offset(g, cos_p, sin_p, sgn,
+                                                      step))
+
+
+def gtao_fused_plain(depth: Tensor, normal_vs: Tensor, scalars: Tensor, *,
+                     num_slices: int, num_steps: int, fh_log: int = 0,
+                     w_log: int = 0) -> Tensor:
+    """Plain PyTorch version of the fused GTAO kernel (same operation order
+    as gtao_pallas.py `_gtao_kernel`)."""
+    h, w = depth.shape
+    fh = fh_log or h
+    wl = w_log or w
+    dp, npad = _pad(depth), _pad(normal_vs)
+    hp, wp = dp.shape
+    dev = depth.device
+    (_, _, falloff_from, falloff_range, p00, p11, near,
+     far) = scalars.to(torch.float32).unbind()
+    g = _pixels(dp, scalars, num_steps, fh, wl)
+    pos_x, pos_y, pos_z = g.pos
+    v_x, v_y, v_z = g.v
     n_x, n_y, n_z = npad.unbind(-1)
-    cx = float(max(halo_c - 1, 0))
-    cy = float(max(halo_r - 1, 0))
-    ryf, rxf = ry.to(torch.float32), rx.to(torch.float32)
 
     def tap(off_x, off_y):
-        sy = torch.clamp(py - ryf + off_y, 0.0, win_h - 1.0)
-        sx = torch.clamp(px - rxf + off_x, 0.0, win_w - 1.0)
-        yf, xf = torch.floor(sy), torch.floor(sx)
-        fy, fx = sy - yf, sx - xf
-        yi0, xi0 = yf.long(), xf.long()
-        xi1 = torch.clamp(xi0 + 1, max=win_w - 1)
-        has1 = yi0 + 1 < win_h
-        r0 = ry + yi0
-        r1 = ry + torch.clamp(yi0 + 1, max=win_h - 1)
-        c0, c1 = rx + xi0, rx + xi1
-        ga, gb = dp[r0, c0], dp[r0, c1]
-        hv0 = ga + (gb - ga) * fx
-        ga, gb = dp[r1, c0], dp[r1, c1]
-        hv1 = ga + (gb - ga) * fx
-        a = hv0 * (1.0 - fy)
-        return torch.where(has1, a + hv1 * fy, a)
+        t = gtao_tap_coords(g, off_x, off_y)
+        ga, gb = dp[t.r0, t.c0], dp[t.r0, t.c1]
+        hv0 = ga + (gb - ga) * t.fx
+        ga, gb = dp[t.r1, t.c0], dp[t.r1, t.c1]
+        hv1 = ga + (gb - ga) * t.fx
+        a = hv0 * (1.0 - t.fy)
+        return torch.where(t.has1, a + hv1 * t.fy, a)
 
     visibility = torch.zeros((hp, wp), dtype=torch.float32, device=dev)
     for s in range(num_slices):
-        phi = (s + noise) * (PI / num_slices)
-        cos_p = torch.cos(phi)
-        sin_p = torch.sin(phi)
+        cos_p, sin_p = _slice_dir(g, s, num_slices)
         sdv = cos_p * v_x + sin_p * v_y                # slice_dir . v
         o_x = cos_p - v_x * sdv
         o_y = sin_p - v_y * sdv
@@ -180,14 +266,11 @@ def gtao_fused_plain(depth: Tensor, normal_vs: Tensor, scalars: Tensor, *,
                 torch.full((hp, wp), -1.0, device=dev)]
         for side, sgn in ((0, 1.0), (1, -1.0)):
             for step in range(num_steps):
-                tt = (step + 0.5 + 0.5 * noise) / steps_t
-                tt = tt * tt
-                off_x = torch.clamp(cos_p * (sgn * tt * radius_px), -cx, cx)
-                off_y = torch.clamp(-sin_p * (sgn * tt * radius_px), -cy, cy)
+                off_x, off_y = _tap_offset(g, cos_p, sin_p, sgn, step)
                 d = tap(off_x, off_y)
-                su = (xi + off_x) / wl_t
-                sv = (yi + off_y) / fh_t
-                zs = to_view_z(d)
+                su = (g.xi + off_x) / g.wl_t
+                sv = (g.yi + off_y) / g.fh_t
+                zs = _view_z(d, near, far)
                 dx = (su * 2.0 - 1.0) * zs / p00 - pos_x
                 dy = (1.0 - sv * 2.0) * zs / p11 - pos_y
                 dz = -zs - pos_z
@@ -212,12 +295,13 @@ def gtao_fused_plain(depth: Tensor, normal_vs: Tensor, scalars: Tensor, *,
                + 0.25 * (-torch.cos(2.0 * h1 - n_angle) + cos_norm
                          + 2.0 * h1 * sin_n))
         visibility = visibility + np_len * arc
-    return torch.clamp(visibility / const(num_slices), 0.0, 1.0)[:h, :w]
+    return torch.clamp(visibility / torch.tensor(
+        float(num_slices), dtype=torch.float32, device=dev), 0.0, 1.0)[:h, :w]
 
 
-# dfx_gtao_fused(depth, normal, scalars, out, hp, wp, halo_r, halo_c, win_h,
-#                win_w, num_slices, num_steps, fh, wl, stream)
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+# dfx_gtao_fused(depth, normal, scalars, out, hp, wp, h, w, halo_r, halo_c,
+#                win_h, win_w, num_slices, num_steps, fh, wl, stream)
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
 
 
 def _launch(depth: Tensor, normal_vs: Tensor, scalars: Tensor,
@@ -229,20 +313,25 @@ def _launch(depth: Tensor, normal_vs: Tensor, scalars: Tensor,
     if normal_vs.device != dev or scalars.device != dev:
         raise ValueError("depth, normal_vs and scalars must be on the same "
                          "device")
-    dp, npad = _pad(depth, normal_vs)
+    ph, pw = (-h) % TILE_H, (-w) % TILE_W
+    # the depth edge-padded to the tile grid (taps read the padding), in
+    # one replicate-pad launch; the normals are read only at kept pixels
+    dp = (F.pad(depth[None], (0, pw, 0, ph), mode="replicate")[0]
+          if ph or pw else depth.contiguous())
     hp, wp = dp.shape
     halo_r, halo_c, win_h, win_w = gtao_geometry(hp, wp)
+    nv = normal_vs.contiguous()
     sc = scalars.contiguous()
     fn = cuda_build.bind("gtao", "dfx_gtao_fused", _ARGTYPES)
-    out =torch.empty((hp, wp), dtype=torch.float32, device=dev)
+    out = torch.empty((h, w), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(dp.data_ptr(), npad.data_ptr(), sc.data_ptr(),
-                 out.data_ptr(), hp, wp, halo_r, halo_c, win_h, win_w,
-                 num_slices, num_steps, fh, wl, stream)
+        err = fn(dp.data_ptr(), nv.data_ptr(), sc.data_ptr(), out.data_ptr(),
+                 hp, wp, h, w, halo_r, halo_c, win_h, win_w, num_slices,
+                 num_steps, fh, wl, stream)
     cuda_build.check(err, "gtao kernel launch")
     gtao_fused.launches += 1
-    return out[:h, :w]
+    return out
 
 
 def gtao_fused(depth: Tensor, normal_vs: Tensor, scalars: Tensor, *,

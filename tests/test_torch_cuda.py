@@ -410,12 +410,17 @@ def test_warp_multi_wrapper_rejects_bad_inputs(cuda):
                                   (24, 100, 64, 256, 0.4),
                                   (128, 128, 64, 256, 0.05),
                                   (454, 128, 64, 256, 0.05),
-                                  (600, 128, 64, 256, 0.05)])
+                                  (600, 128, 64, 256, 0.05),
+                                  (447, 128, 64, 256, 0.05),
+                                  (67, 119, 64, 256, 0.2),
+                                  (1, 128, 8, 128, 0.5)])
 def test_march_kernel_matches_plain(cuda, case):
     """K3 vs march_dda_plain: the same hits and t (the bench frame's table
     size, a small table, 40% nearly horizontal rays, a 1024x1024 frame's
-    128-row table, the tallest table shared memory holds and a 600-row one,
-    which the kernel reads from global memory)."""
+    128-row table, 454- and 600-row tables, which the kernel reads from
+    global memory; the tallest table shared memory holds, 447 rows at pitch
+    128, an odd column count, and a one-row table).  Both kernel variants
+    and both shared pitches (ops/march.py `march_table_pitch`) run."""
     import chip_smoke as cs
     rows, cols, h, w, flat = case
     g = torch.Generator(device=cuda)
@@ -519,6 +524,29 @@ def test_gtao_kernel_matches_plain(cuda, shape):
     want = tg.gtao_fused_plain(depth, n.contiguous(), sc, num_slices=2,
                                num_steps=4)
     assert got.shape == (h, w)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("shape", [(64, 256), (540, 960)])
+def test_gtao_kernel_on_an_unaligned_depth(cuda, shape):
+    """A depth that needs no padding and starts 4 bytes into its storage,
+    which the wrapper passes to the kernel as it is: K5 equals
+    gtao_fused_plain within 1e-5 (64 x 256: the halo shrinks to 16 rows and
+    the window covers the whole image)."""
+    h, w = shape
+    g = torch.Generator(device=cuda)
+    g.manual_seed(w)
+    store = 0.3 + 0.6 * torch.rand(h * w + 1, generator=g, device=cuda)
+    depth = store[1:].view(h, w)
+    assert depth.data_ptr() % 16 != 0 and depth.is_contiguous()
+    n = torch.nn.functional.normalize(
+        torch.rand((h, w, 3), generator=g, device=cuda) - 0.5, dim=-1)
+    n[..., 2] = n[..., 2].abs() + 0.1
+    sc = torch.tensor([7.0, 1.0, 0.385, 0.615, 0.8, 1.4, 0.1, 100.0],
+                      device=cuda)
+    got = tg.gtao_fused(depth, n, sc, num_slices=2, num_steps=4)
+    torch.cuda.synchronize()
+    want = tg.gtao_fused_plain(depth, n, sc, num_slices=2, num_steps=4)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
 
 

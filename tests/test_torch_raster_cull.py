@@ -199,13 +199,15 @@ def test_plain_versions_ignore_rects():
 
 
 def test_march_table_route():
-    """K3 stages a table of up to 232,448 bytes in shared memory (454 rows
-    of 128 columns: the 1024x1024 frame's 128-row mip 2 fits) and reads a
-    taller one, such as 600 x 128, from global memory; the wrapper takes
-    any height."""
-    assert tm.table_in_shared(67, 120) and tm.table_in_shared(128, 128)
-    assert tm.table_in_shared(454, 128) and not tm.table_in_shared(455, 128)
-    assert not tm.table_in_shared(600, 128)
+    """K3 stages a table in shared memory beside its ray sort (1,280 bytes)
+    and row boundaries, 232,448 bytes in all (447 rows of 128 columns: the
+    1024x1024 frame's 128-row mip 2 fits), and reads a taller one, such as
+    454 or 600 x 128, from global memory; the wrapper takes any height."""
+    assert tm.march_table_pitch(67, 120) and tm.march_table_pitch(128, 128)
+    assert tm.march_table_pitch(447, 128) and not tm.march_table_pitch(448,
+                                                                       128)
+    assert not tm.march_table_pitch(454, 128)
+    assert not tm.march_table_pitch(600, 128)
     o = torch.zeros((8, 128, 3))
     assert tm._check_inputs(torch.zeros((600, 128)), o, o) == (600, 128, 8,
                                                                128)
