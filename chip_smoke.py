@@ -3,9 +3,10 @@
 GPU: builds the port's CUDA kernels, holds each against its plain PyTorch
 version on the card, renders the 1080p bench frame with the full bench.py
 feature set (G-buffer -> half-resolution GTAO SSAO -> divisor-2 SSR ->
-composite -> TAA -> bloom -> tone map), the textured --csm frame and the
-full-chain frame (DoF, epipolar light scattering, auto exposure), and
-checks them.
+composite -> TAA -> bloom -> tone map), the textured --csm frame, the
+full-chain frame (DoF, epipolar light scattering, auto exposure) and the
+mask / blend frame of a glTF file it writes (alpha-masked screens, glass
+panes through K-layer OIT), and checks them.
 
 Phases (any failure exits non-zero; no phase is skipped):
   1. build csrc/*.cu with nvcc (one process per source, all at once);
@@ -73,7 +74,25 @@ Phases (any failure exits non-zero; no phase is skipped):
      path, the entry point once with the counts zeroed just before and
      read just after; its fill's re-read of the image;
  14. a 256x128 full-chain frame (two frames, moving camera) on the GPU
-     against the port's CPU path.
+     against the port's CPU path;
+ 15. K4 vs raster_tiles_plain at the mask / blend frame's G-buffer inputs
+     (the glTF atrium's opaque prefix at 1088x1920, standard depth, the
+     materials' double-sided flags), bit for bit, timed and counted as in
+     phase 8;
+ 16. the mask / blend frame: a .glb written at run time (the full-chain
+     atrium, twelve lattice screens of ALPHA_MODE_MASK with a 256x256
+     texture of alpha 0 / 1 holes, six glass panes of ALPHA_MODE_BLEND
+     0.25 m apart), load_gltf -> build_render_scene -> HnTaskManager
+     (the atlas) -> execute at 1920x1080 with the bench effects and K = 4
+     OIT layers; one warm-up frame (mask fragments both passed and
+     discarded, some pixel's OIT overflowing the layers, no raster's bin,
+     big or near-clip overflow), then --frames timed frames with the counts
+     zeroed just before and read just after (K4 1, K2 20, K3 1, K1 0 a
+     frame); the K-layer stage alone and 3 profiled frames (the dfx.oit and
+     dfx.alpha_mask ranges);
+ 17. two 256x128 mask / blend frames of the atrium with 4 columns (two-pass
+     K4 G-buffer + OIT) and two without the screens (blend only: fused K1
+     + OIT) on the GPU against the port's CPU path.
 
 Prints the median frame times, one JSON line with each kernel's launches,
 times and bound, the card's name and power limit, and last
@@ -84,11 +103,13 @@ Usage: python3 chip_smoke.py [--frames N] [--out-png PATH] [--profile PATH]
        python3 chip_smoke.py --only raster [--root DIR]
        python3 chip_smoke.py --only csm [--profile PATH] [--root DIR]
        python3 chip_smoke.py --only march_gtao [--root DIR]
+       python3 chip_smoke.py --only oit [--profile PATH] [--root DIR]
 (the second runs phases 1, 3 and 13 alone, K6 on random taps; the third
 phases 1, 2, 8 without the csm frame, and 11 without the full-chain frame;
 the fourth phases 1 and 9; the fifth phase 1, one bench frame for its
-G-buffer, and phases 5 and 6; each on the port of the checkout DIR: run it
-in two checkouts in turn, A B B A, to compare them in one call)
+G-buffer, and phases 5 and 6; the sixth phases 1, 15 and 16; each on the
+port of the checkout DIR: run it in two checkouts in turn, A B B A, to
+compare them in one call)
 """
 import argparse
 import json
@@ -253,9 +274,15 @@ def full_chain_scene(n_columns=12, wall_segments=24, device=DEVICE):
     primitives: columns (high-poly capitals on box shafts), a 60 m floor
     and 40 clutter spheres from rng seed 0; 112,592 triangles at 12
     columns."""
+    from diligentfx_tpu_torch.pbr.renderer import build_scene
+    return build_scene(full_chain_entries(n_columns, wall_segments),
+                       device=device)
+
+
+def full_chain_entries(n_columns=12, wall_segments=24):
+    """full_chain_scene's (mesh, node matrix, material) entries."""
     from diligentfx_tpu_torch.attribs import PBRMaterialBasicAttribs
     from diligentfx_tpu_torch.gltf.primitives import cube, plane, uv_sphere
-    from diligentfx_tpu_torch.pbr.renderer import build_scene
     rng = np.random.default_rng(0)
     entries = []
     col = uv_sphere(0.5, 40, 56)
@@ -285,7 +312,7 @@ def full_chain_scene(n_columns=12, wall_segments=24, device=DEVICE):
                             + (1.0,),
                             metallic_factor=float(rng.uniform(0, 1)),
                             roughness_factor=float(rng.uniform(0.1, 0.9)))))
-    return build_scene(entries, device=device)
+    return entries
 
 
 def full_chain_raster_config():
@@ -727,18 +754,24 @@ def warp_launch_shapes(fn):
 
 
 def timed_frames(tm, scene, frame_info, frames, expected, label,
-                 warp_launches):
+                 warp_launches, warmup_wrap=None):
     """One warm-up frame of tm.execute on frame_info() (called once a
     frame), which must launch K2 at the shapes of `warp_launches`
     (WARP_SHAPES name -> launches), then `frames` timed frames (host clock
     ending in a synchronise, CUDA events beside it), with the launch counts
     zeroed just before and read just after and held to `expected` a frame.
-    Returns (last output, state, host ms list, device ms list, launches)."""
+    `warmup_wrap(fn)`, when given, wraps the warm-up frame's call (to
+    observe it).  Returns (last output, state, host ms list, device ms
+    list, launches)."""
     import torch
     settings = bench_settings()
     state = tm.initial_state(W, H)
-    out, shapes = warp_launch_shapes(lambda: tm.execute(
-        scene, frame_info(), state, width=W, height=H, settings=settings))
+
+    def warmup():
+        return tm.execute(scene, frame_info(), state, width=W, height=H,
+                          settings=settings)
+    out, shapes = warp_launch_shapes(warmup_wrap(warmup) if warmup_wrap
+                                     else warmup)
     want = sorted(((h, w, c), halo) for name, n in warp_launches.items()
                   for h, w, c, halo, _ in [WARP_SHAPES[name]] * n)
     check(shapes == want, f"{label} frame launched K2 at {shapes}, phase 3 "
@@ -1159,9 +1192,9 @@ def phase_gtao(gb, info, frame_state):
 PORT_KERNELS = ("raster_fused_kernel", "warp_tap_", "march_kernel",
                 "raster_tiles_kernel", "gtao_kernel", "warp_multi_kernel")
 STAGES = ("dfx.shadows", "dfx.gbuffer", "dfx.raster_inputs",
-          "dfx.context_composite", "dfx.ssao", "dfx.ssr",
-          "dfx.light_scattering", "dfx.exposure", "dfx.taa_bloom_tonemap",
-          "dfx.dof")
+          "dfx.alpha_mask", "dfx.context_composite", "dfx.ssao", "dfx.ssr",
+          "dfx.oit", "dfx.light_scattering", "dfx.exposure",
+          "dfx.taa_bloom_tonemap", "dfx.dof")
 
 
 # the kernel-name keys whose device time came from CUDA events because
@@ -1196,15 +1229,19 @@ def phase_raster_inputs_host(scene, info, cfg, frames):
           flush=True)
 
 
-def phase_profile(tm, scene, frame_info, frames, path, label):
+def phase_profile(tm, scene, frame_info, frames, path, label,
+                  ranges=("dfx.shadows",)):
     """Where a frame's time goes: torch.profiler over `frames` frames of
     HnTaskManager.execute on frame_info() (the csm frame's shadow pass
     included): device time of each stage (the dfx.* ranges; dfx.raster_inputs
-    lies inside dfx.gbuffer, dfx.ssao, dfx.ssr, dfx.light_scattering and
-    dfx.exposure inside dfx.context_composite, dfx.dof inside
-    dfx.taa_bloom_tonemap, dfx.shadows before them all) and of each kernel,
-    and the device's idle share.  A stage's device time leaves out the
-    port's own kernels (PORT_KERNELS), printed on a line of their own."""
+    and dfx.alpha_mask lie inside dfx.gbuffer, dfx.ssao, dfx.ssr, dfx.oit,
+    dfx.light_scattering and dfx.exposure inside dfx.context_composite,
+    dfx.dof inside dfx.taa_bloom_tonemap, dfx.shadows before them all) and
+    of each kernel, and the device's idle share; for the stages of `ranges`
+    that ran, their kernels and host ops (range_breakdown).  A stage's
+    device time leaves out the port's own kernels (PORT_KERNELS), printed
+    on a line of their own.  Writes the profiler's table to `path` (none
+    when empty); returns the stages' and ranges' numbers."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1249,17 +1286,25 @@ def phase_profile(tm, scene, frame_info, frames, path, label):
     print(f"profile {label}: the port's kernels, in no stage's device time: "
           + "; ".join(f"{name} {ms:.4f} ms x{n}" for name, ms, n in own),
           flush=True)
-    if stage_ms["dfx.shadows"][1] > 0:
-        range_breakdown(prof, "dfx.shadows", frames, label)
-    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    with open(path, "w") as f:
-        f.write(prof.key_averages().table(sort_by="self_cuda_time_total",
-                                          row_limit=80))
+    breakdown = {name: range_breakdown(prof, name, frames, label)
+                 for name in ranges if stage_ms[name][0] > 0}
+    if path:
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        with open(path, "w") as f:
+            f.write(prof.key_averages().table(sort_by="self_cuda_time_total",
+                                              row_limit=80))
+    return dict(frame_ms_profiled=per_frame, device_busy_ms=busy,
+                launches=sum(r[1] for r in rows),
+                stages={k: dict(host_ms=v[0], device_ms=v[1])
+                        for k, v in stage_ms.items() if v[0] > 0},
+                ranges=breakdown)
 
 
 def range_breakdown(prof, name, frames, label, top=10):
     """Inside the ranges `name`: the kernels by device time and the ops the
-    range called directly by host time, a frame, largest first."""
+    range called directly by host time, a frame, largest first.  Returns
+    the kernel launches and their device ms, and the host ops' calls and
+    ms, a frame."""
     from collections import defaultdict
     from torch.autograd import DeviceType
     dev = defaultdict(lambda: [0.0, 0])
@@ -1278,15 +1323,18 @@ def range_breakdown(prof, name, frames, label, top=10):
             for c in e.cpu_children:
                 host[c.name][0] += c.cpu_time_total
                 host[c.name][1] += 1
+    totals = {}
     for what, acc in (("kernel", dev), ("host op", host)):
         n = sum(v[1] for v in acc.values())
+        ms = sum(v[0] for v in acc.values()) / 1e3 / frames
+        totals[what] = dict(calls=n // frames, ms=ms)
         print(f"profile {label} {name}: {n // frames} {what} calls a frame, "
-              f"{sum(v[0] for v in acc.values()) / 1e3 / frames:.3f} ms",
-              flush=True)
+              f"{ms:.3f} ms", flush=True)
         for key, (us, cnt) in sorted(acc.items(), key=lambda kv: -kv[1][0])[
                 :top]:
             print(f"profile {label} {name} {what} {us / 1e3 / frames:.4f} ms "
                   f"x{cnt // frames}/frame {key[:90]}", flush=True)
+    return totals
 
 
 def slice_task_manager_ci():
@@ -1976,6 +2024,450 @@ def phase_full_chain_reference():
                     f"{p:.2f} dB")
 
 
+# ---------------------------------------------------------------------------
+# the mask / blend configuration: the atrium as a glTF file with cut-out
+# screens (ALPHA_MODE_MASK) and glass panes (ALPHA_MODE_BLEND)
+# ---------------------------------------------------------------------------
+
+OIT_LAYERS = 4                 # TaskManagerCreateInfo.oit_layer_count
+ATRIUM_TRIANGLES = 112592      # the opaque atrium at 12 columns
+
+
+def grid_mesh(nx, ny, sx, sy):
+    """An nx x ny grid of quads over [-sx/2, sx/2] x [-sy/2, sy/2] in the
+    XY plane, facing +Z (MeshData with tangents)."""
+    from diligentfx_tpu_torch.gltf.primitives import MeshData, compute_tangents
+    xs = np.linspace(-sx / 2, sx / 2, nx + 1, dtype=np.float32)
+    ys = np.linspace(-sy / 2, sy / 2, ny + 1, dtype=np.float32)
+    gx, gy = np.meshgrid(xs, ys)
+    pos = np.stack([gx, gy, np.zeros_like(gx)], -1).reshape(-1, 3)
+    nrm = np.tile(np.array([0, 0, 1], np.float32), (pos.shape[0], 1))
+    u, v = np.meshgrid(np.linspace(0, 1, nx + 1), np.linspace(1, 0, ny + 1))
+    uv = np.stack([u, v], -1).reshape(-1, 2).astype(np.float32)
+    i = (np.arange(ny)[:, None] * (nx + 1) + np.arange(nx)[None, :]).ravel()
+    idx = np.concatenate([np.stack([i, i + 1, i + nx + 2], -1),
+                          np.stack([i, i + nx + 2, i + nx + 1], -1)])
+    idx = idx.astype(np.int32)
+    return MeshData(pos, nrm, uv, idx, compute_tangents(pos, nrm, uv, idx))
+
+
+def lattice_texture(size=256, holes=8):
+    """A procedural RGBA lattice: alpha 0 in the square holes, 1 on the
+    bars (uint8)."""
+    y, x = np.mgrid[0:size, 0:size]
+    cell = size // holes
+    bar = cell // 4
+    solid = ((x % cell) < bar) | ((y % cell) < bar)
+    img = np.empty((size, size, 4), np.uint8)
+    img[..., 0] = 150 + 60 * (x * holes // size % 2)
+    img[..., 1] = 110
+    img[..., 2] = 70
+    img[..., 3] = np.where(solid, 255, 0)
+    return img
+
+
+def write_glb(path, items, texture=None):
+    """A binary glTF of `items` ((MeshData, row-vector node matrix,
+    material dict) each: one mesh, one node with its matrix; meshes that
+    are the same object share their accessors) and the base-colour
+    `texture` (uint8 RGBA, embedded as a PNG, image 0).  The port's
+    write_png encodes the image."""
+    import struct
+    import tempfile
+    from diligentfx_tpu_torch.utils.image import write_png
+    blob = bytearray()
+    views, accessors, meshes, nodes, materials = [], [], [], [], []
+
+    def view(data):
+        blob.extend(b"\0" * (-len(blob) % 4))
+        views.append({"buffer": 0, "byteOffset": len(blob),
+                      "byteLength": len(data)})
+        blob.extend(data)
+        return len(views) - 1
+
+    def accessor(arr, ctype, atype):
+        arr = np.ascontiguousarray(arr)
+        accessors.append({"bufferView": view(arr.tobytes()),
+                          "componentType": ctype, "count": int(arr.shape[0]),
+                          "type": atype})
+        return len(accessors) - 1
+
+    shared = {}
+    for mesh, node, mat in items:
+        if id(mesh) not in shared:
+            shared[id(mesh)] = {
+                "POSITION": accessor(mesh.positions.astype(np.float32), 5126,
+                                     "VEC3"),
+                "NORMAL": accessor(mesh.normals.astype(np.float32), 5126,
+                                   "VEC3"),
+                "TEXCOORD_0": accessor(mesh.uvs.astype(np.float32), 5126,
+                                       "VEC2"),
+                "TANGENT": accessor(mesh.tangents.astype(np.float32), 5126,
+                                    "VEC4"),
+                "indices": accessor(mesh.indices.astype(np.uint32).ravel(),
+                                    5125, "SCALAR")}
+        acc = dict(shared[id(mesh)])
+        ind = acc.pop("indices")
+        materials.append(mat)
+        meshes.append({"primitives": [{"attributes": acc, "indices": ind,
+                                       "material": len(materials) - 1}]})
+        # glTF's column-major matrix is the row-vector matrix read row-major
+        nodes.append({"mesh": len(meshes) - 1, "matrix": [
+            float(v) for v in np.asarray(node, np.float32).ravel()]})
+    doc = {"asset": {"version": "2.0"}, "scene": 0,
+           "scenes": [{"nodes": list(range(len(nodes)))}], "nodes": nodes,
+           "meshes": meshes, "materials": materials}
+    if texture is not None:
+        with tempfile.TemporaryDirectory() as tmp:
+            png = os.path.join(tmp, "lattice.png")
+            write_png(png, texture)
+            with open(png, "rb") as f:
+                data = f.read()
+        doc["images"] = [{"bufferView": view(data), "mimeType": "image/png"}]
+        doc["samplers"] = [{"wrapS": 10497, "wrapT": 10497}]
+        doc["textures"] = [{"source": 0, "sampler": 0}]
+    doc.update(accessors=accessors, bufferViews=views,
+               buffers=[{"byteLength": len(blob)}])
+    js = json.dumps(doc).encode()
+    js += b" " * (-len(js) % 4)
+    bin_ = bytes(blob) + b"\0" * (-len(blob) % 4)
+    body = (struct.pack("<II", len(js), 0x4E4F534A) + js
+            + struct.pack("<II", len(bin_), 0x004E4942) + bin_)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<III", 0x46546C67, 2, 12 + len(body)) + body)
+    return path
+
+
+def _gltf_material(m):
+    """A glTF material dict of a PBRMaterialBasicAttribs."""
+    return {"pbrMetallicRoughness": {
+        "baseColorFactor": [float(v) for v in m.base_color_factor],
+        "metallicFactor": float(m.metallic_factor),
+        "roughnessFactor": float(m.roughness_factor)}}
+
+
+def oit_atrium_glb(path, n_columns=12, screens=True):
+    """The mask / blend atrium as a .glb at `path`: the full-chain atrium's
+    entries (opaque), one double-sided lattice screen (MASK, cutoff 0.5,
+    the lattice texture's alpha 0 or 1) beside each column (1.6 x 2.4 m in
+    8 x 12 cells), and six double-sided glass panes (BLEND, base-colour
+    alpha 0.3-0.5, each tinted differently; 3 x 2 m in 12 x 8 cells) 0.25 m
+    apart between the camera and the front columns, so that the pixels
+    behind all six see more fragments than the four layers.  Cells of
+    0.2 m and 0.25 m keep every triangle under 16 of the 32 x 128 tiles at
+    1080p."""
+    items = [(mesh, node, _gltf_material(mat))
+             for mesh, node, mat in full_chain_entries(n_columns)]
+    if screens:
+        screen = grid_mesh(8, 12, 1.6, 2.4)
+        lattice = {"alphaMode": "MASK", "alphaCutoff": 0.5,
+                   "doubleSided": True, "pbrMetallicRoughness": {
+                       "baseColorTexture": {"index": 0},
+                       "metallicFactor": 0.0, "roughnessFactor": 0.7}}
+        for i in range(n_columns):
+            x = (i % (n_columns // 2)) * 2.5 - (n_columns // 4) * 2.5
+            node = np.eye(4, dtype=np.float32)
+            node[3, :3] = [x + 1.25, 1.2, -4.0 if i < n_columns // 2 else 4.0]
+            items.append((screen, node, lattice))
+    pane = grid_mesh(12, 8, 3.0, 2.0)
+    tints = ((0.6, 0.8, 1.0), (1.0, 0.6, 0.5), (0.6, 1.0, 0.6),
+             (1.0, 1.0, 0.5), (0.8, 0.5, 1.0), (0.5, 1.0, 1.0))
+    for i, tint in enumerate(tints):
+        node = np.eye(4, dtype=np.float32)
+        node[3, :3] = [-0.5, 1.0, 7.0 - 0.25 * i]
+        items.append((pane, node, {
+            "alphaMode": "BLEND", "doubleSided": True,
+            "pbrMetallicRoughness": {
+                "baseColorFactor": list(tint) + [0.3 + 0.04 * i],
+                "metallicFactor": 0.0, "roughnessFactor": 0.1}}))
+    return write_glb(path, items, lattice_texture() if screens else None)
+
+
+def oit_render_scene(device, n_columns=12, screens=True):
+    """load_gltf -> build_render_scene of oit_atrium_glb, written into a
+    temporary directory: the RenderScene (scene, atlas, lights)."""
+    import tempfile
+    from diligentfx_tpu_torch.gltf.loader import load_gltf
+    from diligentfx_tpu_torch.gltf.model import build_render_scene
+    with tempfile.TemporaryDirectory() as tmp:
+        path = oit_atrium_glb(os.path.join(tmp, "atrium.glb"), n_columns,
+                              screens)
+        return build_render_scene(load_gltf(path), device=device)
+
+
+def oit_task_manager_ci():
+    """The bench effects (SSAO half-res on the K2 route, divisor-2 SSR with
+    K3, TAA, bloom) with K = 4 OIT layers."""
+    import dataclasses
+    return dataclasses.replace(bench_task_manager_ci(),
+                               oit_layer_count=OIT_LAYERS)
+
+
+# a mask / blend frame: K4 once (the G-buffer's two-pass raster), no K1;
+# the bench effects' K2 and K3 launches
+OIT_FRAME_LAUNCHES = {**FRAME_LAUNCHES, "raster_tiles_fused": 0,
+                      "raster_tiles": 1}
+
+
+def oit_gbuffer_raster_inputs(rs, cfg):
+    """K4's inputs in the mask / blend frame's G-buffer pass (frame 0's
+    camera without the TAA jitter): the opaque prefix of the index buffer,
+    set up and binned at the padded 1088 x 1920; (setup, compact, counts,
+    rects, kernel keywords, stats)."""
+    from diligentfx_tpu_torch.ops import raster as rz
+    from diligentfx_tpu_torch.pbr.deferred import _vertex_inputs
+    scene = rs.scene
+    info = full_chain_info(0, W, H, DEVICE)
+    pad_w, pad_h = rz.pad_viewport(W, H, cfg)
+    clip, _, _, _ = _vertex_inputs(scene, info, True, include_pos=True)
+    n_op = scene.num_opaque
+    setup, valid, bbox, _, clip_ovf = rz._triangle_setup(
+        clip, scene.indices[:n_op], pad_w, pad_h,
+        scene.tri_double_sided[:n_op], True, 1e-3)
+    cand, counts, max_count, ovf, big_ovf = rz._bin_triangles(
+        valid, bbox, pad_w, pad_h, cfg)
+    rects = rz.candidate_rects(setup, pad_w, pad_h)
+    kw = dict(th=cfg.tile_h, tw=cfg.tile_w, tiles_x=pad_w // cfg.tile_w,
+              chunk=cfg.chunk)
+    stats = dict(valid=int(valid.sum()), max_count=int(counts.max()),
+                 max_bin_count=int(max_count),
+                 bin_overflow=int(ovf + clip_ovf), big_overflow=int(big_ovf))
+    return setup, cand, counts, rects, kw, stats
+
+
+def phase_gbuffer_k4(rs, cfg):
+    """K4 vs raster_tiles_plain at the mask / blend frame's G-buffer inputs
+    (standard depth, the glTF materials' double-sided flags), bit for bit
+    (z, id, b0, b1); timed by CUDA events and device time, with its
+    candidate-pixel tests and bound counted as phase 8 counts them."""
+    import torch
+    from diligentfx_tpu_torch.ops.raster_tiles import (raster_tiles,
+                                                       raster_tiles_plain)
+    setup, cand, counts, rects, kw, stats = oit_gbuffer_raster_inputs(rs,
+                                                                      cfg)
+    print(f"mask/blend G-buffer raster inputs: {stats}", flush=True)
+    check(stats["bin_overflow"] == 0 and stats["big_overflow"] == 0,
+          f"the G-buffer raster overflows: {stats}")
+    args = (setup, cand, counts, rects)
+    a = raster_tiles(*args, **kw)
+    torch.cuda.synchronize()
+    b = raster_tiles_plain(*args, **kw)
+    names = ("z", "id", "b0", "b1")
+    diff = {n: int((x != y).sum()) for n, x, y in zip(names, a, b)}
+    hit = b[1] >= 0
+    print(f"raster_tiles at the G-buffer inputs vs plain: values differing "
+          f"{diff}, covered {float(hit.float().mean()):.4f}", flush=True)
+    check(all(v == 0 for v in diff.values()),
+          f"K4 differs from its plain version at the G-buffer inputs: {diff}")
+    check(bool(hit.any()), "K4 covered no pixel")
+
+    def k4():
+        return raster_tiles(*args, **kw)
+    ms = cuda_ms(k4, 20, 2)
+    dev_ms = kernel_device_ms(k4, "raster_tiles_kernel", 10)
+    plain_ms = cuda_ms(lambda: raster_tiles_plain(*args, **kw), 1, 1)
+    th, tw = kw["th"], kw["tw"]
+    used = (torch.arange(cand.shape[1], device=DEVICE)[None, :]
+            < torch.clamp(counts.long(), max=cand.shape[1])[:, None])
+    unculled, tests, most = _tile_tests(cand, used, 0, th, rects,
+                                        kw["tiles_x"], th, tw)
+    rows = torch.unique(cand[used].long()).numel()
+    winners = torch.unique(b[1][hit]).numel()
+    n_bytes = (4 * (9 * rows + 7 * winners + int(used.sum()) + counts.numel())
+               + 16 * b[1].numel())
+    covered = int(hit.sum())
+    b_ms, b_by = bound_ms(n_bytes, 15 * tests + 8 * covered)
+    old_ms, old_by = bound_ms(n_bytes, 15 * unculled + 8 * covered)
+    print(f"raster_tiles at the G-buffer inputs: {ms:.4f} ms CUDA events, "
+          f"device {dev_ms:.4f} ms, plain {plain_ms:.2f} ms; candidate-pixel "
+          f"tests {unculled / 1e6:.2f} M on whole tiles, {tests / 1e6:.2f} M "
+          f"inside the rectangles (the most in one tile {most}); "
+          f"{n_bytes / 1e6:.1f} MB; bound {b_ms:.4f} ms ({b_by}; on whole "
+          f"tiles {old_ms:.4f} ms, {old_by})", flush=True)
+    return dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, bound_ms_unculled=old_ms, max_abs_err=0.0,
+                candidate_pixel_tests=tests,
+                candidate_pixel_tests_unculled=unculled, raster_stats=stats)
+
+
+def oit_probes():
+    """(wrap, seen): `wrap(fn)` runs fn with the K-layer raster, the
+    alpha-mask resolve and the binning observed; `seen` then holds the
+    K-layer buffers' overflow maxima by call (the mask resolve's first),
+    the resolve's passed and discarded fragment counts, and every binning's
+    and setup's overflow counts (the G-buffer's and both K-layer
+    rasters')."""
+    from diligentfx_tpu_torch.ops import raster as rz
+    from diligentfx_tpu_torch.pbr import oit
+    seen = {"klayer_overflow": [], "tally": {}, "bin": [], "clip": []}
+
+    def wrap(fn):
+        def run():
+            saved = (oit.rasterize_klayers, oit.resolve_alpha_mask,
+                     rz._bin_triangles, rz._triangle_setup)
+
+            def klayers(*a, **k):
+                out = saved[0](*a, **k)
+                seen["klayer_overflow"].append(int(out.overflow.max()))
+                return out
+
+            def resolve(*a, **k):
+                return saved[1](*a, tally=seen["tally"], **k)
+
+            def binning(*a, **k):
+                out = saved[2](*a, **k)
+                seen["bin"].append((int(out[3]), int(out[4])))
+                return out
+
+            def setup(*a, **k):
+                out = saved[3](*a, **k)
+                seen["clip"].append(int(out[-1]))
+                return out
+            oit.rasterize_klayers, oit.resolve_alpha_mask = klayers, resolve
+            rz._bin_triangles, rz._triangle_setup = binning, setup
+            try:
+                return fn()
+            finally:
+                (oit.rasterize_klayers, oit.resolve_alpha_mask,
+                 rz._bin_triangles, rz._triangle_setup) = saved
+        return run
+    return wrap, seen
+
+
+def phase_oit_frame(cfg, rs, frames, out_png, ibl_source, profile=""):
+    """The mask / blend frame at 1080p: HnTaskManager.execute on the glTF
+    atrium (the atlas of its lattice texture), the bench effects with K = 4
+    OIT layers, frame 0 of the full-chain camera; one warm-up frame
+    (observed: the mask fragments passed and discarded, the OIT overflow,
+    the rasters' overflow counts), then `frames` timed frames with the
+    counts zeroed just before and read just after (K4 1, K2 20, K3 1, K1 0
+    a frame); then the K-layer stage alone (synchronised host clock and
+    CUDA events) and 3 profiled frames (the dfx.oit and dfx.alpha_mask
+    ranges' launches and host and device ms)."""
+    import torch
+    from diligentfx_tpu_torch.config import PBRRendererCreateInfo
+    from diligentfx_tpu_torch.hydrogent import task_manager as ttm
+    from diligentfx_tpu_torch.pbr.renderer import PBRRenderer
+    scene = rs.scene
+    n_mask = scene.mask_indices.shape[0]
+    n_op = scene.num_opaque
+    n_blend = scene.blend_indices.shape[0]
+    print(f"mask/blend atrium: {n_op} opaque, {n_mask} masked, {n_blend} "
+          f"blend triangles, {scene.num_vertices} vertices; atlas "
+          f"{tuple(rs.atlas.mips[0].shape)}", flush=True)
+    check(n_op == ATRIUM_TRIANGLES, f"the atrium has {n_op} opaque triangles")
+    renderer = PBRRenderer(PBRRendererCreateInfo(), raster_cfg=cfg,
+                           device=DEVICE, env_oct=ibl_source.env_oct,
+                           ibl_maps=ibl_source.ibl_maps)
+    tm = ttm.HnTaskManager(renderer, oit_task_manager_ci(), atlas=rs.atlas)
+    wrap, seen = oit_probes()
+    out, state, host_ms, dev_ms, launches = timed_frames(
+        tm, scene, lambda: full_chain_info(0, W, H, DEVICE), frames,
+        OIT_FRAME_LAUNCHES, "mask/blend", WARP_FRAME, warmup_wrap=wrap)
+    tally = {k: int(v) for k, v in seen["tally"].items()}
+    ovf = seen["klayer_overflow"]
+    print(f"mask/blend warm-up: mask fragments {tally}, K-layer overflow "
+          f"maxima {ovf} (mask resolve, OIT), binning (bin, big) overflow "
+          f"{seen['bin']}, near-clip overflow {seen['clip']}", flush=True)
+    check(tally.get("passed", 0) > 0 and tally.get("discarded", 0) > 0,
+          f"mask fragments neither both passed and discarded: {tally}")
+    check(len(ovf) == 2 and ovf[1] > 0,
+          f"no pixel's OIT overflowed the {OIT_LAYERS} layers: {ovf}")
+    check(all(b == (0, 0) for b in seen["bin"]) and len(seen["bin"]) == 3
+          and not any(seen["clip"]),
+          f"a raster reports bin or big overflow: {seen}")
+    if out_png:
+        root, ext = os.path.splitext(out_png)
+        _write_png(f"{root}_mask_blend{ext or '.png'}", out.color)
+
+    # the K-layer stage alone, on the last frame's G-buffer and camera
+    info = full_chain_info(0, W, H, DEVICE)
+    color = torch.zeros((H, W, 3), device=DEVICE)
+
+    def oit_stage():
+        return ttm._oit(color, out.gbuffer, info, scene, renderer, tm.ci)
+    oit_stage()
+    oit_host, oit_ev = [], []
+    for _ in range(3):
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev0.record()
+        oit_stage()
+        ev1.record()
+        torch.cuda.synchronize()
+        oit_host.append((time.perf_counter() - t0) * 1e3)
+        oit_ev.append(ev0.elapsed_time(ev1))
+    print(f"mask/blend K-layer OIT stage alone: median "
+          f"{np.median(oit_host):.3f} ms host clock, "
+          f"{np.median(oit_ev):.3f} ms CUDA events", flush=True)
+    prof = phase_profile(tm, scene, lambda: info, 3, profile, "mask/blend",
+                         ranges=("dfx.oit", "dfx.alpha_mask"))
+    return dict(frame_ms_median=float(np.median(host_ms)),
+                frame_events_ms_median=float(np.median(dev_ms)),
+                frames=frames, launches=launches,
+                oit_stage_host_ms=float(np.median(oit_host)),
+                oit_stage_events_ms=float(np.median(oit_ev)),
+                mask_fragments=tally, klayer_overflow_max=ovf,
+                triangles=dict(opaque=n_op, mask=n_mask, blend=n_blend),
+                profile=prof)
+
+
+def small_oit_frames(device, screens):
+    """Two 256x128 frames (moving camera) of the mask / blend atrium with 4
+    columns, with the lattice screens (two-pass K4 G-buffer + OIT) or
+    without (blend only: fused K1 + OIT), on the CPU path and on `device`:
+    (cpu colour, colour, the device's launches)."""
+    from diligentfx_tpu_torch.config import PBRRendererCreateInfo
+    from diligentfx_tpu_torch.hydrogent.task_manager import HnTaskManager
+    from diligentfx_tpu_torch.pbr.renderer import PBRRenderer
+    ci = PBRRendererCreateInfo(brdf_lut_dim=32, num_brdf_samples=16,
+                               irradiance_cube_dim=16,
+                               prefiltered_env_map_dim=32,
+                               num_specular_env_samples=16)
+    cfg = full_chain_raster_config()
+    ref = PBRRenderer(ci, raster_cfg=cfg, device="cpu")
+    colors = []
+    for dev in ("cpu", device):
+        ren = (ref if dev == "cpu" else
+               PBRRenderer(ci, raster_cfg=cfg, device=dev,
+                           env_oct=ref.env_oct, ibl_maps=ref.ibl_maps.to(dev)))
+        rs = oit_render_scene(dev, n_columns=4, screens=screens)
+        tm = HnTaskManager(ren, oit_task_manager_ci(), atlas=rs.atlas)
+        state = tm.initial_state(SMALL_W, SMALL_H)
+        zero_launches()
+        for i in range(2):
+            out = tm.execute(rs.scene, full_chain_info(i, SMALL_W, SMALL_H,
+                                                       dev),
+                             state, width=SMALL_W, height=SMALL_H,
+                             settings=bench_settings())
+            state = out.state
+        colors.append(out.color.cpu().numpy())
+    return colors[0], colors[1], read_launches()
+
+
+def phase_oit_reference():
+    """The 256x128 mask / blend frames on the GPU against the port's CPU
+    path: with the lattice screens (two-pass K4 G-buffer, the alpha-mask
+    resolve, OIT) and blend only (fused K1, OIT)."""
+    from diligentfx_tpu_torch.utils.image import psnr
+    for name, screens, kernel in (("mask/blend", True, "raster_tiles"),
+                                  ("blend-only", False,
+                                   "raster_tiles_fused")):
+        cpu, gpu, launches = small_oit_frames(DEVICE, screens)
+        p = psnr(cpu, gpu)
+        print(f"256x128 {name} frame, GPU vs the port's CPU path: PSNR "
+              f"{p:.2f} dB, max abs diff {np.abs(cpu - gpu).max():.3g}; "
+              f"launches in 2 frames {launches}", flush=True)
+        check(np.isfinite(gpu).all(), f"small {name} frame not finite")
+        check(p > 50.0, f"GPU {name} frame disagrees with the CPU path: "
+                        f"{p:.2f} dB")
+        other = ({"raster_tiles", "raster_tiles_fused"} - {kernel}).pop()
+        check(launches[kernel] == 2 and launches[other] == 0,
+              f"the {name} G-buffer raster launched {launches}")
+
+
 # goals of the tile rasters' redesign, device ms (torch.profiler kernel
 # rows): K4 over the four cascades, K1 at each of its three inputs
 RASTER_GOALS_MS = {"raster_tiles": 0.45, "bench": 0.15, "csm": 0.20,
@@ -2062,6 +2554,19 @@ def march_gtao_only():
                                                       out.state)
 
 
+def oit_only(frames, profile):
+    """Phases 15 and 16 alone: K4 at the mask / blend frame's G-buffer
+    inputs and the 1080p mask / blend frame, for A/B runs."""
+    from diligentfx_tpu_torch.config import PBRRendererCreateInfo
+    from diligentfx_tpu_torch.pbr.renderer import PBRRenderer
+    cfg = full_chain_raster_config()
+    rs = oit_render_scene(DEVICE)
+    k4 = phase_gbuffer_k4(rs, cfg)
+    ibl = PBRRenderer(PBRRendererCreateInfo(), raster_cfg=cfg, device=DEVICE)
+    frame = phase_oit_frame(cfg, rs, frames, "", ibl, profile)
+    return dict(k4_gbuffer_inputs=k4, mask_blend_frame=frame)
+
+
 def card_line() -> str:
     r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,
@@ -2078,13 +2583,15 @@ def main() -> int:
                     help="also profile 3 frames (device time by stage and by "
                          "kernel); write the profiler's table to this path")
     ap.add_argument("--only", choices=("warp", "raster", "csm",
-                                        "march_gtao"),
+                                        "march_gtao", "oit"),
                     help="warp: run only phases 1, 3 and 13 (K6 on random "
                          "taps within the halo); raster: only phases 1, 2, "
                          "8 (without the csm frame) and 11; csm: only "
                          "phases 1 and 9 (with --profile, profiled); "
                          "march_gtao: only phase 1, one bench frame and "
-                         "phases 5 and 6; and print their JSON line")
+                         "phases 5 and 6; oit: only phases 1, 15 and 16 "
+                         "(with --profile, the profiler's table to that "
+                         "path); and print their JSON line")
     ap.add_argument("--root", default=HERE,
                     help="import the port from this checkout (with --only, "
                          "to A/B two checkouts' kernels in one call)")
@@ -2123,6 +2630,11 @@ def main() -> int:
     if args.only == "csm":
         print(json.dumps({"root": args.root,
                           **csm_only(args.frames, args.profile)}))
+        print(card, flush=True)
+        return 0
+    if args.only == "oit":
+        print(json.dumps({"root": args.root,
+                          **oit_only(args.frames, args.profile)}))
         print(card, flush=True)
         return 0
     cfg = bench_raster_config()
@@ -2175,6 +2687,14 @@ def main() -> int:
                                            fc_state.frame_index - 1))
     del fc_gb, fc_state, fc_tm
     phase_full_chain_reference()
+    rs_oit = oit_render_scene(DEVICE)
+    k4["gbuffer_inputs"] = phase_gbuffer_k4(rs_oit, fc_cfg)
+    oit_frame = phase_oit_frame(
+        fc_cfg, rs_oit, args.frames, args.out_png, tm.renderer,
+        f"{os.path.splitext(args.profile)[0]}_mask_blend.txt"
+        if args.profile else "")
+    del rs_oit
+    phase_oit_reference()
     for k in (k1, k2, k3):
         k["launches"] = launches[k["name"]]
         k["frames"] = args.frames
@@ -2183,12 +2703,15 @@ def main() -> int:
         k["csm_frame_launches"] = csm_launches[k["name"]]
     for k in (k1, k2, k3, k4, k5, k6):
         k["full_chain_frame_launches"] = fc_launches[k["name"]]
+        k["mask_blend_frame_launches"] = oit_frame["launches"][k["name"]]
     k4["launches"] = csm_launches["raster_tiles"]
     k4["frames"] = args.frames
     k4["launches_per_frame"] = csm_launches["raster_tiles"] / args.frames
     k4["path"] = ("HnTaskManager.render_shadows (the --csm frame's shadow "
                   "pass: one launch per cascade); bench frame launches "
-                  f"{launches['raster_tiles']}")
+                  f"{launches['raster_tiles']}; the mask / blend frame's "
+                  "two-pass G-buffer: one launch a frame "
+                  "(mask_blend_frame_launches over the same frames)")
     k5["frame_launches"] = launches["gtao_fused"]
     k5["launches_per_frame"] = 0.0
     k6["frame_launches"] = launches["warp_bilinear_multi"]
@@ -2203,8 +2726,16 @@ def main() -> int:
     print(f"csm_frame_ms_median {csm_ms:.3f} (CUDA events {csm_dev_ms:.3f}) "
           f"over {args.frames} frames at {W}x{H}")
     print(f"full_chain_frame_ms_median {fc_ms:.3f} (CUDA events "
-          f"{fc_dev_ms:.3f}) over {args.frames} frames at {W}x{H} on "
-          f"{card}; total run {time.perf_counter() - t_start:.1f} s")
+          f"{fc_dev_ms:.3f}) over {args.frames} frames at {W}x{H}")
+    oit_stages = oit_frame["profile"]["stages"]
+    print(f"mask_blend_frame_ms_median {oit_frame['frame_ms_median']:.3f} "
+          f"(CUDA events {oit_frame['frame_events_ms_median']:.3f}) over "
+          f"{args.frames} frames at {W}x{H}; K-layer OIT stage alone "
+          f"{oit_frame['oit_stage_host_ms']:.3f} ms host, "
+          f"{oit_frame['oit_stage_events_ms']:.3f} ms CUDA events; profiled "
+          f"stages {json.dumps(oit_stages)}; ranges "
+          f"{json.dumps(oit_frame['profile']['ranges'])} on {card}; total "
+          f"run {time.perf_counter() - t_start:.1f} s")
     if DEVICE_MS_FROM_EVENTS:
         print(f"device_ms from CUDA events, the profiler showing no device "
               f"time, for kernels named {DEVICE_MS_FROM_EVENTS}")

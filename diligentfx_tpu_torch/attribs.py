@@ -168,6 +168,27 @@ class PBRLightAttribs(NamedTuple):
         )
 
     @classmethod
+    def spot(cls, position, direction, intensity, inner_cone_angle,
+             outer_cone_angle, range=100.0, shadow_map_index=-1,
+             device=None):
+        ci, co = math.cos(inner_cone_angle), math.cos(outer_cone_angle)
+        s = 1.0 / max(ci - co, 1e-4)
+        d = _f32(direction, device).reshape(1, 3)
+        d = d / torch.linalg.vector_norm(d, dim=-1, keepdim=True)
+        return cls(
+            type=torch.tensor([LightType.SPOT], dtype=torch.int32,
+                              device=device),
+            position=_f32(position, device).reshape(1, 3),
+            direction=d,
+            shadow_map_index=torch.tensor([shadow_map_index],
+                                          dtype=torch.int32, device=device),
+            intensity=_f32(intensity, device).reshape(1, 3),
+            range4=_f32([float(range) ** 4], device),
+            spot_angle_scale=_f32([s], device),
+            spot_angle_offset=_f32([-co * s], device),
+        )
+
+    @classmethod
     def concat(cls, lights):
         return cls(*(torch.cat([getattr(l, f) for l in lights], dim=0)
                      for f in cls._fields))

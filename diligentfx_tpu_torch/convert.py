@@ -41,10 +41,12 @@ def _fields(obj, cls, device):
 
 
 def scene_from_jax(scene, device=None) -> ScenePrimitives:
-    """ScenePrimitives of opaque, unskinned scenes, with their texture
-    bindings (tex_ids, tex_uv_transform, tex_wraps) when present."""
-    for name in ("mask_indices", "blend_indices", "joints",
-                 "materials_sheen", "materials_anisotropy",
+    """ScenePrimitives of unskinned scenes without material extensions,
+    with their texture bindings (tex_ids, tex_uv_transform, tex_wraps), the
+    alpha-mask tail (mask_indices) and the blend geometry (blend_indices,
+    blend_tri_material) when present.  Takes a JAX RenderScene's scene
+    (gltf/model.py) as well as a ScenePrimitives of build_scene."""
+    for name in ("joints", "materials_sheen", "materials_anisotropy",
                  "materials_iridescence", "materials_transmission",
                  "materials_volume"):
         if getattr(scene, name) is not None:
@@ -53,7 +55,8 @@ def scene_from_jax(scene, device=None) -> ScenePrimitives:
             for f in ("positions", "normals", "uvs", "tangents", "indices",
                       "vertex_node", "tri_material", "tri_double_sided",
                       "node_matrices", "prev_node_matrices")}
-    for f in ("tex_ids", "tex_uv_transform", "tex_wraps"):
+    for f in ("tex_ids", "tex_uv_transform", "tex_wraps", "mask_indices",
+              "blend_indices", "blend_tri_material"):
         if getattr(scene, f) is not None:
             base[f] = tensor(getattr(scene, f), device)
     return ScenePrimitives(

@@ -1,8 +1,9 @@
 """Frame task graph (the port of diligentfx_tpu/hydrogent/task_manager.py):
 [shadow pass] -> BeginFrame (TAA jitter) -> G-buffer main pass (textured
-from the atlas, shadowed by the cascades) -> PostFX context + history
-disocclusion -> SSAO -> SSR -> composite -> epipolar light scattering ->
-auto exposure -> TAA -> DoF -> bloom -> tone map -> sRGB.
+from the atlas, shadowed by the cascades, alpha-masked geometry resolved)
+-> PostFX context + history disocclusion -> SSAO -> SSR -> composite ->
+K-layer OIT of the blend geometry -> epipolar light scattering -> auto
+exposure -> TAA -> DoF -> bloom -> tone map -> sRGB.
 
 `FrameState` carries the temporal history between frames.  Every task
 switch the port does not have yet raises NotImplementedError when the task
@@ -20,7 +21,9 @@ from diligentfx_tpu_torch.attribs import CameraAttribs
 from diligentfx_tpu_torch.components import shadow_map_manager as smm
 from diligentfx_tpu_torch.config import (DebugViewType, ShadowMode,
                                          ToneMappingMode)
+from diligentfx_tpu_torch.ops.raster import pad_viewport
 from diligentfx_tpu_torch.ops.texture import TextureAtlas
+from diligentfx_tpu_torch.pbr import oit
 from diligentfx_tpu_torch.pbr.deferred import GBufferData, render_gbuffer
 from diligentfx_tpu_torch.pbr.renderer import (PBRRenderer, RenderInfo,
                                                ScenePrimitives,
@@ -119,7 +122,8 @@ def _check_ci(ci: TaskManagerCreateInfo) -> None:
                 f"TaskManagerCreateInfo.{name} is not ported yet: {where}")
     if ci.view_mode != DebugViewType.NONE:
         raise NotImplementedError(
-            f"debug view modes are not ported yet: {LATER} (debug AOVs)")
+            f"debug view modes are not ported yet: {LATER} (debug AOVs, "
+            "ROADMAP.md §1 item 6)")
     if not ci.emit_aovs:
         raise NotImplementedError(
             f"emit_aovs=False is not ported yet: {LATER}")
@@ -191,7 +195,7 @@ class HnTaskManager:
         if atlas is not None and not isinstance(atlas, TextureAtlas):
             raise NotImplementedError(
                 f"only the texture atlas binding mode is ported: {LATER} "
-                "(the texture heap)")
+                "(slice 9: the texture heap)")
         self.renderer = renderer
         self.ci = ci
         self.atlas = atlas
@@ -251,22 +255,28 @@ class HnTaskManager:
     def execute(self, scene: ScenePrimitives, info: RenderInfo,
                 state: FrameState, *, width: int, height: int,
                 settings: FrameSettings = FrameSettings(),
-                light_shadow_kinds: tuple = ()) -> FrameOutput:
-        if scene.blend_indices is not None and self.ci.oit_layer_count > 0:
-            raise NotImplementedError(f"OIT is not ported yet: {LATER} (OIT)")
+                light_shadow_kinds: tuple = (),
+                fuse: str = "auto") -> FrameOutput:
+        """One frame.  `fuse` chooses the G-buffer's raster path
+        (pbr/deferred.py render_gbuffer; the JAX package reads DFX_FUSE
+        instead).  The blend geometry, when the scene has some and
+        oit_layer_count > 0, composites through K-layer OIT after the
+        screen-space effects (range dfx.oit)."""
         if light_shadow_kinds:
             raise NotImplementedError(
-                f"per-light (spot / point) shadows are not ported yet: {LATER}")
+                f"per-light (spot / point) shadows are not ported yet: {LATER}"
+                " (slice 9)")
         # named ranges: torch.profiler attributes host and device time to
         # the frame's three stages (a few microseconds a frame otherwise);
         # the effects' own ranges nest inside them
         with torch.profiler.record_function("dfx.gbuffer"):
             begin = _frame_begin(scene, info, state, self.renderer,
                                  self.jitter_seq, self.ci, width, height,
-                                 self.atlas)
+                                 self.atlas, fuse=fuse)
         with torch.profiler.record_function("dfx.context_composite"):
             fx = _frame_fx(begin, state, settings, self.ci,
-                           self.atmosphere_lut)
+                           self.atmosphere_lut, scene=scene,
+                           renderer=self.renderer)
         with torch.profiler.record_function("dfx.taa_bloom_tonemap"):
             return _frame_post(fx, state, settings, self.ci)
 
@@ -293,7 +303,8 @@ def _begin_camera(info: RenderInfo, state: FrameState, jitter_seq: Tensor,
 
 def _frame_begin(scene, info: RenderInfo, state: FrameState,
                  renderer: PBRRenderer, jitter_seq, ci: TaskManagerCreateInfo,
-                 width: int, height: int, atlas=None) -> FrameBegin:
+                 width: int, height: int, atlas=None,
+                 fuse: str = "auto") -> FrameBegin:
     """BeginFrame (TAA jitter) + the G-buffer main pass."""
     info, first_frame, shadow_mode = _begin_camera(info, state, jitter_seq,
                                                    ci, width, height)
@@ -304,14 +315,57 @@ def _frame_begin(scene, info: RenderInfo, state: FrameState,
                         pcf_kernel_size=renderer.ci.pcf_kernel_size,
                         atlas=atlas, use_textures=atlas is not None,
                         enable_clearcoat=renderer.ci.enable_clear_coat,
-                        fast_env=ci.fast_env_taps)
+                        fast_env=ci.fast_env_taps, fuse=fuse)
     return FrameBegin(gb=gb, info=info, first_frame=first_frame)
 
 
+def _oit(color: Tensor, gb: GBufferData, info: RenderInfo,
+         scene: ScenePrimitives, renderer: PBRRenderer,
+         ci: TaskManagerCreateInfo):
+    """BeginOITPass / the OIT layers / EndOITPass (JAX task_manager.py:
+    497-531): the blend geometry's K nearest fragments a pixel, carrying
+    each triangle's base-colour alpha and colour for the tail, shaded and
+    composited front to back over `color`.  Returns (colour, the cropped
+    KLayerBuffer)."""
+    height, width = gb.depth.shape
+    cfg = renderer.raster_cfg
+    pad_w, pad_h = pad_viewport(width, height, cfg)
+    wp, wn, _ = transform_vertices(scene, info.model_transform)
+    clip_b = m3.transform_points(wp, info.camera.view_proj)
+    w = clip_b[:, 3]
+    winv_b = torch.where(torch.abs(w) > 1e-12, 1.0 / w, torch.zeros_like(w))
+    blend_scene = scene._replace(tri_material=scene.blend_tri_material,
+                                 indices=scene.blend_indices)
+    blend_bc = scene.materials.base_color_factor[
+        scene.blend_tri_material.long()]
+    # the tail carries each dropped fragment's own unshaded base colour
+    kl = oit.rasterize_klayers(clip_b, scene.blend_indices, width=pad_w,
+                               height=pad_h, cfg=cfg,
+                               num_layers=ci.oit_layer_count,
+                               tri_alpha=blend_bc[:, 3],
+                               tri_rgb=blend_bc[:, :3])
+    kl = oit.KLayerBuffer(
+        depth=kl.depth[:, :height, :width],
+        tri_id=kl.tri_id[:, :height, :width],
+        bary=kl.bary[:, :height, :width],
+        overflow=kl.overflow[:height, :width],
+        tail_alpha=kl.tail_alpha[:height, :width],
+        tail_color=kl.tail_color[:height, :width])
+    lcol, lalpha, lalb = oit.shade_klayers(
+        blend_scene, info, renderer.ibl_maps, kl, wp, wn, winv_b,
+        use_ibl=renderer.ci.enable_ibl)
+    return oit.composite_klayers(color, gb.depth, kl, lcol, lalpha,
+                                 layer_albedos=lalb), kl
+
+
 def _frame_fx(begin: FrameBegin, state: FrameState, settings: FrameSettings,
-              ci: TaskManagerCreateInfo, atmosphere_lut=None) -> FrameFx:
+              ci: TaskManagerCreateInfo, atmosphere_lut=None, *,
+              scene: Optional[ScenePrimitives] = None,
+              renderer: Optional[PBRRenderer] = None) -> FrameFx:
     """PostFX context + history disocclusion + SSAO + SSR + composite +
-    epipolar light scattering + auto exposure."""
+    K-layer OIT (when `scene` has blend geometry and oit_layer_count > 0;
+    `renderer` supplies the raster config and IBL) + epipolar light
+    scattering + auto exposure."""
     gb, info, first_frame = begin.gb, begin.info, begin.first_frame
     prev_depth = state.prev_depth if state.prev_depth is not None else gb.depth
     resources = prepare_postfx_resources(
@@ -367,6 +421,11 @@ def _frame_fx(begin: FrameBegin, state: FrameState, settings: FrameSettings,
     ao1 = ao[..., None] if ao is not None else 1.0
     color = gb.direct + ao1 * gb.ambient_diffuse + ao1 * spec
     color = torch.where(gb.hit[..., None], color, gb.background)
+
+    if (scene is not None and scene.blend_indices is not None
+            and ci.oit_layer_count > 0):
+        with torch.profiler.record_function("dfx.oit"):
+            color, _ = _oit(color, gb, info, scene, renderer, ci)
 
     if ci.enable_light_scattering and atmosphere_lut is not None:
         with torch.profiler.record_function("dfx.light_scattering"):

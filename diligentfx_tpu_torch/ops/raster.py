@@ -734,6 +734,60 @@ def interpolate_all(vb: VisibilityBuffer, indices: Tensor, attrs: Tensor,
                                        device=out.device))
 
 
+def interpolate_with_derivs(vb: VisibilityBuffer, indices: Tensor,
+                            attr: Tensor, setup_bary: Tensor, winv: Tensor):
+    """Perspective-correct interpolation of a per-vertex attribute (V, C)
+    with its analytic screen-space derivatives (JAX raster.py:982): screen
+    barycentrics are affine per triangle, so their pixel derivatives are
+    the triangle's plane coefficients, and u = sum(l_i w_i u_i) / sum(l_i
+    w_i) differentiates by the quotient rule.  setup_bary: (T, 6) = per
+    triangle (a0, b0, c0, a1, b1, c1) (`bary_setup_from_clip`).  Returns
+    (value, ddx, ddy), each (H, W, C), zero on background pixels."""
+    tid = torch.clamp(vb.tri_id, min=0).long()
+    vidx = indices.long()[tid]                            # (H, W, 3)
+    wi = winv[vidx]                                       # (H, W, 3)
+    av = attr[vidx]                                       # (H, W, 3, C)
+    s = setup_bary[tid]                                   # (H, W, 6)
+    lam = _screen_lambdas(vb)
+    dldx = torch.stack([s[..., 0], s[..., 3], -(s[..., 0] + s[..., 3])], -1)
+    dldy = torch.stack([s[..., 1], s[..., 4], -(s[..., 1] + s[..., 4])], -1)
+
+    def corner_sum(x):
+        return (x[..., 0:1] + x[..., 1:2]) + x[..., 2:3]
+
+    g = lam * wi
+    den = corner_sum(g)
+    den = torch.where(torch.abs(den) < 1e-20, torch.ones_like(den), den)
+    val = _weighted_corners(av, g) / den
+    dgx = dldx * wi
+    dgy = dldy * wi
+    ddx = (_weighted_corners(av, dgx) - val * corner_sum(dgx)) / den
+    ddy = (_weighted_corners(av, dgy) - val * corner_sum(dgy)) / den
+    mask = (vb.tri_id >= 0)[..., None]
+    zero = torch.zeros((), dtype=val.dtype, device=val.device)
+    return (torch.where(mask, val, zero), torch.where(mask, ddx, zero),
+            torch.where(mask, ddy, zero))
+
+
+def bary_setup_from_clip(clip: Tensor, indices: Tensor, width: int,
+                         height: int) -> Tensor:
+    """The (T, 6) barycentric plane coefficients (a0, b0, c0, a1, b1, c1)
+    of each triangle, from its clip positions (JAX raster.py:1029), for
+    `interpolate_with_derivs`."""
+    screen, _, _ = clip_to_screen(clip, width, height)
+    idx = indices.long()
+    p0, p1, p2 = (screen[idx[:, k]] for k in range(3))
+    x0, y0 = p0[:, 0], p0[:, 1]
+    x1, y1 = p1[:, 0], p1[:, 1]
+    x2, y2 = p2[:, 0], p2[:, 1]
+    d = (x1 - x0) * (y2 - y0) - (x2 - x0) * (y1 - y0)
+    dinv = torch.where(torch.abs(d) > 1e-12, 1.0 / d, torch.zeros_like(d))
+    return torch.stack([
+        (y1 - y2) * dinv, (x2 - x1) * dinv, (x1 * y2 - x2 * y1) * dinv,
+        (y2 - y0) * dinv, (x0 - x2) * dinv, (x2 * y0 - x0 * y2) * dinv,
+    ], dim=-1)
+
+
 def pad_viewport(width: int, height: int, cfg: RasterizerConfig
                  ) -> Tuple[int, int]:
     """Round a viewport up to the tile grid (render padded, crop after)."""

@@ -24,7 +24,7 @@ from diligentfx_tpu_torch.ops.sampling import WRAP_MIRROR, WRAP_REPEAT
 Tensor = torch.Tensor
 
 HEAP_LATER = ("the texture heap (dynamic texture-array mode) is not ported "
-              "yet: a later slice")
+              "yet: a later slice (slice 9, ROADMAP.md §1 item 4)")
 
 
 class TextureAtlas(NamedTuple):

@@ -1,9 +1,17 @@
-"""Deferred G-buffer rendering, fused path (the port of
-diligentfx_tpu/pbr/deferred.py).
+"""Deferred G-buffer rendering (the port of diligentfx_tpu/pbr/deferred.py).
 
-  1. visibility: the fused raster kernel rasterizes, interpolates the
-     per-vertex attributes (with UV derivatives when textured) and fetches
-     the material row per pixel (rasterize_fused, channel-first output);
+  1. visibility, on one of two paths:
+     - fused: the fused raster kernel K1 rasterizes, interpolates the
+       per-vertex attributes (with UV derivatives when textured) and
+       fetches the material row per pixel (rasterize_fused, channel-first
+       output); world position is reconstructed from the raster depth
+       (the JAX package's default DFX_RECON=on behaviour);
+     - two-pass: the tile raster K4 writes depth, triangle id and
+       barycentrics (ops/raster.py rasterize), the ALPHA_MODE_MASK tail
+       depth-merges through the K-layer alpha test (pbr/oit.py
+       resolve_alpha_mask), and one gather interpolates the attributes,
+       world position included; the UV derivatives come from
+       `interpolate_with_derivs`;
   2. material textures (atlas binding mode: base colour, normal map,
      phys-desc, emissive, occlusion with the LOD from the derivatives);
   3. shading, split into the layers the post chain composites: direct
@@ -11,8 +19,8 @@ diligentfx_tpu/pbr/deferred.py).
      ambient diffuse, ambient specular and the split-sum environment
      factor.
 
-World position is reconstructed from the raster depth (the JAX package's
-default DFX_RECON=on behaviour; the port reads no environment).
+The port reads no environment: `render_gbuffer`'s `fuse` argument stands
+for the JAX package's DFX_FUSE.
 """
 from __future__ import annotations
 
@@ -82,12 +90,13 @@ def _material_table(mats) -> Tensor:
 
 
 def _vertex_inputs(scene: ScenePrimitives, info: RenderInfo,
-                   use_textures: bool = False):
-    """Per-vertex data of the fused path: (clip, winv, packed attrs (V, C),
-    n_ch) with attrs = [world normal (3), previous clip x, y, w (3)] and,
-    when textured, [uv (2), node-transformed tangent (3), tangent sign (1)]
-    (JAX deferred.py:72; world position is reconstructed from depth
-    instead of interpolated)."""
+                   use_textures: bool = False, include_pos: bool = False):
+    """Per-vertex data shared by the two paths: (clip, winv, packed attrs
+    (V, C), n_ch) with attrs = [world position (3) when include_pos, world
+    normal (3), previous clip x, y, w (3)] and, when textured, [uv (2),
+    node-transformed tangent (3), tangent sign (1)] (JAX deferred.py:72;
+    the fused path reconstructs position from depth instead of
+    interpolating it)."""
     world_pos, world_nrm, _ = transform_vertices(scene, info.model_transform)
     clip = m3.transform_points(world_pos, info.camera.view_proj)
     w = clip[:, 3]
@@ -101,7 +110,7 @@ def _vertex_inputs(scene: ScenePrimitives, info: RenderInfo,
     # divide breaks for triangles crossing the previous near plane)
     prev_cxyw = torch.stack([prev_clip[:, 0], prev_clip[:, 1],
                              prev_clip[:, 3]], dim=-1)
-    attrs = [world_nrm, prev_cxyw]
+    attrs = ([world_pos] if include_pos else []) + [world_nrm, prev_cxyw]
     if use_textures:
         # tangents transform like normals (rigid / uniform scale), by the
         # node matrices alone as in the JAX package
@@ -125,16 +134,20 @@ def fused_raster_inputs(scene: ScenePrimitives, info: RenderInfo, *,
     node id; the material table rides transposed; textured scenes add the
     UV derivative channels)."""
     clip, winv, packed, n_ch = _vertex_inputs(scene, info, use_textures)
-    tri_node = scene.vertex_node[scene.indices[:, 0].long()]
-    consts = torch.stack([scene.tri_material.to(torch.float32),
+    # the opaque prefix: a mask tail, forced through the fused path, is
+    # dropped as in the JAX package
+    n_op = scene.num_opaque
+    indices = scene.indices[:n_op]
+    tri_node = scene.vertex_node[indices[:, 0].long()]
+    consts = torch.stack([scene.tri_material[:n_op].to(torch.float32),
                           tri_node.to(torch.float32)], dim=-1)
     mat_table_t = _material_table(scene.materials).t().contiguous()
-    return rz.prepare_fused(clip, scene.indices, packed, winv, consts,
+    return rz.prepare_fused(clip, indices, packed, winv, consts,
                             mat_table_t, width=pad_w, height=pad_h, cfg=cfg,
                             n_ch=n_ch,
                             deriv_channels=((UV0, UV0 + 1) if use_textures
                                             else ()),
-                            double_sided=scene.tri_double_sided)
+                            double_sided=scene.tri_double_sided[:n_op])
 
 
 def _fused_raster(scene: ScenePrimitives, info: RenderInfo, *, pad_w: int,
@@ -150,15 +163,51 @@ def _fused_raster(scene: ScenePrimitives, info: RenderInfo, *, pad_w: int,
     return rz.VisibilityBuffer(depth=z, tri_id=tid), out, k.stats
 
 
+def _two_pass_raster(scene: ScenePrimitives, info: RenderInfo, *,
+                     pad_w: int, pad_h: int, cfg: RasterizerConfig,
+                     atlas, use_textures: bool):
+    """The two-pass visibility (JAX deferred.py:133-142): K4 over the
+    opaque prefix of the index buffer, then the alpha-mask resolve of the
+    tail.  Returns (vb with barycentrics, clip, winv, packed attrs with
+    world position)."""
+    clip, winv, packed, _ = _vertex_inputs(scene, info, use_textures,
+                                           include_pos=True)
+    n_op = scene.num_opaque
+    vb, _stats = rz.rasterize(clip, scene.indices[:n_op], width=pad_w,
+                              height=pad_h, cfg=cfg,
+                              double_sided=scene.tri_double_sided[:n_op])
+    if scene.mask_indices is not None:
+        from diligentfx_tpu_torch.pbr.oit import resolve_alpha_mask
+        with torch.profiler.record_function("dfx.alpha_mask"):
+            vb = resolve_alpha_mask(vb, clip, scene, winv, width=pad_w,
+                                    height=pad_h, cfg=cfg, atlas=atlas,
+                                    use_textures=use_textures)
+    return vb, clip, winv, packed
+
+
+def _fuse_ok(scene: ScenePrimitives, fuse: str) -> bool:
+    """Whether the fused raster K1 serves this scene (JAX deferred.py:172):
+    "on" and "off" force it (the port's stand-in for DFX_FUSE); "auto"
+    fuses unless the scene has an alpha-mask tail, whose resolve rewrites
+    the raster's winners.  The JAX package fuses only on its accelerator;
+    K1 has a plain version wherever the port runs, and the port has taken
+    the fused path on every device since it began, so "auto" keeps that
+    choice for scenes without a mask tail."""
+    if fuse not in ("auto", "on", "off"):
+        raise ValueError(f"fuse must be auto, on or off, got {fuse!r}")
+    if fuse != "auto":
+        return fuse == "on"
+    return scene.mask_indices is None
+
+
 def _check_supported(scene: ScenePrimitives):
-    for name in ("mask_indices", "blend_indices", "joints",
-                 "materials_sheen", "materials_anisotropy",
+    for name in ("joints", "materials_sheen", "materials_anisotropy",
                  "materials_iridescence", "materials_transmission",
                  "materials_volume"):
         if getattr(scene, name) is not None:
             raise NotImplementedError(
-                f"scene.{name} is not ported yet (later slices: material "
-                "extensions, OIT / alpha mask, skinning)")
+                f"scene.{name} is not ported yet: skinning, animation and "
+                "the material extensions, ROADMAP.md §1 item 5")
 
 
 def _slot_sample(scene: ScenePrimitives, info: RenderInfo, atlas,
@@ -188,43 +237,76 @@ def _slot_sample(scene: ScenePrimitives, info: RenderInfo, atlas,
 
 
 def _shade_band(scene: ScenePrimitives, info: RenderInfo, ibl_maps, env_oct,
-                vb, fused_px: Tensor, *, pad_w: int, pad_h: int,
+                vb, fused_px: Optional[Tensor], *, pad_w: int, pad_h: int,
                 use_ibl: bool, use_lights: bool, fast_env: bool,
                 atlas=None, use_textures: bool = False, shadow_mode=None,
-                pcf_kernel_size: int = 3) -> GBufferData:
-    """Deferred shading of the whole padded frame from the fused kernel's
-    channel-first output (the fused_px branch of JAX deferred.py:224).
-    Returns the PADDED G-buffer."""
+                pcf_kernel_size: int = 3, two_pass=None) -> GBufferData:
+    """Deferred shading of the whole padded frame (JAX deferred.py:224),
+    from the fused kernel's channel-first output `fused_px`, or, when it
+    is None, from the two-pass visibility `vb` (with barycentrics) and
+    `two_pass` = (clip, winv, packed attrs with world position).  Returns
+    the PADDED G-buffer."""
     dev = vb.depth.device
     hit = vb.tri_id >= 0
     hit_m = hit[..., None]
     zero = torch.zeros((), dtype=torch.float32, device=dev)
-
-    def grp(a, b):
-        return torch.where(hit_m, torch.stack([fused_px[c] for c in
-                                               range(a, b)], dim=-1), zero)
-
-    # channels: normal (3) + previous clip (3) [+ uv (2), tangent (3), sign]
-    n_ch = UV0 + 6 if use_textures else UV0
-    o = n_ch
-    if use_textures:
-        duv_dx = grp(o, o + 2)              # the kernel's derivative pairs,
-        duv_dy = grp(o + 2, o + 4)          # grouped as the JAX package does
-        o += 4
     izero = torch.zeros((), dtype=torch.int32, device=dev)
-    mat_id = torch.where(hit, fused_px[o].to(torch.int32), izero)
-    node_id = torch.where(hit, fused_px[o + 1].to(torch.int32), izero)
-    m0 = o + 2                              # material-table row channels
 
-    def mgrp(a, b):
-        return grp(m0 + a, m0 + b)
+    if fused_px is not None:
+        def grp(a, b):
+            return torch.where(hit_m, torch.stack([fused_px[c] for c in
+                                                   range(a, b)], dim=-1),
+                               zero)
 
-    pos_px = reconstruct_world_pos(vb.depth, info.camera, full_h=pad_h)
-    pos_px = torch.where(hit_m, pos_px, zero)
-    nrm_px = m3.normalize(grp(0, 3))
-    pw = grp(5, 6)
+        # channels: normal (3) + previous clip (3) [+ uv (2), tangent (3),
+        # sign]
+        n_ch = UV0 + 6 if use_textures else UV0
+        o = n_ch
+        if use_textures:
+            duv_dx = grp(o, o + 2)          # the kernel's derivative pairs,
+            duv_dy = grp(o + 2, o + 4)      # grouped as the JAX package does
+            o += 4
+        mat_id = torch.where(hit, fused_px[o].to(torch.int32), izero)
+        node_id = torch.where(hit, fused_px[o + 1].to(torch.int32), izero)
+        m0 = o + 2                          # material-table row channels
+
+        def mgrp(a, b):
+            return grp(m0 + a, m0 + b)
+
+        pos_px = reconstruct_world_pos(vb.depth, info.camera, full_h=pad_h)
+        pos_px = torch.where(hit_m, pos_px, zero)
+        ao = 0                              # channel of the normal
+    else:
+        clip, winv, packed = two_pass
+        interp = rz.interpolate_all(vb, scene.indices, packed, winv)
+        tid = torch.clamp(vb.tri_id, min=0).long()
+        # node << 16 | material: both ride one per-pixel gather; the mesh-id
+        # AOV is the node id, not the material slot
+        tri_node = scene.vertex_node[scene.indices[:, 0].long()]
+        tri_packed = (tri_node << 16) | scene.tri_material
+        packed_px = tri_packed[tid]
+        mat_id = packed_px & 0xFFFF
+        node_id = packed_px >> 16
+        mrow = _material_table(scene.materials)[mat_id.long()]
+
+        def grp(a, b):
+            return interp[..., a:b]
+
+        def mgrp(a, b):
+            return mrow[..., a:b]
+
+        pos_px = grp(0, 3)
+        ao = 3
+        if use_textures and atlas is not None:
+            # analytic UV derivatives, (du, dv) by x and by y
+            setup_b = rz.bary_setup_from_clip(clip, scene.indices, pad_w,
+                                              pad_h)
+            _, duv_dx, duv_dy = rz.interpolate_with_derivs(
+                vb, scene.indices, scene.uvs, setup_b, winv)
+    nrm_px = m3.normalize(grp(ao, ao + 3))
+    pw = grp(ao + 5, ao + 6)
     pw = torch.where(torch.abs(pw) > 1e-9, pw, torch.full_like(pw, 1e-9))
-    prev_ndc = grp(3, 5) / pw
+    prev_ndc = grp(ao + 3, ao + 5) / pw
     prev_uv = torch.stack([prev_ndc[..., 0] * 0.5 + 0.5,
                            0.5 - prev_ndc[..., 1] * 0.5], dim=-1)
     xg = (torch.arange(pad_w, dtype=torch.float32, device=dev) + 0.5) / pad_w
@@ -240,9 +322,9 @@ def _shade_band(scene: ScenePrimitives, info: RenderInfo, ibl_maps, env_oct,
     occlusion = torch.ones_like(metallic)
 
     if use_textures and atlas is not None:
-        uv_px = grp(UV0, UV0 + 2)
-        tan_px = grp(UV0 + 2, UV0 + 5)
-        tan_sign = grp(UV0 + 5, UV0 + 6)
+        uv_px = grp(ao + 6, ao + 8)
+        tan_px = grp(ao + 8, ao + 11)
+        tan_sign = grp(ao + 11, ao + 12)
         slot_sample = functools.partial(_slot_sample, scene, info, atlas,
                                         mat_id.long(), uv_px, duv_dx, duv_dy)
         bc_t, bc_on = slot_sample(0)
@@ -361,29 +443,39 @@ def render_gbuffer(scene: ScenePrimitives, info: RenderInfo, ibl_maps,
                    use_ibl: bool = True, use_lights: bool = True,
                    shadow_mode=None, pcf_kernel_size: int = 3, atlas=None,
                    use_textures: bool = False, enable_clearcoat: bool = False,
-                   fast_env: bool = False, emit_debug: bool = False
-                   ) -> GBufferData:
-    """The G-buffer main pass (JAX deferred.py:111), fused path: the K1
-    raster with UV derivatives when textured, material textures from a
-    TextureAtlas, and the cascaded shadow factor when `shadow_mode` is set
-    (info carries the shadow attribs, maps and moments)."""
+                   fast_env: bool = False, emit_debug: bool = False,
+                   fuse: str = "auto") -> GBufferData:
+    """The G-buffer main pass (JAX deferred.py:111): the fused K1 raster
+    with UV derivatives when textured, or the two-pass K4 raster with the
+    alpha-mask resolve (`_fuse_ok` chooses; "auto" takes the two-pass path
+    for a scene with a mask tail), material textures from a TextureAtlas,
+    and the cascaded shadow factor when `shadow_mode` is set (info carries
+    the shadow attribs, maps and moments)."""
     if isinstance(atlas, TextureHeap):
         raise NotImplementedError("the texture heap is not ported yet: a "
-                                  "later slice")
+                                  "later slice (slice 9)")
     if enable_clearcoat or emit_debug:
         raise NotImplementedError("clear coat and debug AOVs are not ported "
-                                  "yet (later slice)")
+                                  "yet (later slices: ROADMAP.md §1 items 5 "
+                                  "and 6)")
     if shadow_mode is not None and info.shadow_attribs is None:
         raise ValueError("shadow_mode needs info.shadow_attribs and maps")
     _check_supported(scene)
     pad_w, pad_h = rz.pad_viewport(width, height, cfg)
-    vb, fused_px, _stats = _fused_raster(
-        scene, info, pad_w=pad_w, pad_h=pad_h, cfg=cfg,
-        use_textures=use_textures)
+    two_pass = None
+    if _fuse_ok(scene, fuse):
+        vb, fused_px, _stats = _fused_raster(
+            scene, info, pad_w=pad_w, pad_h=pad_h, cfg=cfg,
+            use_textures=use_textures)
+    else:
+        vb, *two_pass = _two_pass_raster(scene, info, pad_w=pad_w,
+                                         pad_h=pad_h, cfg=cfg, atlas=atlas,
+                                         use_textures=use_textures)
+        fused_px = None
     gb = _shade_band(scene, info, ibl_maps, env_oct, vb, fused_px,
                      pad_w=pad_w, pad_h=pad_h, use_ibl=use_ibl,
                      use_lights=use_lights, fast_env=fast_env, atlas=atlas,
                      use_textures=use_textures, shadow_mode=shadow_mode,
-                     pcf_kernel_size=pcf_kernel_size)
+                     pcf_kernel_size=pcf_kernel_size, two_pass=two_pass)
     return GBufferData(*(x[:height, :width] if isinstance(x, torch.Tensor)
                          else x for x in gb))

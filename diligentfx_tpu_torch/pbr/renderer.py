@@ -38,8 +38,14 @@ Tensor = torch.Tensor
 
 class ScenePrimitives(NamedTuple):
     """Packed scene (JAX renderer.py:47).  The optional fields the port does
-    not render yet (textures, material extensions, blend / mask geometry,
-    skinning) must stay None; render_gbuffer raises otherwise."""
+    not render yet (material extensions, skinning) must stay None;
+    render_gbuffer raises otherwise.
+
+    mask_indices: the ALPHA_MODE_MASK triangles, which are the TAIL of
+    `indices` (the opaque raster takes indices[:T - Tm]; the tail goes
+    through the K-layer alpha test, pbr/oit.py resolve_alpha_mask).
+    blend_indices / blend_tri_material: the ALPHA_MODE_BLEND geometry,
+    rendered through K-layer OIT by the task manager."""
     positions: Tensor       # (V, 3) object space
     normals: Tensor         # (V, 3)
     uvs: Tensor             # (V, 2)
@@ -75,6 +81,13 @@ class ScenePrimitives(NamedTuple):
     def num_triangles(self) -> int:
         return self.indices.shape[0]
 
+    @property
+    def num_opaque(self) -> int:
+        """The opaque prefix of `indices`: all but the mask tail."""
+        return self.indices.shape[0] - (self.mask_indices.shape[0]
+                                        if self.mask_indices is not None
+                                        else 0)
+
 
 def build_scene(meshes: Sequence[Tuple[MeshData, np.ndarray,
                                        PBRMaterialBasicAttribs]],
@@ -100,24 +113,32 @@ def build_scene(meshes: Sequence[Tuple[MeshData, np.ndarray,
         nodes.append(np.asarray(node, np.float32))
         mats.append(mat)
         v_off += nv
-    if any(int(m.alpha_mode) == 1 for m in mats):
-        raise NotImplementedError(
-            "ALPHA_MODE_MASK materials (the alpha-tested tail) are not ported "
-            "yet (later slice: OIT / alpha-mask resolve)")
 
     def t(a, dtype=None):
         return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype).to(dev)
 
     node_m = t(np.stack(nodes))
+    idx_np = np.concatenate(idx)
+    tmat_np = np.concatenate(tmat)
+    tds_np = np.concatenate(tds)
+    # ALPHA_MODE_MASK triangles move to the tail so the opaque raster can
+    # exclude them with a slice (see ScenePrimitives.mask_indices)
+    is_mask = np.array([int(m.alpha_mode) == 1 for m in mats])[tmat_np]
+    mask_idx = None
+    if is_mask.any():
+        order = np.argsort(is_mask, kind="stable")
+        idx_np, tmat_np, tds_np = idx_np[order], tmat_np[order], tds_np[order]
+        mask_idx = t(idx_np[-int(is_mask.sum()):], torch.int32)
     return ScenePrimitives(
         positions=t(np.concatenate(pos), torch.float32),
         normals=t(np.concatenate(nrm), torch.float32),
         uvs=t(np.concatenate(uv), torch.float32),
         tangents=t(np.concatenate(tan), torch.float32),
-        indices=t(np.concatenate(idx), torch.int32),
+        indices=t(idx_np, torch.int32),
         vertex_node=t(np.concatenate(vnode), torch.int32),
-        tri_material=t(np.concatenate(tmat), torch.int32),
-        tri_double_sided=t(np.concatenate(tds), torch.bool),
+        tri_material=t(tmat_np, torch.int32),
+        tri_double_sided=t(tds_np, torch.bool),
+        mask_indices=mask_idx,
         node_matrices=node_m,
         prev_node_matrices=node_m,
         materials=stack_materials(mats, dev),
@@ -146,7 +167,8 @@ def transform_vertices(scene: ScenePrimitives, model: Optional[Tensor] = None,
     """Vertex stage: node matrix per vertex + batched exact-fp32 transform.
     Returns (world_pos (V,3), world_normal (V,3), world_tangent (V,3))."""
     if scene.joints is not None:
-        raise NotImplementedError("skinning is not ported yet (later slice)")
+        raise NotImplementedError("skinning is not ported yet (later slice: "
+                                  "ROADMAP.md §1 item 5)")
     mats = scene.prev_node_matrices if previous else scene.node_matrices
     if model is not None:
         mats = torch.stack([m3.mul44(m, model) for m in mats])
@@ -224,8 +246,10 @@ class PBRRenderer:
         """Render one forward frame -> (height, width, 3) (JAX
         renderer.py:257).  fuse="auto" takes the fused raster K1 on CUDA and
         the two-pass path on the CPU, as the JAX package takes the fused
-        kernel on its accelerator only; "on" and "off" force a branch
-        ("off" runs K4 on the card)."""
+        kernel on its accelerator only, and the two-pass path wherever the
+        scene has an alpha-mask tail (its resolve rewrites the raster's
+        winners); "on" and "off" force a branch ("off" runs K4 on the
+        card; "on" rasterizes the opaque prefix alone)."""
         if flags is None:
             flags = PSOFlags.DEFAULT()
         use_shadows = bool(self.ci.enable_shadows
@@ -254,10 +278,8 @@ def _render_frame(scene: ScenePrimitives, info: RenderInfo, ibl_maps, env_oct,
     """The forward frame (JAX renderer.py:296)."""
     if debug_view != DebugViewType.NONE:
         raise NotImplementedError("debug views are not ported yet: a later "
-                                  "slice (debug AOVs)")
-    if scene.mask_indices is not None:
-        raise NotImplementedError("the alpha-mask tail is not ported yet: a "
-                                  "later slice (OIT / alpha-mask resolve)")
+                                  "slice (debug AOVs, ROADMAP.md §1 item "
+                                  "6)")
     if fuse not in ("auto", "on", "off"):
         raise ValueError(f"fuse must be auto, on or off, got {fuse!r}")
     pad_w, pad_h = rz.pad_viewport(width, height, cfg)
@@ -269,17 +291,22 @@ def _render_frame(scene: ScenePrimitives, info: RenderInfo, ibl_maps, env_oct,
     w = clip[:, 3]
     winv = torch.where(torch.abs(w) > 1e-12, 1.0 / w, torch.zeros_like(w))
     packed_attrs = torch.cat([world_pos, world_nrm], dim=-1)
-    fused = fuse == "on" or (fuse == "auto" and dev.type == "cuda")
+    # the opaque prefix of the index buffer; the ALPHA_MODE_MASK tail
+    # resolves after the raster (the fused branch, forced on, drops it as
+    # the JAX package's does)
+    n_op = scene.num_opaque
+    fused = fuse == "on" or (fuse == "auto" and dev.type == "cuda"
+                             and scene.mask_indices is None)
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     if fused:
         # fused raster + interpolation + material fetch (K1)
         from diligentfx_tpu_torch.pbr.deferred import _material_table
-        consts = scene.tri_material.to(torch.float32)[:, None]
+        consts = scene.tri_material[:n_op].to(torch.float32)[:, None]
         vb, fused_cx, _stats = rz.rasterize_fused(
-            clip, scene.indices, packed_attrs, winv, consts,
+            clip, scene.indices[:n_op], packed_attrs, winv, consts,
             _material_table(scene.materials).t().contiguous(),
             width=pad_w, height=pad_h, cfg=cfg, n_ch=6,
-            double_sided=scene.tri_double_sided)
+            double_sided=scene.tri_double_sided[:n_op])
         hit = vb.tri_id >= 0
         hm = hit[..., None]
 
@@ -294,10 +321,15 @@ def _render_frame(scene: ScenePrimitives, info: RenderInfo, ibl_maps, env_oct,
         metallic = grp(7, 8, m0)
         roughness = grp(8, 9, m0)
     else:
-        # two-pass: the K4 raster, then one interpolation gather
-        vb, _stats = rz.rasterize(clip, scene.indices, width=pad_w,
+        # two-pass: the K4 raster [+ the alpha-mask resolve of the tail],
+        # then one interpolation gather
+        vb, _stats = rz.rasterize(clip, scene.indices[:n_op], width=pad_w,
                                   height=pad_h, cfg=cfg,
-                                  double_sided=scene.tri_double_sided)
+                                  double_sided=scene.tri_double_sided[:n_op])
+        if scene.mask_indices is not None:
+            from diligentfx_tpu_torch.pbr.oit import resolve_alpha_mask
+            vb = resolve_alpha_mask(vb, clip, scene, winv, width=pad_w,
+                                    height=pad_h, cfg=cfg)
         interp = rz.interpolate_all(vb, scene.indices, packed_attrs, winv)
         hit = vb.tri_id >= 0
         mat_id = scene.tri_material[torch.clamp(vb.tri_id, min=0).long()]
