@@ -4,9 +4,11 @@ GPU: builds the port's CUDA kernels, holds each against its plain PyTorch
 version on the card, renders the 1080p bench frame with the full bench.py
 feature set (G-buffer -> half-resolution GTAO SSAO -> divisor-2 SSR ->
 composite -> TAA -> bloom -> tone map), the textured --csm frame, the
-full-chain frame (DoF, epipolar light scattering, auto exposure) and the
+full-chain frame (DoF, epipolar light scattering, auto exposure), the
 mask / blend frame of a glTF file it writes (alpha-masked screens, glass
-panes through K-layer OIT), and checks them.
+panes through K-layer OIT) and the light / heap frame of another (spot,
+point and sun shadows through the shadow atlas, textures at their native
+sizes in the texture heap), and checks them.
 
 Phases (any failure exits non-zero; no phase is skipped):
   1. build csrc/*.cu with nvcc (one process per source, all at once);
@@ -92,7 +94,31 @@ Phases (any failure exits non-zero; no phase is skipped):
      dfx.alpha_mask ranges);
  17. two 256x128 mask / blend frames of the atrium with 4 columns (two-pass
      K4 G-buffer + OIT) and two without the screens (blend only: fused K1
-     + OIT) on the GPU against the port's CPU path.
+     + OIT) on the GPU against the port's CPU path;
+ 18. K4 at the per-light inputs of the light / heap frame (phase 19's
+     scene): every shadow-atlas slice's raster statistics (no bin, big or
+     near-clip overflow), then K4 vs raster_tiles_plain bit for bit at the
+     spot's slice, the point light's cube face with the most candidates
+     and the sun's slice, timed and counted as in phase 15;
+ 19. the light / heap frame: a .glb written at run time (phase 16's
+     atrium with a back wall, material textures at their native sizes: a
+     2048^2 floor, a 1000 x 600 wall, a 512^2 normal map on the columns,
+     the 256^2 lattice; a spot lamp and a point light as
+     KHR_lights_punctual nodes, the sun added), build_render_scene in
+     "array" mode (the texture heap) -> HnTaskManager; per frame the
+     shadow pass (ShadowAtlasManager: build_view_projs, render with K4 on
+     8 slices of 1024^2, packed_for_lights) and execute with
+     light_shadow_kinds at 1920x1080, the bench effects and K = 4 OIT
+     layers; one warm-up frame (each light's shadows cast, the floor's
+     lone texels exact through sample_heap at lod 0 where the atlas loses
+     them, mask fragments kept and cut out, OIT overflow, every raster's
+     overflow counts), then --frames timed frames with the counts zeroed
+     just before and read just after (K4 9, K2 20, K3 1, K1 0 a frame), 3
+     profiled frames (the dfx.light_shadows, dfx.gbuffer, dfx.alpha_mask
+     and dfx.oit ranges) and the dfx.gbuffer device time of one frame of
+     the scene built in atlas mode;
+ 20. two 256x128 light / heap frames of the atrium with 4 columns and
+     256^2 slices on the GPU against the port's CPU path.
 
 Prints the median frame times, one JSON line with each kernel's launches,
 times and bound, the card's name and power limit, and last
@@ -104,12 +130,13 @@ Usage: python3 chip_smoke.py [--frames N] [--out-png PATH] [--profile PATH]
        python3 chip_smoke.py --only csm [--profile PATH] [--root DIR]
        python3 chip_smoke.py --only march_gtao [--root DIR]
        python3 chip_smoke.py --only oit [--profile PATH] [--root DIR]
+       python3 chip_smoke.py --only lights [--profile PATH] [--root DIR]
 (the second runs phases 1, 3 and 13 alone, K6 on random taps; the third
 phases 1, 2, 8 without the csm frame, and 11 without the full-chain frame;
 the fourth phases 1 and 9; the fifth phase 1, one bench frame for its
-G-buffer, and phases 5 and 6; the sixth phases 1, 15 and 16; each on the
-port of the checkout DIR: run it in two checkouts in turn, A B B A, to
-compare them in one call)
+G-buffer, and phases 5 and 6; the sixth phases 1, 15 and 16; the seventh
+phases 1, 18 and 19; each on the port of the checkout DIR: run it in two
+checkouts in turn, A B B A, to compare them in one call)
 """
 import argparse
 import json
@@ -754,22 +781,23 @@ def warp_launch_shapes(fn):
 
 
 def timed_frames(tm, scene, frame_info, frames, expected, label,
-                 warp_launches, warmup_wrap=None):
+                 warp_launches, warmup_wrap=None, execute_kw=None):
     """One warm-up frame of tm.execute on frame_info() (called once a
     frame), which must launch K2 at the shapes of `warp_launches`
     (WARP_SHAPES name -> launches), then `frames` timed frames (host clock
     ending in a synchronise, CUDA events beside it), with the launch counts
     zeroed just before and read just after and held to `expected` a frame.
     `warmup_wrap(fn)`, when given, wraps the warm-up frame's call (to
-    observe it).  Returns (last output, state, host ms list, device ms
-    list, launches)."""
+    observe it); `execute_kw` are more keywords of execute.  Returns (last
+    output, state, host ms list, device ms list, launches)."""
     import torch
     settings = bench_settings()
     state = tm.initial_state(W, H)
+    execute_kw = execute_kw or {}
 
     def warmup():
         return tm.execute(scene, frame_info(), state, width=W, height=H,
-                          settings=settings)
+                          settings=settings, **execute_kw)
     out, shapes = warp_launch_shapes(warmup_wrap(warmup) if warmup_wrap
                                      else warmup)
     want = sorted(((h, w, c), halo) for name, n in warp_launches.items()
@@ -791,7 +819,7 @@ def timed_frames(tm, scene, frame_info, frames, expected, label,
         t0 = time.perf_counter()
         ev0.record()
         out = tm.execute(scene, frame_info(), state, width=W, height=H,
-                         settings=settings)
+                         settings=settings, **execute_kw)
         state = out.state
         ev1.record()
         torch.cuda.synchronize()
@@ -1191,7 +1219,8 @@ def phase_gtao(gb, info, frame_state):
 # ties their device time to no op, so it is in no dfx.* range's device time
 PORT_KERNELS = ("raster_fused_kernel", "warp_tap_", "march_kernel",
                 "raster_tiles_kernel", "gtao_kernel", "warp_multi_kernel")
-STAGES = ("dfx.shadows", "dfx.gbuffer", "dfx.raster_inputs",
+STAGES = ("dfx.shadows", "dfx.light_shadows", "dfx.gbuffer",
+          "dfx.raster_inputs",
           "dfx.alpha_mask", "dfx.context_composite", "dfx.ssao", "dfx.ssr",
           "dfx.oit", "dfx.light_scattering", "dfx.exposure",
           "dfx.taa_bloom_tonemap", "dfx.dof")
@@ -1230,31 +1259,34 @@ def phase_raster_inputs_host(scene, info, cfg, frames):
 
 
 def phase_profile(tm, scene, frame_info, frames, path, label,
-                  ranges=("dfx.shadows",)):
+                  ranges=("dfx.shadows",), execute_kw=None):
     """Where a frame's time goes: torch.profiler over `frames` frames of
-    HnTaskManager.execute on frame_info() (the csm frame's shadow pass
-    included): device time of each stage (the dfx.* ranges; dfx.raster_inputs
-    and dfx.alpha_mask lie inside dfx.gbuffer, dfx.ssao, dfx.ssr, dfx.oit,
-    dfx.light_scattering and dfx.exposure inside dfx.context_composite,
-    dfx.dof inside dfx.taa_bloom_tonemap, dfx.shadows before them all) and
+    HnTaskManager.execute on frame_info() (the csm and light / heap frames'
+    shadow passes included): device time of each stage (the dfx.* ranges;
+    dfx.raster_inputs and dfx.alpha_mask lie inside dfx.gbuffer, dfx.ssao,
+    dfx.ssr, dfx.oit, dfx.light_scattering and dfx.exposure inside
+    dfx.context_composite, dfx.dof inside dfx.taa_bloom_tonemap,
+    dfx.shadows and dfx.light_shadows before them all) and
     of each kernel, and the device's idle share; for the stages of `ranges`
     that ran, their kernels and host ops (range_breakdown).  A stage's
     device time leaves out the port's own kernels (PORT_KERNELS), printed
-    on a line of their own.  Writes the profiler's table to `path` (none
-    when empty); returns the stages' and ranges' numbers."""
+    on a line of their own.  `execute_kw` are more keywords of execute.
+    Writes the profiler's table to `path` (none when empty); returns the
+    stages' and ranges' numbers."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     settings = bench_settings()
+    execute_kw = execute_kw or {}
     state = tm.execute(scene, frame_info(), tm.initial_state(W, H), width=W,
-                       height=H, settings=settings).state
+                       height=H, settings=settings, **execute_kw).state
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(frames):
             state = tm.execute(scene, frame_info(), state, width=W, height=H,
-                               settings=settings).state
+                               settings=settings, **execute_kw).state
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     per_frame = wall_ms / frames
@@ -2066,12 +2098,17 @@ def lattice_texture(size=256, holes=8):
     return img
 
 
-def write_glb(path, items, texture=None):
+REPEAT, MIRROR = 10497, 33648      # glTF sampler wrap modes
+
+
+def write_glb(path, items, textures=(), lights=()):
     """A binary glTF of `items` ((MeshData, row-vector node matrix,
     material dict) each: one mesh, one node with its matrix; meshes that
-    are the same object share their accessors) and the base-colour
-    `texture` (uint8 RGBA, embedded as a PNG, image 0).  The port's
-    write_png encodes the image."""
+    are the same object share their accessors), `textures` ((uint8 RGBA
+    image, (wrapS, wrapT)) each: image, sampler and texture i, the image
+    embedded as a PNG) and `lights` ((KHR_lights_punctual light dict,
+    row-vector node matrix) each, on a node of its own after the meshes').
+    The port's write_png encodes the images."""
     import struct
     import tempfile
     from diligentfx_tpu_torch.utils.image import write_png
@@ -2092,6 +2129,10 @@ def write_glb(path, items, texture=None):
                           "type": atype})
         return len(accessors) - 1
 
+    def matrix(m):
+        # glTF's column-major matrix is the row-vector matrix read row-major
+        return [float(v) for v in np.asarray(m, np.float32).ravel()]
+
     shared = {}
     for mesh, node, mat in items:
         if id(mesh) not in shared:
@@ -2111,21 +2152,30 @@ def write_glb(path, items, texture=None):
         materials.append(mat)
         meshes.append({"primitives": [{"attributes": acc, "indices": ind,
                                        "material": len(materials) - 1}]})
-        # glTF's column-major matrix is the row-vector matrix read row-major
-        nodes.append({"mesh": len(meshes) - 1, "matrix": [
-            float(v) for v in np.asarray(node, np.float32).ravel()]})
+        nodes.append({"mesh": len(meshes) - 1, "matrix": matrix(node)})
+    for i, (_, node) in enumerate(lights):
+        nodes.append({"matrix": matrix(node), "extensions": {
+            "KHR_lights_punctual": {"light": i}}})
     doc = {"asset": {"version": "2.0"}, "scene": 0,
            "scenes": [{"nodes": list(range(len(nodes)))}], "nodes": nodes,
            "meshes": meshes, "materials": materials}
-    if texture is not None:
+    if lights:
+        doc["extensions"] = {"KHR_lights_punctual": {
+            "lights": [light for light, _ in lights]}}
+    if textures:
+        images = []
         with tempfile.TemporaryDirectory() as tmp:
-            png = os.path.join(tmp, "lattice.png")
-            write_png(png, texture)
-            with open(png, "rb") as f:
-                data = f.read()
-        doc["images"] = [{"bufferView": view(data), "mimeType": "image/png"}]
-        doc["samplers"] = [{"wrapS": 10497, "wrapT": 10497}]
-        doc["textures"] = [{"source": 0, "sampler": 0}]
+            for i, (img, _) in enumerate(textures):
+                png = os.path.join(tmp, f"texture{i}.png")
+                write_png(png, img)
+                with open(png, "rb") as f:
+                    images.append({"bufferView": view(f.read()),
+                                   "mimeType": "image/png"})
+        doc["images"] = images
+        doc["samplers"] = [{"wrapS": ws, "wrapT": wt}
+                           for _, (ws, wt) in textures]
+        doc["textures"] = [{"source": i, "sampler": i}
+                           for i in range(len(textures))]
     doc.update(accessors=accessors, bufferViews=views,
                buffers=[{"byteLength": len(blob)}])
     js = json.dumps(doc).encode()
@@ -2146,18 +2196,21 @@ def _gltf_material(m):
         "roughnessFactor": float(m.roughness_factor)}}
 
 
-def oit_atrium_glb(path, n_columns=12, screens=True):
-    """The mask / blend atrium as a .glb at `path`: the full-chain atrium's
-    entries (opaque), one double-sided lattice screen (MASK, cutoff 0.5,
-    the lattice texture's alpha 0 or 1) beside each column (1.6 x 2.4 m in
-    8 x 12 cells), and six double-sided glass panes (BLEND, base-colour
-    alpha 0.3-0.5, each tinted differently; 3 x 2 m in 12 x 8 cells) 0.25 m
-    apart between the camera and the front columns, so that the pixels
-    behind all six see more fragments than the four layers.  Cells of
-    0.2 m and 0.25 m keep every triangle under 16 of the 32 x 128 tiles at
-    1080p."""
-    items = [(mesh, node, _gltf_material(mat))
-             for mesh, node, mat in full_chain_entries(n_columns)]
+def atrium_items(n_columns=12, screens=True, opaque_material=None):
+    """The mask / blend atrium's items for write_glb: the full-chain
+    atrium's entries (opaque; `opaque_material(i, mat)` gives entry i's
+    glTF material, default _gltf_material), one double-sided lattice
+    screen (MASK, cutoff 0.5, texture 0's alpha 0 or 1) beside each column
+    (1.6 x 2.4 m in 8 x 12 cells), and six double-sided glass panes
+    (BLEND, base-colour alpha 0.3-0.5, each tinted differently; 3 x 2 m in
+    12 x 8 cells) 0.25 m apart between the camera and the front columns,
+    so that the pixels behind all six see more fragments than the four
+    layers.  Cells of 0.2 m and 0.25 m keep every triangle under 16 of the
+    32 x 128 tiles at 1080p."""
+    items = [(mesh, node, opaque_material(i, mat) if opaque_material
+              else _gltf_material(mat))
+             for i, (mesh, node, mat) in enumerate(
+                 full_chain_entries(n_columns))]
     if screens:
         screen = grid_mesh(8, 12, 1.6, 2.4)
         lattice = {"alphaMode": "MASK", "alphaCutoff": 0.5,
@@ -2180,7 +2233,15 @@ def oit_atrium_glb(path, n_columns=12, screens=True):
             "pbrMetallicRoughness": {
                 "baseColorFactor": list(tint) + [0.3 + 0.04 * i],
                 "metallicFactor": 0.0, "roughnessFactor": 0.1}}))
-    return write_glb(path, items, lattice_texture() if screens else None)
+    return items
+
+
+def oit_atrium_glb(path, n_columns=12, screens=True):
+    """The mask / blend atrium (atrium_items) as a .glb at `path`, the
+    lattice texture its texture 0."""
+    return write_glb(path, atrium_items(n_columns, screens),
+                     [(lattice_texture(), (REPEAT, REPEAT))] if screens
+                     else ())
 
 
 def oit_render_scene(device, n_columns=12, screens=True):
@@ -2235,31 +2296,26 @@ def oit_gbuffer_raster_inputs(rs, cfg):
     return setup, cand, counts, rects, kw, stats
 
 
-def phase_gbuffer_k4(rs, cfg):
-    """K4 vs raster_tiles_plain at the mask / blend frame's G-buffer inputs
-    (standard depth, the glTF materials' double-sided flags), bit for bit
-    (z, id, b0, b1); timed by CUDA events and device time, with its
-    candidate-pixel tests and bound counted as phase 8 counts them."""
+def k4_against_plain(args, kw, label):
+    """K4 vs raster_tiles_plain on one input set `args` = (setup,
+    candidates, counts, rects), bit for bit (z, id, b0, b1); timed by CUDA
+    events and device time, with its candidate-pixel tests and bound
+    counted as phase 8 counts them.  Returns its numbers."""
     import torch
     from diligentfx_tpu_torch.ops.raster_tiles import (raster_tiles,
                                                        raster_tiles_plain)
-    setup, cand, counts, rects, kw, stats = oit_gbuffer_raster_inputs(rs,
-                                                                      cfg)
-    print(f"mask/blend G-buffer raster inputs: {stats}", flush=True)
-    check(stats["bin_overflow"] == 0 and stats["big_overflow"] == 0,
-          f"the G-buffer raster overflows: {stats}")
-    args = (setup, cand, counts, rects)
+    setup, cand, counts, rects = args
     a = raster_tiles(*args, **kw)
     torch.cuda.synchronize()
     b = raster_tiles_plain(*args, **kw)
     names = ("z", "id", "b0", "b1")
     diff = {n: int((x != y).sum()) for n, x, y in zip(names, a, b)}
     hit = b[1] >= 0
-    print(f"raster_tiles at the G-buffer inputs vs plain: values differing "
+    print(f"raster_tiles {label} vs plain: values differing "
           f"{diff}, covered {float(hit.float().mean()):.4f}", flush=True)
     check(all(v == 0 for v in diff.values()),
-          f"K4 differs from its plain version at the G-buffer inputs: {diff}")
-    check(bool(hit.any()), "K4 covered no pixel")
+          f"K4 differs from its plain version {label}: {diff}")
+    check(bool(hit.any()), f"K4 covered no pixel {label}")
 
     def k4():
         return raster_tiles(*args, **kw)
@@ -2278,7 +2334,7 @@ def phase_gbuffer_k4(rs, cfg):
     covered = int(hit.sum())
     b_ms, b_by = bound_ms(n_bytes, 15 * tests + 8 * covered)
     old_ms, old_by = bound_ms(n_bytes, 15 * unculled + 8 * covered)
-    print(f"raster_tiles at the G-buffer inputs: {ms:.4f} ms CUDA events, "
+    print(f"raster_tiles {label}: {ms:.4f} ms CUDA events, "
           f"device {dev_ms:.4f} ms, plain {plain_ms:.2f} ms; candidate-pixel "
           f"tests {unculled / 1e6:.2f} M on whole tiles, {tests / 1e6:.2f} M "
           f"inside the rectangles (the most in one tile {most}); "
@@ -2287,7 +2343,22 @@ def phase_gbuffer_k4(rs, cfg):
     return dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, bound_ms_unculled=old_ms, max_abs_err=0.0,
                 candidate_pixel_tests=tests,
-                candidate_pixel_tests_unculled=unculled, raster_stats=stats)
+                candidate_pixel_tests_unculled=unculled)
+
+
+def phase_gbuffer_k4(rs, cfg):
+    """K4 vs raster_tiles_plain at the mask / blend frame's G-buffer inputs
+    (standard depth, the glTF materials' double-sided flags), bit for bit
+    (z, id, b0, b1); timed by CUDA events and device time, with its
+    candidate-pixel tests and bound counted as phase 8 counts them."""
+    setup, cand, counts, rects, kw, stats = oit_gbuffer_raster_inputs(rs,
+                                                                      cfg)
+    print(f"mask/blend G-buffer raster inputs: {stats}", flush=True)
+    check(stats["bin_overflow"] == 0 and stats["big_overflow"] == 0,
+          f"the G-buffer raster overflows: {stats}")
+    return dict(k4_against_plain((setup, cand, counts, rects), kw,
+                                 "at the G-buffer inputs"),
+                raster_stats=stats)
 
 
 def oit_probes():
@@ -2468,6 +2539,486 @@ def phase_oit_reference():
               f"the {name} G-buffer raster launched {launches}")
 
 
+# ---------------------------------------------------------------------------
+# the light / heap configuration: the mask / blend atrium with material
+# textures at their native sizes (the texture heap) and three shadow-casting
+# lights through the shadow atlas
+# ---------------------------------------------------------------------------
+
+LIGHT_SLICE = 1024             # ShadowAtlasManager's default slice size
+LIGHT_KINDS = ("point", "spot", "dir")    # the loader's order, then the sun
+FLOOR_TEX = 2048               # above the atlas's 1024 layer
+FLOOR_DOT = (5, 9)             # a lone white texel (row, column) a 64-cell
+LIGHT_HEAP_OPAQUE = ATRIUM_TRIANGLES + 128     # the atrium and the back wall
+WALL_TEX = (600, 1000)         # (h, w): odd mip edges at 125 x 75 -> 63 x 38
+SPOT_POS, SPOT_AT, SPOT_OUTER = [1.0, 3.5, -2.0], [1.0, 0.0, 1.0], 0.6
+POINT_POS = [-1.25, 1.8, -2.2]
+LIGHT_NEAR = 0.05
+
+
+def floor_texture(size=FLOOR_TEX):
+    """A 16 x 16 checker with fine texel-scale stripes and, in every 64 x 64
+    cell, one white texel at FLOOR_DOT (odd coordinates: the atlas's
+    nearest-neighbour downscale to 1024 drops every one)."""
+    y, x = np.mgrid[0:size, 0:size]
+    checker = ((x // (size // 16) + y // (size // 16)) % 2).astype(np.int64)
+    img = np.empty((size, size, 4), np.uint8)
+    img[..., 0] = 90 + 60 * checker + (x * 7) % 23
+    img[..., 1] = 80 + 50 * checker + (y * 5) % 19
+    img[..., 2] = 60 + 40 * checker
+    img[..., 3] = 255
+    dot = ((y % 64) == FLOOR_DOT[0]) & ((x % 64) == FLOOR_DOT[1])
+    img[dot] = 255
+    return img
+
+
+def wall_texture(shape=WALL_TEX):
+    """Brick courses on a (h, w) = 600 x 1000 texture."""
+    h, w = shape
+    y, x = np.mgrid[0:h, 0:w]
+    row = y // 50
+    mortar = ((y % 50) < 4) | (((x + 60 * (row % 2)) % 120) < 4)
+    img = np.empty((h, w, 4), np.uint8)
+    img[..., 0] = np.where(mortar, 200, 150 + (row * 13) % 40)
+    img[..., 1] = np.where(mortar, 195, 70 + (x * 3) % 17)
+    img[..., 2] = np.where(mortar, 185, 50)
+    img[..., 3] = 255
+    return img
+
+
+def normal_texture(size=512):
+    """A bumpy tangent-space normal map (RGB = n * 0.5 + 0.5)."""
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32) / size
+    hf = np.sin(yy * 60.0) * np.cos(xx * 60.0) * 0.5
+    ny, nx = np.gradient(hf)
+    n = np.stack([-nx * 6, -ny * 6, np.ones_like(nx)], axis=-1)
+    n /= np.linalg.norm(n, axis=-1, keepdims=True)
+    img = np.full((size, size, 4), 255, np.uint8)
+    img[..., :3] = np.round((n * 0.5 + 0.5) * 255).astype(np.uint8)
+    return img
+
+
+def light_heap_glb(path, n_columns=12):
+    """The light / heap atrium as a .glb at `path`: atrium_items (the
+    lattice screens' texture 0, 256^2) with the 2048^2 floor texture 1
+    (REPEAT, uv 0-8 through KHR_texture_transform), a 40 x 6 m back wall
+    behind the columns (the sky shows above it) with the 1000 x 600
+    texture 2 (MIRROR, uv 0-5 by 0-1.5), the 512^2 normal map texture 3 on the columns' capitals and
+    shafts, and two KHR_lights_punctual lights: a spot lamp 3.5 m above
+    the floor aimed at the clutter spheres in front of it (its shadows fall
+    toward the camera) and a point light between the columns."""
+    n_entries = 2 * n_columns + 1             # columns, shafts, the floor
+
+    def opaque(i, mat):
+        m = _gltf_material(mat)
+        if i < 2 * n_columns:
+            m["normalTexture"] = {"index": 3}
+        elif i == n_entries - 1:
+            m["pbrMetallicRoughness"]["baseColorTexture"] = {
+                "index": 1, "extensions": {"KHR_texture_transform": {
+                    "scale": [8.0, 8.0]}}}
+        return m
+
+    items = atrium_items(n_columns, True, opaque)
+    wall = np.eye(4, dtype=np.float32)
+    wall[3, :3] = [0.0, 3.0, -7.5]
+    items.append((grid_mesh(16, 4, 40.0, 6.0), wall, {
+        "pbrMetallicRoughness": {
+            "baseColorTexture": {"index": 2, "extensions": {
+                "KHR_texture_transform": {"scale": [5.0, 1.5]}}},
+            "metallicFactor": 0.0, "roughnessFactor": 0.8}}))
+    aim = np.asarray(SPOT_AT, np.float32) - np.asarray(SPOT_POS, np.float32)
+    z = -aim / np.linalg.norm(aim)             # the light shines down local -Z
+    x = np.cross([0.0, 1.0, 0.0], z)
+    x /= np.linalg.norm(x)
+    spot = np.eye(4, dtype=np.float32)
+    spot[0, :3], spot[1, :3], spot[2, :3] = x, np.cross(z, x), z
+    spot[3, :3] = SPOT_POS
+    point = np.eye(4, dtype=np.float32)
+    point[3, :3] = POINT_POS
+    lights = [({"type": "spot", "color": [1.0, 0.9, 0.75], "intensity": 60.0,
+                "range": 20.0, "spot": {"innerConeAngle": 0.4,
+                                        "outerConeAngle": SPOT_OUTER}},
+               spot),
+              ({"type": "point", "color": [0.7, 0.8, 1.0], "intensity": 25.0,
+                "range": 20.0}, point)]
+    return write_glb(path, items,
+                     [(lattice_texture(), (REPEAT, REPEAT)),
+                      (floor_texture(), (REPEAT, REPEAT)),
+                      (wall_texture(), (MIRROR, MIRROR)),
+                      (normal_texture(), (REPEAT, REPEAT))], lights)
+
+
+def light_heap_render_scene(device, n_columns=12, binding="array"):
+    """load_gltf -> build_render_scene of light_heap_glb, written into a
+    temporary directory, with the sun (FULL_CHAIN_SUN) as an extra light:
+    the RenderScene (scene, the heap or the atlas, lights spot, point,
+    sun)."""
+    import tempfile
+    from diligentfx_tpu_torch.attribs import PBRLightAttribs
+    from diligentfx_tpu_torch.gltf.loader import load_gltf
+    from diligentfx_tpu_torch.gltf.model import build_render_scene
+    with tempfile.TemporaryDirectory() as tmp:
+        model = load_gltf(light_heap_glb(os.path.join(tmp, "atrium.glb"),
+                                         n_columns))
+    return build_render_scene(
+        model, texture_binding_mode=binding, device=device,
+        extra_lights=PBRLightAttribs.directional(FULL_CHAIN_SUN, [3, 3, 3],
+                                                 device=device))
+
+
+def light_shadow_setup(rs, slice_size=LIGHT_SLICE):
+    """The shadow atlas of the three lights, in the scene's light order
+    (point, spot, sun: 6 + 1 + 1 slices, the manager's initial 8), each
+    light's view parameters, and the scene's world bounds for the sun's
+    fitted slice: (ShadowAtlasManager, params, bounds_min, bounds_max)."""
+    from diligentfx_tpu_torch.components.shadow_atlas import (
+        ShadowAtlasManager, kinds_from_lights)
+    from diligentfx_tpu_torch.pbr.renderer import transform_vertices
+    lights = rs.lights
+    kinds = kinds_from_lights(lights)
+    check(kinds == LIGHT_KINDS, f"the scene's lights are {kinds}")
+    atlas = ShadowAtlasManager(slice_size=slice_size)
+    params = {}
+    for i, kind in enumerate(kinds):
+        atlas.add_light(i, kind)
+        pos, d = lights.position[i], lights.direction[i]
+        if kind == "spot":
+            params[i] = {"position": pos, "direction": d,
+                         "outer_angle": SPOT_OUTER, "near": LIGHT_NEAR}
+        elif kind == "point":
+            params[i] = {"position": pos, "near": LIGHT_NEAR}
+        else:
+            params[i] = {"direction": d}
+    wp, _, _ = transform_vertices(rs.scene)
+    return atlas, params, wp.amin(dim=0), wp.amax(dim=0)
+
+
+def light_slice_raster_config():
+    """The slices' raster: 8 x 128 tiles (1,024 a 1024^2 slice) and lists
+    long enough that no slice of the light / heap frames drops a (tile,
+    triangle) pair or a big triangle.  The sun's fitted slice sees the
+    whole scene: the most candidates in one tile are 6,042 at 1024^2 and
+    14,978 in the 256^2 slices of phase 20's 4-column atrium (32-row tiles
+    would need 14,985 and 33,665); a cube face has up to 39 big triangles.
+    Phase 18 prints every slice's counts."""
+    from diligentfx_tpu_torch.config import RasterizerConfig
+    return RasterizerConfig(tile_h=8, tile_w=128, bin_capacity=16384,
+                            max_tiles_per_tri=16, big_tri_capacity=128,
+                            chunk=8)
+
+
+def light_heap_info(rs, i, w, h, device):
+    """Frame i of the full-chain camera lit by the scene's three lights,
+    every one shadow-casting (a light's shadow factor applies where its
+    shadow map index is >= 0)."""
+    import torch
+    lights = rs.lights._replace(shadow_map_index=torch.arange(
+        rs.lights.count, dtype=torch.int32, device=device))
+    return full_chain_info(i, w, h, device)._replace(lights=lights)
+
+
+def light_shadow_pass(scene, setup, cfg, device):
+    """The frame's per-light shadow pass, as a user runs it before execute:
+    build_view_projs, render (K4 a slice, range dfx.light_shadows),
+    packed_for_lights.  Returns info -> info with the slices."""
+    from diligentfx_tpu_torch.pbr.renderer import transform_vertices
+    atlas, params, bmin, bmax = setup
+
+    def run(info):
+        vps = atlas.build_view_projs(params, bmin, bmax, device=device)
+        wp, _, _ = transform_vertices(scene, info.model_transform)
+        maps = atlas.render(wp, scene.indices, vps, cfg=cfg)
+        pv, pm = atlas.packed_for_lights(vps, maps)
+        return info._replace(light_shadow_maps=pm, light_shadow_view_projs=pv)
+    return run
+
+
+def slice_labels(atlas):
+    """Atlas slice -> a name: "spot", "sun" or "point +X" ... "point -Z"."""
+    faces = ("+X", "-X", "+Y", "-Y", "+Z", "-Z")
+    names = {}
+    for kind, light in zip(atlas.light_shadow_kinds(), atlas.light_order()):
+        for f, sl in enumerate(atlas.slices_of(light)):
+            names[sl] = {"dir": "sun", "spot": "spot"}.get(
+                kind, f"point {faces[f]}")
+    return names
+
+
+def light_slice_inputs(rs, setup, cfg):
+    """K4's inputs of every slice of the light / heap frame's shadow pass
+    (the casters: the scene's opaque and masked triangles, both faces):
+    [(label, (setup, candidates, counts, rects), kernel keywords, stats)]
+    in slice order."""
+    import torch
+    from diligentfx_tpu_torch import math3d as m3
+    from diligentfx_tpu_torch.ops import raster as rz
+    from diligentfx_tpu_torch.pbr.renderer import transform_vertices
+    atlas, params, bmin, bmax = setup
+    scene = rs.scene
+    vps = atlas.build_view_projs(params, bmin, bmax, device=DEVICE)
+    wp, _, _ = transform_vertices(scene)
+    s = atlas.slice_size
+    both = torch.ones((scene.num_triangles,), dtype=torch.bool,
+                      device=DEVICE)
+    labels = slice_labels(atlas)
+    out = []
+    for i in range(vps.shape[0]):
+        setup_i, valid, bbox, _, clip_ovf = rz._triangle_setup(
+            m3.transform_points(wp, vps[i]), scene.indices, s, s, both, True,
+            1e-3)
+        cand, counts, max_count, ovf, big_ovf = rz._bin_triangles(
+            valid, bbox, s, s, cfg)
+        kw = dict(th=cfg.tile_h, tw=cfg.tile_w, tiles_x=s // cfg.tile_w,
+                  chunk=cfg.chunk)
+        stats = dict(valid=int(valid.sum()), candidates=int(counts.sum()),
+                     max_count=int(counts.max()),
+                     max_bin_count=int(max_count), bin_overflow=int(ovf),
+                     big_overflow=int(big_ovf), clip_overflow=int(clip_ovf))
+        out.append((labels[i], (setup_i, cand, counts,
+                                rz.candidate_rects(setup_i, s, s)), kw,
+                    stats))
+    return out
+
+
+def phase_light_k4(rs, setup):
+    """K4 vs raster_tiles_plain at the per-light inputs: every slice's
+    raster statistics (no bin, big or near-clip overflow in any), then bit
+    for bit (z, id, b0, b1), timed and counted as phase 15, at the spot's
+    slice, the point light's cube face with the most candidates and the
+    sun's slice."""
+    cfg = light_slice_raster_config()
+    slices = light_slice_inputs(rs, setup, cfg)
+    for label, _, _, st in slices:
+        print(f"light slice {label} ({setup[0].slice_size}^2): {st}",
+              flush=True)
+    bad = [(label, st) for label, _, _, st in slices
+           if st["bin_overflow"] or st["big_overflow"] or st["clip_overflow"]]
+    check(not bad, f"a light slice drops candidates: {bad}")
+    faces = [sl for sl in slices if sl[0].startswith("point")]
+    busiest = max(faces, key=lambda sl: sl[3]["candidates"])
+    cases = {}
+    for label, args, kw, st in slices:
+        if label in ("spot", "sun") or label == busiest[0]:
+            cases[label] = dict(k4_against_plain(args, kw,
+                                                 f"at the {label} slice"),
+                                raster_stats=st)
+    return dict(slices={label: st for label, _, _, st in slices},
+                cases=cases, busiest_face=busiest[0])
+
+
+# a light / heap frame: K4 for the G-buffer and once a slice (8)
+LIGHT_FRAME_LAUNCHES = {**OIT_FRAME_LAUNCHES, "raster_tiles": 9}
+
+
+def light_heap_probes(out, sinfo, kinds, heap):
+    """The warm-up frame's probes: each light's shadow factor at the
+    G-buffer's pixels (below 0.5 somewhere, 1 elsewhere), and the 2048^2
+    floor texture's lone texels through sample_heap at lod 0, exact, where
+    the atlas's sample of the same image falls below 0.5."""
+    import torch
+    from diligentfx_tpu_torch.components.shadow_map_manager import \
+        light_shadow_factors
+    from diligentfx_tpu_torch.ops.texture import (AtlasBuilder, sample_atlas,
+                                                  sample_heap)
+    gb = out.gbuffer
+    fac = light_shadow_factors(gb.world_pos[gb.hit], sinfo, kinds, None)
+    shares = {kind: (round(float((f < 0.5).float().mean()), 4),
+                     round(float((f == 1.0).float().mean()), 4))
+              for kind, f in zip(kinds, fac)}
+    print(f"light/heap shadow factor at the G-buffer's pixels, share below "
+          f"0.5 and share 1, by light: {shares}", flush=True)
+    check(all(a > 0 and b > 0 for a, b in shares.values()),
+          f"a light casts no shadow, or shadows everything: {shares}")
+    tex = [i for i, wh in enumerate(heap.mip_size[:, 0].tolist())
+           if wh == [FLOOR_TEX, FLOOR_TEX]]
+    check(len(tex) == 1, f"the heap's native sizes {heap.mip_size[:, 0]}")
+    cells = torch.arange(0, FLOOR_TEX, 64 * 7, device=DEVICE).float()
+    u = (cells + FLOOR_DOT[1] + 0.5) / FLOOR_TEX
+    v = (cells + FLOOR_DOT[0] + 0.5) / FLOOR_TEX
+    uv = torch.stack([u, v], dim=-1)
+    tid = torch.full((uv.shape[0],), tex[0], dtype=torch.int32,
+                     device=DEVICE)
+    zero = torch.zeros((uv.shape[0],), device=DEVICE)
+    got = sample_heap(heap, tid, uv, zero)
+    ab = AtlasBuilder(size=1024)
+    ab.add(floor_texture())
+    atlas_val = sample_atlas(ab.build(device=DEVICE), torch.zeros_like(tid),
+                             uv, zero)
+    # the white texel: 1 in every channel through the heap; the atlas's
+    # samples show the checker around it (blue at most 100 / 255)
+    atlas_min = float(atlas_val[:, :3].amin(dim=-1).max())
+    print(f"floor texel probe at lod 0, {uv.shape[0]} lone white texels: "
+          f"heap {got[:, :3].min().item()}-{got[:, :3].max().item()}, the "
+          f"atlas's least channel {atlas_min:.4f} at most", flush=True)
+    check(bool((got == 1.0).all()), "the heap does not keep the floor's "
+          "lone texels")
+    check(atlas_min < 0.5, "the atlas kept the lone texels (the probe shows "
+          "nothing)")
+    return dict(shadow_shares=shares, atlas_texel_least_channel=atlas_min)
+
+
+def phase_light_heap_frame(cfg, rs, setup, frames, out_png, ibl_source,
+                           profile=""):
+    """The light / heap frame at 1080p: per frame the shadow pass
+    (light_shadow_pass) and HnTaskManager.execute with the heap and
+    light_shadow_kinds, the bench effects with K = 4 OIT layers, frame 0 of
+    the full-chain camera; one warm-up frame (the probes: each light's
+    shadows, the floor's lone texels, the mask fragments kept and cut out,
+    the OIT overflow, every raster's overflow counts, the slices' first),
+    then `frames` timed frames with the counts zeroed just before and read
+    just after (K4 9, K2 20, K3 1, K1 0 a frame); 3 profiled frames (the
+    dfx.light_shadows, dfx.gbuffer, dfx.alpha_mask and dfx.oit ranges);
+    and one profiled frame of the scene built in atlas mode, for its
+    dfx.gbuffer device time."""
+    from diligentfx_tpu_torch.config import PBRRendererCreateInfo
+    from diligentfx_tpu_torch.hydrogent import task_manager as ttm
+    from diligentfx_tpu_torch.ops.texture import TextureHeap
+    from diligentfx_tpu_torch.pbr.renderer import PBRRenderer
+    scene = rs.scene
+    check(isinstance(rs.atlas, TextureHeap), "the scene has no texture heap")
+    atlas_mgr = setup[0]
+    kinds = atlas_mgr.light_shadow_kinds()
+    n_mask, n_blend = scene.mask_indices.shape[0], scene.blend_indices.shape[0]
+    print(f"light/heap atrium: {scene.num_opaque} opaque, {n_mask} masked, "
+          f"{n_blend} blend triangles; heap {tuple(rs.atlas.texels.shape)} "
+          f"texels, native sizes {rs.atlas.mip_size[:, 0].tolist()}; lights "
+          f"{kinds}, {atlas_mgr.capacity} slices of {atlas_mgr.slice_size}^2 "
+          f"({atlas_mgr.capacity * atlas_mgr.slice_size ** 2 * 4 / 1e6:.1f} "
+          f"MB of depth)", flush=True)
+    check(scene.num_opaque == LIGHT_HEAP_OPAQUE,
+          f"the atrium has {scene.num_opaque} opaque triangles")
+    check(atlas_mgr.used_slices == atlas_mgr.capacity == 8,
+          f"{atlas_mgr.used_slices} of {atlas_mgr.capacity} slices used")
+    renderer = PBRRenderer(PBRRendererCreateInfo(), raster_cfg=cfg,
+                           device=DEVICE, env_oct=ibl_source.env_oct,
+                           ibl_maps=ibl_source.ibl_maps)
+    tm = ttm.HnTaskManager(renderer, oit_task_manager_ci(), atlas=rs.atlas)
+    shadow_pass = light_shadow_pass(scene, setup,
+                                    light_slice_raster_config(), DEVICE)
+
+    def frame_info():
+        return shadow_pass(light_heap_info(rs, 0, W, H, DEVICE))
+
+    kw = dict(light_shadow_kinds=kinds)
+    wrap, seen = oit_probes()
+    out, state, host_ms, dev_ms, launches = timed_frames(
+        tm, scene, frame_info, frames, LIGHT_FRAME_LAUNCHES, "light/heap",
+        WARP_FRAME, warmup_wrap=wrap, execute_kw=kw)
+    tally = {k: int(v) for k, v in seen["tally"].items()}
+    ovf = seen["klayer_overflow"]
+    print(f"light/heap warm-up: mask fragments {tally}, K-layer overflow "
+          f"maxima {ovf} (mask resolve, OIT); binning (bin, big) overflow "
+          f"{seen['bin']} and near-clip overflow {seen['clip']} (the 8 "
+          f"slices, the G-buffer, the two K-layer rasters)", flush=True)
+    check(tally.get("passed", 0) > 0 and tally.get("discarded", 0) > 0,
+          f"mask fragments neither both passed and discarded: {tally}")
+    check(len(ovf) == 2 and ovf[1] > 0,
+          f"no pixel's OIT overflowed the {OIT_LAYERS} layers: {ovf}")
+    check(len(seen["bin"]) == 11 and all(b == (0, 0) for b in seen["bin"])
+          and not any(seen["clip"]),
+          f"a raster reports bin, big or near-clip overflow: {seen}")
+    probes = light_heap_probes(out, frame_info(), kinds, rs.atlas)
+    if out_png:
+        root, ext = os.path.splitext(out_png)
+        _write_png(f"{root}_light_heap{ext or '.png'}", out.color)
+    prof = phase_profile(tm, scene, frame_info, 3, profile, "light/heap",
+                         ranges=("dfx.light_shadows", "dfx.gbuffer",
+                                 "dfx.alpha_mask", "dfx.oit"),
+                         execute_kw=kw)
+    # the same scene with its textures in the atlas: the G-buffer's cost of
+    # the atlas gathers against the heap's two levels
+    rs_atlas = light_heap_render_scene(DEVICE, binding="atlas")
+    tm_atlas = ttm.HnTaskManager(renderer, oit_task_manager_ci(),
+                                 atlas=rs_atlas.atlas)
+    atlas_pass = light_shadow_pass(rs_atlas.scene, setup,
+                                   light_slice_raster_config(), DEVICE)
+    prof_atlas = phase_profile(
+        tm_atlas, rs_atlas.scene,
+        lambda: atlas_pass(light_heap_info(rs_atlas, 0, W, H, DEVICE)), 1,
+        "", "light/atlas", ranges=(), execute_kw=kw)
+    heap_gb = prof["stages"]["dfx.gbuffer"]["device_ms"]
+    atlas_gb = prof_atlas["stages"]["dfx.gbuffer"]["device_ms"]
+    print(f"light/heap dfx.gbuffer device ms a frame: heap {heap_gb:.3f}, "
+          f"the same scene in atlas mode {atlas_gb:.3f} (information for "
+          f"the atlas-gather work, not a claim)", flush=True)
+    return dict(frame_ms_median=float(np.median(host_ms)),
+                frame_events_ms_median=float(np.median(dev_ms)),
+                frames=frames, launches=launches, mask_fragments=tally,
+                klayer_overflow_max=ovf, probes=probes, profile=prof,
+                gbuffer_device_ms_heap=heap_gb,
+                gbuffer_device_ms_atlas=atlas_gb,
+                triangles=dict(opaque=scene.num_opaque, mask=n_mask,
+                               blend=n_blend))
+
+
+def small_light_heap_frames(device):
+    """Two 256x128 light / heap frames (moving camera) of the atrium with 4
+    columns and 256^2 slices, on the CPU path and on `device`: (cpu
+    colour, colour, the device's launches)."""
+    from diligentfx_tpu_torch.config import PBRRendererCreateInfo
+    from diligentfx_tpu_torch.hydrogent.task_manager import HnTaskManager
+    from diligentfx_tpu_torch.pbr.renderer import PBRRenderer
+    ci = PBRRendererCreateInfo(brdf_lut_dim=32, num_brdf_samples=16,
+                               irradiance_cube_dim=16,
+                               prefiltered_env_map_dim=32,
+                               num_specular_env_samples=16)
+    cfg = full_chain_raster_config()
+    ref = PBRRenderer(ci, raster_cfg=cfg, device="cpu")
+    colors = []
+    for dev in ("cpu", device):
+        ren = (ref if dev == "cpu" else
+               PBRRenderer(ci, raster_cfg=cfg, device=dev,
+                           env_oct=ref.env_oct, ibl_maps=ref.ibl_maps.to(dev)))
+        rs = light_heap_render_scene(dev, n_columns=4)
+        setup = light_shadow_setup(rs, slice_size=256)
+        shadow_pass = light_shadow_pass(rs.scene, setup,
+                                        light_slice_raster_config(), dev)
+        tm = HnTaskManager(ren, oit_task_manager_ci(), atlas=rs.atlas)
+        state = tm.initial_state(SMALL_W, SMALL_H)
+        zero_launches()
+        for i in range(2):
+            out = tm.execute(rs.scene, shadow_pass(light_heap_info(
+                rs, i, SMALL_W, SMALL_H, dev)), state, width=SMALL_W,
+                height=SMALL_H, settings=bench_settings(),
+                light_shadow_kinds=setup[0].light_shadow_kinds())
+            state = out.state
+        colors.append(out.color.cpu().numpy())
+    return colors[0], colors[1], read_launches()
+
+
+def phase_light_heap_reference():
+    """The 256x128 light / heap frames on the GPU against the port's CPU
+    path (two-pass K4 G-buffer, 8 slices a frame, the heap, OIT)."""
+    from diligentfx_tpu_torch.utils.image import psnr
+    cpu, gpu, launches = small_light_heap_frames(DEVICE)
+    p = psnr(cpu, gpu)
+    print(f"256x128 light/heap frame, GPU vs the port's CPU path: PSNR "
+          f"{p:.2f} dB, max abs diff {np.abs(cpu - gpu).max():.3g}; "
+          f"launches in 2 frames {launches}", flush=True)
+    check(np.isfinite(gpu).all(), "small light/heap frame not finite")
+    check(p > 50.0, f"GPU light/heap frame disagrees with the CPU path: "
+                    f"{p:.2f} dB")
+    check(launches["raster_tiles"] == 18 and
+          launches["raster_tiles_fused"] == 0,
+          f"the light/heap frames launched {launches}")
+    return p
+
+
+def lights_only(frames, profile):
+    """Phases 18 and 19 alone: K4 at the per-light inputs and the 1080p
+    light / heap frame, for A/B runs."""
+    from diligentfx_tpu_torch.config import PBRRendererCreateInfo
+    from diligentfx_tpu_torch.pbr.renderer import PBRRenderer
+    cfg = full_chain_raster_config()
+    rs = light_heap_render_scene(DEVICE)
+    setup = light_shadow_setup(rs)
+    k4 = phase_light_k4(rs, setup)
+    ibl = PBRRenderer(PBRRendererCreateInfo(), raster_cfg=cfg, device=DEVICE)
+    frame = phase_light_heap_frame(cfg, rs, setup, frames, "", ibl, profile)
+    return dict(k4_light_inputs=k4, light_heap_frame=frame)
+
+
 # goals of the tile rasters' redesign, device ms (torch.profiler kernel
 # rows): K4 over the four cascades, K1 at each of its three inputs
 RASTER_GOALS_MS = {"raster_tiles": 0.45, "bench": 0.15, "csm": 0.20,
@@ -2583,7 +3134,7 @@ def main() -> int:
                     help="also profile 3 frames (device time by stage and by "
                          "kernel); write the profiler's table to this path")
     ap.add_argument("--only", choices=("warp", "raster", "csm",
-                                        "march_gtao", "oit"),
+                                        "march_gtao", "oit", "lights"),
                     help="warp: run only phases 1, 3 and 13 (K6 on random "
                          "taps within the halo); raster: only phases 1, 2, "
                          "8 (without the csm frame) and 11; csm: only "
@@ -2591,7 +3142,8 @@ def main() -> int:
                          "march_gtao: only phase 1, one bench frame and "
                          "phases 5 and 6; oit: only phases 1, 15 and 16 "
                          "(with --profile, the profiler's table to that "
-                         "path); and print their JSON line")
+                         "path); lights: only phases 1, 18 and 19 (with "
+                         "--profile, likewise); and print their JSON line")
     ap.add_argument("--root", default=HERE,
                     help="import the port from this checkout (with --only, "
                          "to A/B two checkouts' kernels in one call)")
@@ -2635,6 +3187,11 @@ def main() -> int:
     if args.only == "oit":
         print(json.dumps({"root": args.root,
                           **oit_only(args.frames, args.profile)}))
+        print(card, flush=True)
+        return 0
+    if args.only == "lights":
+        print(json.dumps({"root": args.root,
+                          **lights_only(args.frames, args.profile)}))
         print(card, flush=True)
         return 0
     cfg = bench_raster_config()
@@ -2695,6 +3252,16 @@ def main() -> int:
         if args.profile else "")
     del rs_oit
     phase_oit_reference()
+    rs_light = light_heap_render_scene(DEVICE)
+    light_setup = light_shadow_setup(rs_light)
+    k4["light_inputs"] = phase_light_k4(rs_light, light_setup)
+    light_frame = phase_light_heap_frame(
+        fc_cfg, rs_light, light_setup, args.frames, args.out_png,
+        tm.renderer,
+        f"{os.path.splitext(args.profile)[0]}_light_heap.txt"
+        if args.profile else "")
+    del rs_light, light_setup
+    light_psnr = phase_light_heap_reference()
     for k in (k1, k2, k3):
         k["launches"] = launches[k["name"]]
         k["frames"] = args.frames
@@ -2704,6 +3271,7 @@ def main() -> int:
     for k in (k1, k2, k3, k4, k5, k6):
         k["full_chain_frame_launches"] = fc_launches[k["name"]]
         k["mask_blend_frame_launches"] = oit_frame["launches"][k["name"]]
+        k["light_heap_frame_launches"] = light_frame["launches"][k["name"]]
     k4["launches"] = csm_launches["raster_tiles"]
     k4["frames"] = args.frames
     k4["launches_per_frame"] = csm_launches["raster_tiles"] / args.frames
@@ -2711,7 +3279,9 @@ def main() -> int:
                   "pass: one launch per cascade); bench frame launches "
                   f"{launches['raster_tiles']}; the mask / blend frame's "
                   "two-pass G-buffer: one launch a frame "
-                  "(mask_blend_frame_launches over the same frames)")
+                  "(mask_blend_frame_launches over the same frames); the "
+                  "light / heap frame: the G-buffer and the 8 shadow-atlas "
+                  "slices, 9 a frame (light_heap_frame_launches)")
     k5["frame_launches"] = launches["gtao_fused"]
     k5["launches_per_frame"] = 0.0
     k6["frame_launches"] = launches["warp_bilinear_multi"]
@@ -2736,6 +3306,16 @@ def main() -> int:
           f"stages {json.dumps(oit_stages)}; ranges "
           f"{json.dumps(oit_frame['profile']['ranges'])} on {card}; total "
           f"run {time.perf_counter() - t_start:.1f} s")
+    light_ranges = light_frame["profile"]["ranges"]
+    print(f"light_heap_frame_ms_median {light_frame['frame_ms_median']:.3f} "
+          f"(CUDA events {light_frame['frame_events_ms_median']:.3f}) over "
+          f"{args.frames} frames at {W}x{H}; profiled stages "
+          f"{json.dumps(light_frame['profile']['stages'])}; ranges "
+          f"{json.dumps(light_ranges)}; dfx.gbuffer device ms heap "
+          f"{light_frame['gbuffer_device_ms_heap']:.3f}, atlas "
+          f"{light_frame['gbuffer_device_ms_atlas']:.3f}; 256x128 vs the CPU "
+          f"path {light_psnr:.2f} dB on {card}; total run "
+          f"{time.perf_counter() - t_start:.1f} s")
     if DEVICE_MS_FROM_EVENTS:
         print(f"device_ms from CUDA events, the profiler showing no device "
               f"time, for kernels named {DEVICE_MS_FROM_EVENTS}")

@@ -198,6 +198,16 @@ class PBRLightAttribs(NamedTuple):
         return self.type.shape[0]
 
 
+class PBRShadowMapInfo(NamedTuple):
+    """PBRShadowMapInfo (PBR_Structures.fxh:339-351): each shadow-casting
+    light's projection and atlas placement, leading dim the light count
+    (JAX attribs.py:275; no frame of the port reads it yet)."""
+    world_to_light_proj_space: Tensor  # (N, 4, 4)
+    uv_scale: Tensor                   # (N, 2)
+    uv_bias: Tensor                    # (N, 2)
+    shadow_map_slice: Tensor           # (N,) int32
+
+
 class PBRRendererShaderParameters(NamedTuple):
     """PBRRendererShaderParameters (PBR_Structures.fxh:126-149)."""
     average_log_lum: Tensor

@@ -1,7 +1,7 @@
-"""Cascaded shadow maps (the port of the cascaded half of
-diligentfx_tpu/components/shadow_map_manager.py): cascade distribution,
-the per-cascade depth raster, and the Shadows.fxh filtering modes (PCF with
-the receiver-plane depth bias, VSM, EVSM2, EVSM4) with the cascade blend.
+"""Shadow maps (the port of diligentfx_tpu/components/shadow_map_manager.py):
+the cascaded sun shadows, the Shadows.fxh filtering modes (PCF with the
+receiver-plane depth bias, VSM, EVSM2, EVSM4) with the cascade blend, and
+the per-light (spot / point) shadow slices.
 
   * `distribute_cascades`: cascade partitioning (linear <-> log blend),
     bounding-sphere extents, texel snapping, filter margins, z extension
@@ -10,12 +10,17 @@ the receiver-plane depth bias, VSM, EVSM2, EVSM4) with the cascade blend.
     both faces, into a (C, S, S) depth array.
   * `sample_cascaded_shadows`: cascade selection, filtering and the blend
     with the next cascade near the transition edge.
+  * `spot_view_proj`, `point_view_projs`, `render_light_shadow_maps`,
+    `sample_light_shadow`: one perspective slice a spot light, six cube
+    faces a point light (HnLight's shadow view / projection), rasterized
+    by K4 and filtered by the PCF taps with the slice as the cascade;
+    `light_shadow_factors` dispatches each light to its kind.
 
-Depth convention: cascade projections give z in [0, 1], less = nearer.
-The per-light (spot / point) half comes with a later slice.
+Depth convention: shadow projections give z in [0, 1], less = nearer.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional
 
 import torch
@@ -529,17 +534,173 @@ def sample_cascaded_shadows(world_pos: Tensor, cam_view_z: Tensor,
     return torch.where(info.in_any, lit, torch.ones_like(lit))
 
 
+def _cascade_factor(pos_px: Tensor, info, mode: ShadowMode,
+                    pcf_kernel_size: int) -> Tensor:
+    """The cascaded shadow factor of the frame's sun (JAX deferred.py:505)."""
+    cam_view_z = -m3.transform_points(pos_px, info.camera.view)[..., 2]
+    return sample_cascaded_shadows(
+        pos_px, cam_view_z, info.shadow_attribs, info.shadow_maps, mode=mode,
+        pcf_kernel_size=pcf_kernel_size, moments=info.shadow_moments)
+
+
 def cascaded_shadow_factors(pos_px: Tensor, info, mode: ShadowMode,
                             pcf_kernel_size: int = 3) -> Tensor:
     """(N_lights, H, W) visibility of each light: the cascaded shadow factor
     for lights with a shadow map index >= 0, 1 for the others (the shading
     passes of JAX deferred.py:502-550 and renderer.py:357-373).  `info` is
     the frame's RenderInfo with its shadow attribs, maps and moments."""
-    cam_view_z = -m3.transform_points(pos_px, info.camera.view)[..., 2]
-    factor = sample_cascaded_shadows(
-        pos_px, cam_view_z, info.shadow_attribs, info.shadow_maps, mode=mode,
-        pcf_kernel_size=pcf_kernel_size, moments=info.shadow_moments)
+    factor = _cascade_factor(pos_px, info, mode, pcf_kernel_size)
     ones = torch.ones_like(factor)
     return torch.stack([torch.where(info.lights.shadow_map_index[i] >= 0,
                                     factor, ones)
                         for i in range(info.lights.count)], dim=0)
+
+
+# ---------------------------------------------------------------------------
+# Per-light (spot / point / single-slice directional) shadow slices: the
+# HnLight shadow view / projection, one slice a spot or directional light,
+# six cube-face slices a point light, chosen per pixel by the dominant axis
+# of the light -> surface vector.
+# ---------------------------------------------------------------------------
+
+# cube faces in slice order +X -X +Y -Y +Z -Z (point_shadow_face's order)
+_CUBE_FACE_DIRS = ((1.0, 0.0, 0.0), (-1.0, 0.0, 0.0), (0.0, 1.0, 0.0),
+                   (0.0, -1.0, 0.0), (0.0, 0.0, 1.0), (0.0, 0.0, -1.0))
+
+
+def spot_view_proj(position, direction, outer_angle, near: float = 0.05,
+                   far: float = 100.0, device=None) -> Tensor:
+    """World -> spot-light clip (JAX shadow_map_manager.py:552): field of
+    view twice the outer cone angle, square aspect."""
+    position = _f32(position, device)
+    direction = _f32(direction, position.device)
+    view = m3.look_at(position, position + direction, device=position.device)
+    proj = m3.perspective(2.0 * float(outer_angle), 1.0, near, far,
+                          device=position.device)
+    return m3.mul44(view, proj)
+
+
+def point_view_projs(position, near: float = 0.05, far: float = 100.0,
+                     device=None) -> Tensor:
+    """World -> clip of a point light's six 90-degree cube faces, (6, 4, 4)
+    in the order +X -X +Y -Y +Z -Z (JAX shadow_map_manager.py:569).  The
+    +-Y faces take look_at's fallback up vector."""
+    position = _f32(position, device)
+    dev = position.device
+    proj = m3.perspective(math.pi / 2.0, 1.0, near, far, device=dev)
+    return torch.stack([m3.mul44(m3.look_at(position,
+                                            position + _f32(d, dev),
+                                            device=dev), proj)
+                        for d in _CUBE_FACE_DIRS])
+
+
+def point_shadow_face(v: Tensor) -> Tensor:
+    """Cube-face index (0..5, int64) from the light -> surface vector by its
+    dominant axis (JAX shadow_map_manager.py:582); of equal magnitudes the
+    first axis wins, as jnp.argmax takes the first maximum."""
+    av = torch.abs(v)
+    x_wins = (av[..., 0] >= av[..., 1]) & (av[..., 0] >= av[..., 2])
+    axis = torch.where(x_wins, 0, torch.where(av[..., 1] >= av[..., 2], 1, 2))
+    comp = torch.gather(v, -1, axis[..., None])[..., 0]
+    return axis * 2 + (comp < 0).to(torch.int64)
+
+
+def render_light_shadow_maps(world_positions: Tensor, indices: Tensor,
+                             view_projs: Tensor, *, shadow_map_size: int,
+                             cfg: RasterizerConfig = RasterizerConfig()
+                             ) -> Tensor:
+    """Depth-only raster per slice (JAX shadow_map_manager.py:590):
+    view_projs (K, 4, 4) -> (K, S, S) depth in [0, 1], 1 where no caster.
+    One two-pass raster (K4) a slice, both faces."""
+    maps = []
+    both = torch.ones((indices.shape[0],), dtype=torch.bool,
+                      device=indices.device)
+    for i in range(view_projs.shape[0]):
+        vb, _ = rz.rasterize(m3.transform_points(world_positions,
+                                                 view_projs[i]),
+                             indices, width=shadow_map_size,
+                             height=shadow_map_size, cfg=cfg,
+                             double_sided=both)
+        maps.append(torch.where(vb.tri_id >= 0,
+                                torch.clamp(vb.depth, 0.0, 1.0),
+                                torch.ones_like(vb.depth)))
+    return torch.stack(maps)
+
+
+def sample_light_shadow(world_pos: Tensor, view_projs: Tensor, maps: Tensor,
+                        face_idx: Optional[Tensor] = None,
+                        pcf_kernel_size: int = 3,
+                        depth_bias: float = 2e-3) -> Tensor:
+    """Shadow factor from a light's own slices (JAX
+    shadow_map_manager.py:608): world_pos (..., 3), view_projs (F, 4, 4),
+    maps (F, S, S), face_idx (...,) the slice of each pixel (None: slice
+    0).  Each pixel is projected by its own slice's matrix in exact fp32
+    (the JAX package projects by every slice and sums a one-hot selection,
+    which adds exact zeros); points outside the slice's frustum are lit.
+    The PCF taps filter with the slice as the cascade."""
+    clip = m3.transform_points(world_pos, view_projs[0])
+    if face_idx is None:
+        fi = torch.zeros(world_pos.shape[:-1], dtype=torch.int64,
+                         device=world_pos.device)
+    else:
+        fi = face_idx.long()
+        for f in range(1, view_projs.shape[0]):
+            clip = torch.where((fi == f)[..., None],
+                               m3.transform_points(world_pos, view_projs[f]),
+                               clip)
+    w = clip[..., 3]
+    valid = w > 1e-6
+    wi = 1.0 / torch.clamp(w, min=1e-6)
+    u = clip[..., 0] * wi * 0.5 + 0.5
+    v = 0.5 - clip[..., 1] * wi * 0.5
+    z = clip[..., 2] * wi
+    inside = (valid & (u >= 0) & (u <= 1) & (v >= 0) & (v <= 1)
+              & (z >= 0) & (z <= 1))
+    info = CascadeSamplingInfo(
+        uv=torch.stack([u, v], dim=-1), depth=z[..., None], cascade_idx=fi,
+        min_dist_to_margin=torch.zeros_like(z[..., None]), in_any=inside)
+    lit = filter_shadow_pcf(maps, info, kernel_size=pcf_kernel_size,
+                            depth_bias=depth_bias)
+    return torch.where(inside, lit, torch.ones_like(lit))
+
+
+# slices a light of each kind takes, in the packed per-light layout
+SLICES_PER_KIND = {"dir": 1, "spot": 1, "point": 6}
+
+
+def light_shadow_factors(pos_px: Tensor, info, kinds: tuple,
+                         mode: Optional[ShadowMode],
+                         pcf_kernel_size: int = 3) -> Tensor:
+    """(N_lights, H, W) visibility of each light by its shadow kind (the
+    per-light dispatch of JAX deferred.py:512-540): "csm" takes the
+    cascaded factor when `mode` is set; "spot" and "dir" one slice, "point"
+    six, the face chosen by pos_px - the light's position, each light's
+    slices following the previous light's in info.light_shadow_maps /
+    light_shadow_view_projs; any other kind, and lights past the tuple,
+    are lit."""
+    if any(k in SLICES_PER_KIND for k in kinds) and (
+            info.light_shadow_maps is None
+            or info.light_shadow_view_projs is None):
+        raise ValueError(f"light_shadow_kinds {kinds} need "
+                         "info.light_shadow_maps and light_shadow_view_projs")
+    csm = (_cascade_factor(pos_px, info, mode, pcf_kernel_size)
+           if mode is not None and "csm" in kinds else None)
+    ones = torch.ones(pos_px.shape[:-1], dtype=torch.float32,
+                      device=pos_px.device)
+    factors, base = [], 0
+    for i in range(info.lights.count):
+        kind = kinds[i] if i < len(kinds) else "none"
+        if kind == "csm" and csm is not None:
+            factors.append(csm)
+        elif kind in SLICES_PER_KIND:
+            n = SLICES_PER_KIND[kind]
+            face = (point_shadow_face(pos_px - info.lights.position[i])
+                    if kind == "point" else None)
+            factors.append(sample_light_shadow(
+                pos_px, info.light_shadow_view_projs[base:base + n],
+                info.light_shadow_maps[base:base + n], face_idx=face,
+                pcf_kernel_size=pcf_kernel_size))
+            base += n
+        else:
+            factors.append(ones)
+    return torch.stack(factors, dim=0)

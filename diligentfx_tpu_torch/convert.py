@@ -15,13 +15,14 @@ import torch
 from diligentfx_tpu_torch.attribs import (CameraAttribs, PBRLightAttribs,
                                           PBRMaterialBasicAttribs,
                                           PBRRendererShaderParameters)
+from diligentfx_tpu_torch.components.shadow_atlas import ShadowAtlasManager
 from diligentfx_tpu_torch.components.shadow_map_manager import \
     ShadowMapAttribs
 from diligentfx_tpu_torch.config import RasterizerConfig
 from diligentfx_tpu_torch.hydrogent.task_manager import (FrameSettings,
                                                          FrameState,
                                                          TaskManagerCreateInfo)
-from diligentfx_tpu_torch.ops.texture import TextureAtlas
+from diligentfx_tpu_torch.ops.texture import TextureAtlas, TextureHeap
 from diligentfx_tpu_torch.pbr.renderer import RenderInfo, ScenePrimitives
 from diligentfx_tpu_torch.pbr.shading import IBLMaps
 from diligentfx_tpu_torch.postfx.dof import DoFState
@@ -94,22 +95,41 @@ def atlas_from_jax(atlas, device=None) -> TextureAtlas:
                         layer=tensor(atlas.layer, device))
 
 
+def heap_from_jax(heap, device=None) -> TextureHeap:
+    """TextureHeap (texels, mip_base, mip_size, num_mips)."""
+    return TextureHeap(texels=tensor(heap.texels, device),
+                       mip_base=tensor(heap.mip_base, device),
+                       mip_size=tensor(heap.mip_size, device),
+                       num_mips=int(heap.num_mips))
+
+
+def shadow_atlas_from_jax(atlas) -> ShadowAtlasManager:
+    """ShadowAtlasManager with the JAX manager's sizes and allocator state:
+    capacity, free list, and each light's kind and slices in insertion
+    order."""
+    out = ShadowAtlasManager(slice_size=atlas.slice_size,
+                             initial_slices=atlas.initial_slices,
+                             max_slices=atlas.max_slices)
+    out._capacity = atlas.capacity
+    out._free = list(atlas._free)
+    out._lights = {k: (kind, list(sl))
+                   for k, (kind, sl) in atlas._lights.items()}
+    return out
+
+
 def shadow_attribs_from_jax(attribs, device=None) -> ShadowMapAttribs:
     """ShadowMapAttribs of distribute_cascades."""
     return _fields(attribs, ShadowMapAttribs, device)
 
 
 def render_info_from_jax(info, device=None) -> RenderInfo:
-    """RenderInfo with the cascaded shadow inputs (attribs, maps,
-    moments); the per-light shadow inputs must be unset."""
-    if info.light_shadow_maps is not None or \
-            info.light_shadow_view_projs is not None:
-        raise NotImplementedError("per-light shadow inputs are not ported "
-                                  "yet")
+    """RenderInfo with the cascaded shadow inputs (attribs, maps, moments)
+    and the per-light shadow slices (maps, view-projections)."""
     opt = {f: (tensor(getattr(info, f), device)
                if getattr(info, f) is not None else None)
            for f in ("model_transform", "prev_view_proj", "shadow_maps",
-                     "shadow_moments")}
+                     "shadow_moments", "light_shadow_maps",
+                     "light_shadow_view_projs")}
     att = (shadow_attribs_from_jax(info.shadow_attribs, device)
            if info.shadow_attribs is not None else None)
     return RenderInfo(camera=camera_from_jax(info.camera, device),

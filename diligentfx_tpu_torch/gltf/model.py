@@ -2,17 +2,17 @@
 diligentfx_tpu/gltf/model.py).
 
 `build_render_scene` flattens the default scene's node hierarchy into one
-ScenePrimitives plus a texture atlas and the scene's lights, as the JAX
-package does: ALPHA_MODE_MASK triangles go to the tail of the index buffer
+ScenePrimitives plus the material textures (a texture atlas, or a texture
+heap at native sizes) and the scene's lights, as the JAX package does:
+ALPHA_MODE_MASK triangles go to the tail of the index buffer
 (`mask_indices`) and resolve through the K-layer alpha test
 (pbr/oit.py resolve_alpha_mask); ALPHA_MODE_BLEND primitives split into
 `blend_indices` / `blend_tri_material` and render through K-layer OIT.
 JPEG images decode through Pillow when it is installed, else a neutral gray.
 
-Atlas binding mode only: the texture heap ("array" mode) is slice 9.  Skins
-and the material extensions (sheen, anisotropy, iridescence, transmission,
-volume) raise until skinning, animation and the extensions are ported
-(ROADMAP.md §1 item 5); so does `update_animation`.
+Skins and the material extensions (sheen, anisotropy, iridescence,
+transmission, volume) raise until skinning, animation and the extensions
+are ported (ROADMAP.md §1 item 5); so does `update_animation`.
 """
 from __future__ import annotations
 
@@ -27,7 +27,8 @@ from diligentfx_tpu_torch.attribs import (PBRLightAttribs,
 from diligentfx_tpu_torch.device import resolve_device
 from diligentfx_tpu_torch.gltf.loader import GLTFModel, GLTFTextureRef
 from diligentfx_tpu_torch.gltf.primitives import compute_tangents
-from diligentfx_tpu_torch.ops.texture import AtlasBuilder, white_atlas
+from diligentfx_tpu_torch.ops.texture import (AtlasBuilder,
+                                              TextureHeapBuilder, white_atlas)
 
 # texture slot order in ScenePrimitives.tex_ids
 SLOT_BASE_COLOR = 0
@@ -43,7 +44,7 @@ ITEM5 = ("skinning, animation and the material extensions are not ported "
 
 class RenderScene(NamedTuple):
     scene: object               # pbr.renderer.ScenePrimitives
-    atlas: object               # TextureAtlas
+    atlas: object               # TextureAtlas or TextureHeap
     lights: Optional[PBRLightAttribs]
     mesh_node_ids: tuple = ()   # model node index per scene node slot
 
@@ -76,17 +77,20 @@ def build_render_scene(model: GLTFModel, atlas_size: int = 1024,
                        texture_binding_mode: str = "atlas",
                        device=None) -> RenderScene:
     """Flatten the default scene's node hierarchy into one ScenePrimitives +
-    a texture atlas + the scene's lights, on `device` (CUDA unless the
-    caller asks for the CPU).  JAX model.py:74."""
+    the material textures + the scene's lights, on `device` (CUDA unless
+    the caller asks for the CPU).  JAX model.py:74.
+
+    texture_binding_mode "atlas" packs every texture into layers of
+    `atlas_size` (a larger one is scaled down); "array" keeps each at its
+    native size in a texture heap (ops/texture.py TextureHeap)."""
     from diligentfx_tpu_torch.pbr.renderer import ScenePrimitives
 
-    if texture_binding_mode == "array":
-        raise NotImplementedError(
-            "texture_binding_mode='array' (the texture heap) is not ported "
-            "yet: slice 9 (ROADMAP.md §1 item 4)")
-    assert texture_binding_mode == "atlas", texture_binding_mode
+    if texture_binding_mode not in ("atlas", "array"):
+        raise ValueError(f"texture_binding_mode must be atlas or array, got "
+                         f"{texture_binding_mode!r}")
     dev = resolve_device(device)
-    builder = AtlasBuilder(size=atlas_size)
+    builder = (TextureHeapBuilder() if texture_binding_mode == "array"
+               else AtlasBuilder(size=atlas_size))
     image_to_tex = {}
 
     def atlas_id(ref: Optional[GLTFTextureRef], srgb: bool) -> int:

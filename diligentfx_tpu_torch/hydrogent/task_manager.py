@@ -1,6 +1,7 @@
 """Frame task graph (the port of diligentfx_tpu/hydrogent/task_manager.py):
 [shadow pass] -> BeginFrame (TAA jitter) -> G-buffer main pass (textured
-from the atlas, shadowed by the cascades, alpha-masked geometry resolved)
+from the atlas or the texture heap, shadowed by the cascades or by each
+light's slices of the shadow atlas, alpha-masked geometry resolved)
 -> PostFX context + history disocclusion -> SSAO -> SSR -> composite ->
 K-layer OIT of the blend geometry -> epipolar light scattering -> auto
 exposure -> TAA -> DoF -> bloom -> tone map -> sRGB.
@@ -22,7 +23,6 @@ from diligentfx_tpu_torch.components import shadow_map_manager as smm
 from diligentfx_tpu_torch.config import (DebugViewType, ShadowMode,
                                          ToneMappingMode)
 from diligentfx_tpu_torch.ops.raster import pad_viewport
-from diligentfx_tpu_torch.ops.texture import TextureAtlas
 from diligentfx_tpu_torch.pbr import oit
 from diligentfx_tpu_torch.pbr.deferred import GBufferData, render_gbuffer
 from diligentfx_tpu_torch.pbr.renderer import (PBRRenderer, RenderInfo,
@@ -190,12 +190,10 @@ class HnTaskManager:
 
     def __init__(self, renderer: PBRRenderer,
                  ci: TaskManagerCreateInfo = TaskManagerCreateInfo(),
-                 atlas: Optional[TextureAtlas] = None):
+                 atlas=None):
+        """`atlas`: the material textures, a TextureAtlas or a TextureHeap
+        (ops/texture.py), or None for an untextured scene."""
         _check_ci(ci)
-        if atlas is not None and not isinstance(atlas, TextureAtlas):
-            raise NotImplementedError(
-                f"only the texture atlas binding mode is ported: {LATER} "
-                "(slice 9: the texture heap)")
         self.renderer = renderer
         self.ci = ci
         self.atlas = atlas
@@ -257,22 +255,20 @@ class HnTaskManager:
                 settings: FrameSettings = FrameSettings(),
                 light_shadow_kinds: tuple = (),
                 fuse: str = "auto") -> FrameOutput:
-        """One frame.  `fuse` chooses the G-buffer's raster path
-        (pbr/deferred.py render_gbuffer; the JAX package reads DFX_FUSE
-        instead).  The blend geometry, when the scene has some and
+        """One frame.  `light_shadow_kinds` gives each light's shadow kind
+        ("csm", "spot", "dir", "point" or none; info carries the per-light
+        slices, components/shadow_atlas.py).  `fuse` chooses the G-buffer's
+        raster path (pbr/deferred.py render_gbuffer; the JAX package reads
+        DFX_FUSE instead).  The blend geometry, when the scene has some and
         oit_layer_count > 0, composites through K-layer OIT after the
         screen-space effects (range dfx.oit)."""
-        if light_shadow_kinds:
-            raise NotImplementedError(
-                f"per-light (spot / point) shadows are not ported yet: {LATER}"
-                " (slice 9)")
         # named ranges: torch.profiler attributes host and device time to
         # the frame's three stages (a few microseconds a frame otherwise);
         # the effects' own ranges nest inside them
         with torch.profiler.record_function("dfx.gbuffer"):
             begin = _frame_begin(scene, info, state, self.renderer,
                                  self.jitter_seq, self.ci, width, height,
-                                 self.atlas, fuse=fuse)
+                                 self.atlas, light_shadow_kinds, fuse=fuse)
         with torch.profiler.record_function("dfx.context_composite"):
             fx = _frame_fx(begin, state, settings, self.ci,
                            self.atmosphere_lut, scene=scene,
@@ -304,6 +300,7 @@ def _begin_camera(info: RenderInfo, state: FrameState, jitter_seq: Tensor,
 def _frame_begin(scene, info: RenderInfo, state: FrameState,
                  renderer: PBRRenderer, jitter_seq, ci: TaskManagerCreateInfo,
                  width: int, height: int, atlas=None,
+                 light_shadow_kinds: tuple = (),
                  fuse: str = "auto") -> FrameBegin:
     """BeginFrame (TAA jitter) + the G-buffer main pass."""
     info, first_frame, shadow_mode = _begin_camera(info, state, jitter_seq,
@@ -315,7 +312,8 @@ def _frame_begin(scene, info: RenderInfo, state: FrameState,
                         pcf_kernel_size=renderer.ci.pcf_kernel_size,
                         atlas=atlas, use_textures=atlas is not None,
                         enable_clearcoat=renderer.ci.enable_clear_coat,
-                        fast_env=ci.fast_env_taps, fuse=fuse)
+                        fast_env=ci.fast_env_taps,
+                        light_shadow_kinds=light_shadow_kinds, fuse=fuse)
     return FrameBegin(gb=gb, info=info, first_frame=first_frame)
 
 

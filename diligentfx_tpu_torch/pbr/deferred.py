@@ -12,10 +12,12 @@
        resolve_alpha_mask), and one gather interpolates the attributes,
        world position included; the UV derivatives come from
        `interpolate_with_derivs`;
-  2. material textures (atlas binding mode: base colour, normal map,
-     phys-desc, emissive, occlusion with the LOD from the derivatives);
+  2. material textures (the atlas or the texture heap: base colour, normal
+     map, phys-desc, emissive, occlusion with the LOD from the
+     derivatives);
   3. shading, split into the layers the post chain composites: direct
-     (punctual, shadowed by the cascaded shadow factor, + emissive),
+     (punctual, shadowed by the cascaded shadow factor or by each light's
+     own shadow slices, + emissive),
      ambient diffuse, ambient specular and the split-sum environment
      factor.
 
@@ -30,12 +32,12 @@ from typing import NamedTuple, Optional
 import torch
 
 from diligentfx_tpu_torch import math3d as m3
-from diligentfx_tpu_torch.components.shadow_map_manager import \
-    cascaded_shadow_factors
+from diligentfx_tpu_torch.components.shadow_map_manager import (
+    cascaded_shadow_factors, light_shadow_factors)
 from diligentfx_tpu_torch.config import RasterizerConfig
 from diligentfx_tpu_torch.ops import raster as rz
 from diligentfx_tpu_torch.ops.raster_kernel import raster_tiles_fused
-from diligentfx_tpu_torch.ops.texture import (TextureHeap, apply_uv_transform,
+from diligentfx_tpu_torch.ops.texture import (apply_uv_transform,
                                               sample_material_texture,
                                               texture_base_size)
 from diligentfx_tpu_torch.ops.sampling import (bilinear_sample, dir_to_oct_uv,
@@ -240,7 +242,8 @@ def _shade_band(scene: ScenePrimitives, info: RenderInfo, ibl_maps, env_oct,
                 vb, fused_px: Optional[Tensor], *, pad_w: int, pad_h: int,
                 use_ibl: bool, use_lights: bool, fast_env: bool,
                 atlas=None, use_textures: bool = False, shadow_mode=None,
-                pcf_kernel_size: int = 3, two_pass=None) -> GBufferData:
+                pcf_kernel_size: int = 3, light_shadow_kinds: tuple = (),
+                two_pass=None) -> GBufferData:
     """Deferred shading of the whole padded frame (JAX deferred.py:224),
     from the fused kernel's channel-first output `fused_px`, or, when it
     is None, from the two-pass visibility `vb` (with barycentrics) and
@@ -371,7 +374,12 @@ def _shade_band(scene: ScenePrimitives, info: RenderInfo, ibl_maps, env_oct,
     lighting = sh.default_lighting(pos_px)
     if use_lights:
         shadow_factors = None
-        if shadow_mode is not None:
+        if light_shadow_kinds:
+            shadow_factors = light_shadow_factors(pos_px, info,
+                                                  light_shadow_kinds,
+                                                  shadow_mode,
+                                                  pcf_kernel_size)
+        elif shadow_mode is not None:
             shadow_factors = cascaded_shadow_factors(pos_px, info,
                                                      shadow_mode,
                                                      pcf_kernel_size)
@@ -444,16 +452,18 @@ def render_gbuffer(scene: ScenePrimitives, info: RenderInfo, ibl_maps,
                    shadow_mode=None, pcf_kernel_size: int = 3, atlas=None,
                    use_textures: bool = False, enable_clearcoat: bool = False,
                    fast_env: bool = False, emit_debug: bool = False,
+                   light_shadow_kinds: tuple = (),
                    fuse: str = "auto") -> GBufferData:
     """The G-buffer main pass (JAX deferred.py:111): the fused K1 raster
     with UV derivatives when textured, or the two-pass K4 raster with the
     alpha-mask resolve (`_fuse_ok` chooses; "auto" takes the two-pass path
-    for a scene with a mask tail), material textures from a TextureAtlas,
-    and the cascaded shadow factor when `shadow_mode` is set (info carries
-    the shadow attribs, maps and moments)."""
-    if isinstance(atlas, TextureHeap):
-        raise NotImplementedError("the texture heap is not ported yet: a "
-                                  "later slice (slice 9)")
+    for a scene with a mask tail), material textures from a TextureAtlas or
+    a TextureHeap, and the lights' shadows: with `light_shadow_kinds`, each
+    light by its kind (components/shadow_map_manager.py
+    light_shadow_factors: info carries the per-light slices, and the
+    cascades for "csm"), else the cascaded shadow factor when
+    `shadow_mode` is set (info carries the shadow attribs, maps and
+    moments)."""
     if enable_clearcoat or emit_debug:
         raise NotImplementedError("clear coat and debug AOVs are not ported "
                                   "yet (later slices: ROADMAP.md §1 items 5 "
@@ -476,6 +486,8 @@ def render_gbuffer(scene: ScenePrimitives, info: RenderInfo, ibl_maps,
                      pad_w=pad_w, pad_h=pad_h, use_ibl=use_ibl,
                      use_lights=use_lights, fast_env=fast_env, atlas=atlas,
                      use_textures=use_textures, shadow_mode=shadow_mode,
-                     pcf_kernel_size=pcf_kernel_size, two_pass=two_pass)
+                     pcf_kernel_size=pcf_kernel_size,
+                     light_shadow_kinds=light_shadow_kinds,
+                     two_pass=two_pass)
     return GBufferData(*(x[:height, :width] if isinstance(x, torch.Tensor)
                          else x for x in gb))

@@ -148,8 +148,10 @@ def build_scene(meshes: Sequence[Tuple[MeshData, np.ndarray,
 class RenderInfo(NamedTuple):
     """Dynamic per-frame inputs (GLTF_PBR_Renderer::RenderInfo + the frame
     constants).  shadow_attribs / shadow_maps / shadow_moments are the
-    cascaded shadow pass's products; the per-light shadow inputs are not
-    ported yet and must stay None."""
+    cascaded shadow pass's products; light_shadow_maps (K, S, S) and
+    light_shadow_view_projs (K, 4, 4) the per-light slices in light order
+    (components/shadow_atlas.py packed_for_lights), which the deferred
+    G-buffer reads."""
     camera: CameraAttribs
     lights: PBRLightAttribs
     renderer_params: PBRRendererShaderParameters

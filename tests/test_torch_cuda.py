@@ -678,3 +678,52 @@ def test_small_full_chain_frame_matches_cpu_path(cuda):
     cpu, gpu = cs.small_full_chain_frames(cuda)
     assert np.isfinite(gpu).all()
     assert psnr(cpu, gpu) > 50.0
+
+
+@pytest.mark.parametrize("face", ["point +X", "point -Y", "spot", "sun"])
+def test_raster_tiles_at_light_slices(cuda, face):
+    """K4 vs raster_tiles_plain at the light / heap atrium's shadow-atlas
+    slices (4 columns, 512^2 slices: the point light's cube faces, with
+    heavy near-clipping, the spot and the sun): every output equal, no
+    slice overflowing its lists."""
+    import chip_smoke as cs
+    rs = cs.light_heap_render_scene(cuda, n_columns=4)
+    setup = cs.light_shadow_setup(rs, slice_size=512)
+    slices = {label: (args, kw, st) for label, args, kw, st in
+              cs.light_slice_inputs(rs, setup,
+                                    cs.light_slice_raster_config())}
+    args, kw, st = slices[face]
+    assert st["bin_overflow"] == st["big_overflow"] == 0
+    assert st["clip_overflow"] == 0 and st["valid"] > 0
+    a = trt.raster_tiles(*args, **kw)
+    torch.cuda.synchronize()
+    b = trt.raster_tiles_plain(*args, **kw)
+    assert bool((b[1] >= 0).any())
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("lod", [0.0, 1.3, 9.0])
+def test_sample_heap_matches_cpu(cuda, lod):
+    """sample_heap on the card against the CPU on odd-sized textures, uv
+    outside [0, 1] in every wrap mode, lods at and past the chain: equal
+    within 1e-6 (the same fp32 operations; the card may fuse none)."""
+    from diligentfx_tpu_torch.ops import texture as tt
+    g = np.random.default_rng(8)
+    builder = tt.TextureHeapBuilder()
+    for shape in ((600, 1000, 4), (37, 5, 3), (256, 256, 4)):
+        builder.add((g.random(shape) * 255).astype(np.uint8))
+    heaps = [builder.build(device=d) for d in ("cpu", cuda)]
+    for f in ("texels", "mip_base", "mip_size"):
+        assert torch.equal(getattr(heaps[0], f),
+                           getattr(heaps[1], f).cpu())
+    uv = torch.from_numpy(g.uniform(-2.5, 3.5, (300, 200, 2)).astype(
+        np.float32))
+    tex = torch.from_numpy(g.integers(0, 3, (300, 200)).astype(np.int32))
+    wrap = torch.from_numpy(g.integers(0, 3, (300, 200, 2)).astype(
+        np.int32))
+    lods = torch.full((300, 200), lod)
+    out = [tt.sample_heap(h, tex.to(d), uv.to(d), lods.to(d),
+                          wrap_u=wrap[..., 0].to(d), wrap_v=wrap[..., 1].to(d))
+           for h, d in zip(heaps, ("cpu", cuda))]
+    assert torch.allclose(out[1].cpu(), out[0], rtol=0, atol=1e-6)

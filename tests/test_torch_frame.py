@@ -560,22 +560,40 @@ def test_csm_frame_runs_and_is_textured_and_shadowed(csm_inputs, frames):
     assert (direct_diff < -1e-2).mean() > 0.05          # shadowed somewhere
 
 
-def test_csm_unported_options_raise():
-    """Per-light shadows and the texture heap come with a later slice."""
-    from diligentfx_tpu_torch.ops.texture import TextureHeap
-    heap = TextureHeap(texels=torch.zeros(4, 4),
-                       mip_base=torch.zeros(1, 1, dtype=torch.int32),
-                       mip_size=torch.ones(1, 1, 2, dtype=torch.int32),
-                       num_mips=1)
-    ci = cv.task_manager_ci_from_jax(CSM)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        ttm.HnTaskManager(_port_renderer(), ci, atlas=heap)
-    tm = ttm.HnTaskManager(_port_renderer(), ci)
-    scene = cv.scene_from_jax(bench.build_bench_scene(1, 2, 8))
-    with pytest.raises(NotImplementedError, match="per-light"):
-        tm.execute(scene, cv.render_info_from_jax(_camera_and_lights()),
-                   tm.initial_state(W, H), width=W, height=H,
-                   light_shadow_kinds=("spot", "none"))
+def test_csm_unported_options_raise(csm_inputs):
+    """Per-light shadow kinds and the texture heap on the csm frame: with
+    light_shadow_kinds ("csm", "none") the frame equals the cascaded frame
+    bit for bit (the JAX package's dispatch gives "csm" the cascaded
+    factor; the point light, shadow map index -1, is lit either way); with
+    the bench textures in a texture heap, the heap holds the atlas's own
+    mips (each 256^2 texture fills its layer) and the frame stays within
+    1e-5 of the atlas frame (the heap blends its two levels as
+    s0 + (s1 - s0) f, the atlas sums six weighted levels; the MIRROR wrap
+    clamps at the edge in both)."""
+    from diligentfx_tpu_torch.ops import texture as tt
+    g = csm_inputs
+    ptm, pinfo, pscene = g["ptm"], g["pinfo"], g["pscene"]
+    state = ptm.initial_state(W, H)
+    plain = ptm.execute(pscene, pinfo, state, width=W, height=H)
+    kinds = ptm.execute(pscene, pinfo, state, width=W, height=H,
+                        light_shadow_kinds=("csm", "none"))
+    assert torch.equal(kinds.color, plain.color)
+    assert torch.equal(kinds.gbuffer.direct, plain.gbuffer.direct)
+    hb = tt.TextureHeapBuilder()
+    for layer in g["ptm"].atlas.mips[0].numpy():
+        hb.add(layer)
+    heap = hb.build(num_mips=len(g["atlas"].mips), device="cpu")
+    mips = np.concatenate([m.numpy()[i].reshape(-1, 4)
+                           for i in range(3) for m in g["ptm"].atlas.mips])
+    np.testing.assert_array_equal(heap.texels.numpy(), mips)
+    htm = ttm.HnTaskManager(ptm.renderer, ptm.ci, atlas=heap)
+    out = htm.execute(pscene, pinfo, state, width=W, height=H)
+    assert out.gbuffer.hit.float().mean() > 0.3
+    np.testing.assert_allclose(out.gbuffer.base_color.numpy(),
+                               plain.gbuffer.base_color.numpy(), rtol=0,
+                               atol=1e-5)
+    np.testing.assert_allclose(out.color.numpy(), plain.color.numpy(),
+                               rtol=0, atol=1e-5)
 
 
 def test_forward_render_csm_golden(frames):

@@ -291,7 +291,8 @@ def test_load_gltf_bytes_matches_jax(tmp_path):
 def assert_scene_equal(ref, got):
     """Every array of a JAX RenderScene equals the port's: the scene's
     fields (None where the JAX one is None), its materials, the atlas
-    (mips, scale_bias, layer), the lights and the node slots."""
+    (mips, scale_bias, layer) or the texture heap (texels, mip_base,
+    mip_size), the lights and the node slots."""
     rs, gs = ref.scene, got.scene
     for f in type(gs)._fields:
         a, b = getattr(rs, f), getattr(gs, f)
@@ -306,13 +307,21 @@ def assert_scene_equal(ref, got):
             a = np.array(a)
             assert b.dtype == torch.from_numpy(a).dtype, f
             np.testing.assert_array_equal(a, b.numpy(), err_msg=f)
-    assert len(ref.atlas.mips) == len(got.atlas.mips)
-    for a, b in zip(ref.atlas.mips, got.atlas.mips):
-        np.testing.assert_array_equal(np.asarray(a), b.numpy())
-    np.testing.assert_array_equal(np.asarray(ref.atlas.scale_bias),
-                                  got.atlas.scale_bias.numpy())
-    np.testing.assert_array_equal(np.asarray(ref.atlas.layer),
-                                  got.atlas.layer.numpy())
+    assert type(ref.atlas).__name__ == type(got.atlas).__name__
+    if type(got.atlas).__name__ == "TextureHeap":
+        assert ref.atlas.num_mips == got.atlas.num_mips
+        for f in ("texels", "mip_base", "mip_size"):
+            a, b = np.array(getattr(ref.atlas, f)), getattr(got.atlas, f)
+            assert b.dtype == torch.from_numpy(a).dtype, f
+            np.testing.assert_array_equal(a, b.numpy(), err_msg=f)
+    else:
+        assert len(ref.atlas.mips) == len(got.atlas.mips)
+        for a, b in zip(ref.atlas.mips, got.atlas.mips):
+            np.testing.assert_array_equal(np.asarray(a), b.numpy())
+        np.testing.assert_array_equal(np.asarray(ref.atlas.scale_bias),
+                                      got.atlas.scale_bias.numpy())
+        np.testing.assert_array_equal(np.asarray(ref.atlas.layer),
+                                      got.atlas.layer.numpy())
     assert (ref.lights is None) == (got.lights is None)
     if ref.lights is not None:
         for f in type(got.lights)._fields:
@@ -356,13 +365,19 @@ def test_build_render_scene_all_blend(tmp_path):
 
 
 def test_unported_options_raise(tmp_path):
-    """The texture heap, material extensions and skins raise, naming
-    their slice / ROADMAP item."""
+    """The texture heap ("array" mode) builds the JAX package's scene and
+    heap (an unknown mode raises ValueError); material extensions and
+    skins raise, naming their ROADMAP item."""
     from tests.test_gltf import make_quad_gltf
     path = mixed_scene(str(tmp_path / "mixed.gltf"))
     model = tloader.load_gltf(path)
-    with pytest.raises(NotImplementedError, match="slice 9"):
+    assert_scene_equal(
+        jmodel.build_render_scene(jloader.load_gltf(path),
+                                  texture_binding_mode="array"),
         tmodel.build_render_scene(model, texture_binding_mode="array",
+                                  device="cpu"))
+    with pytest.raises(ValueError, match="texture_binding_mode"):
+        tmodel.build_render_scene(model, texture_binding_mode="bindless",
                                   device="cpu")
     model.materials[0].sheen_color = (0.5, 0.5, 0.5)
     with pytest.raises(NotImplementedError, match="item 5"):

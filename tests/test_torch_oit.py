@@ -192,7 +192,8 @@ def _resolve_both(jscene, atlas_j, textured, eye, target):
     jvb = joit.rz.VisibilityBuffer(depth=jnp.asarray(vb.depth.numpy()),
                                    tri_id=jnp.asarray(vb.tri_id.numpy()),
                                    bary=jnp.asarray(vb.bary.numpy()))
-    patlas = cv.atlas_from_jax(atlas_j) if atlas_j is not None else None
+    patlas = (None if atlas_j is None else cv.heap_from_jax(atlas_j)
+              if hasattr(atlas_j, "texels") else cv.atlas_from_jax(atlas_j))
     ptally = {}
     got = toit.resolve_alpha_mask(vb, clip, pscene, winv, width=W, height=H,
                                   cfg=PCFG, atlas=patlas,

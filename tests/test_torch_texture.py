@@ -109,6 +109,9 @@ def test_sample_material_texture_matches_jax(atlases):
 
 
 def test_white_atlas_and_heap_raises():
+    """The white default atlas equals the JAX package's and samples 1; a
+    TextureHeap goes through the binding-mode dispatch to sample_heap,
+    equal to the JAX package's dispatch within 1e-6."""
     w = tt.white_atlas(device="cpu")
     j = jt.white_atlas()
     for a, b in zip(j.mips, w.mips):
@@ -116,10 +119,19 @@ def test_white_atlas_and_heap_raises():
     val = tt.sample_atlas(w, torch.zeros(3, dtype=torch.int32),
                           torch.rand(3, 2), torch.zeros(3))
     assert torch.equal(val, torch.ones(3, 4))
-    heap = tt.TextureHeap(texels=torch.zeros(4, 4),
-                          mip_base=torch.zeros(1, 1, dtype=torch.int32),
-                          mip_size=torch.ones(1, 1, 2, dtype=torch.int32),
-                          num_mips=1)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tt.sample_material_texture(heap, torch.zeros(1, dtype=torch.int32),
-                                   torch.zeros(1, 2), torch.zeros(1))
+    imgs = _images()
+    jb, tb = jt.TextureHeapBuilder(), tt.TextureHeapBuilder()
+    for img in imgs:
+        jb.add(img)
+        tb.add(img)
+    jh, th = jb.build(num_mips=4), tb.build(num_mips=4, device="cpu")
+    assert isinstance(th, tt.TextureHeap)
+    uv, lod, tex, wu, wv = _sample_inputs(len(imgs), seed=5)
+    a = jt.sample_material_texture(jh, jnp.asarray(tex), jnp.asarray(uv),
+                                   jnp.asarray(lod), wrap_u=jnp.asarray(wu),
+                                   wrap_v=jnp.asarray(wv))
+    b = tt.sample_material_texture(th, torch.from_numpy(tex),
+                                   torch.from_numpy(uv), torch.from_numpy(lod),
+                                   wrap_u=torch.from_numpy(wu),
+                                   wrap_v=torch.from_numpy(wv))
+    np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=0, atol=1e-6)
