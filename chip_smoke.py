@@ -6,9 +6,11 @@ feature set (G-buffer -> half-resolution GTAO SSAO -> divisor-2 SSR ->
 composite -> TAA -> bloom -> tone map), the textured --csm frame, the
 full-chain frame (DoF, epipolar light scattering, auto exposure), the
 mask / blend frame of a glTF file it writes (alpha-masked screens, glass
-panes through K-layer OIT) and the light / heap frame of another (spot,
+panes through K-layer OIT), the light / heap frame of another (spot,
 point and sun shadows through the shadow atlas, textures at their native
-sizes in the texture heap), and checks them.
+sizes in the texture heap) and the ext_skin frame of a third (the glTF
+material extensions, skinned figures and their animation), and checks
+them.
 
 Phases (any failure exits non-zero; no phase is skipped):
   1. build csrc/*.cu with nvcc (one process per source, all at once);
@@ -118,7 +120,27 @@ Phases (any failure exits non-zero; no phase is skipped):
      and dfx.oit ranges) and the dfx.gbuffer device time of one frame of
      the scene built in atlas mode;
  20. two 256x128 light / heap frames of the atrium with 4 columns and
-     256^2 slices on the GPU against the port's CPU path.
+     256^2 slices on the GPU against the port's CPU path;
+ 21. K1 against its plain version at the ext_skin frame's textured
+     G-buffer inputs (frame 0) and K4 bit for bit at its four 2048^2
+     cascades, every cascade's raster statistics printed (none
+     overflowing ext_skin_raster_config's lists of 65,536);
+ 22. the ext_skin frame: a .glb written at run time (the opaque atrium of
+     phase 19 with its textures in the heap; six showroom spheres, one
+     material each: clear coat, sheen, anisotropy with a normal map,
+     iridescence, transmission with volume, all five; six skinned figures
+     of 32 joints under parent nodes, one 2 s animation with LINEAR,
+     CUBICSPLINE and STEP channels; 240,592 triangles, 192 joints); per
+     frame update_animation at t = i / 60 s, the circling camera,
+     render_shadows (the sun's four EVSM2 cascades) and execute with the
+     clear coat on; one warm-up frame (every raster's overflow and
+     longest list), the probes (a figure moves, its motion vectors, each
+     sphere's extension), then --frames timed frames with the counts
+     zeroed just before and read just after (K1 1, K2 20, K3 1, K4 4 a
+     frame), update_animation alone and 3 profiled frames (the
+     dfx.gbuffer, dfx.shadows and dfx.skinning ranges);
+ 23. two 256x128 ext_skin frames of the showroom without the atrium on
+     the GPU against the port's CPU path.
 
 Prints the median frame times, one JSON line with each kernel's launches,
 times and bound, the card's name and power limit, and last
@@ -131,12 +153,14 @@ Usage: python3 chip_smoke.py [--frames N] [--out-png PATH] [--profile PATH]
        python3 chip_smoke.py --only march_gtao [--root DIR]
        python3 chip_smoke.py --only oit [--profile PATH] [--root DIR]
        python3 chip_smoke.py --only lights [--profile PATH] [--root DIR]
+       python3 chip_smoke.py --only ext_skin [--profile PATH] [--root DIR]
 (the second runs phases 1, 3 and 13 alone, K6 on random taps; the third
 phases 1, 2, 8 without the csm frame, and 11 without the full-chain frame;
 the fourth phases 1 and 9; the fifth phase 1, one bench frame for its
 G-buffer, and phases 5 and 6; the sixth phases 1, 15 and 16; the seventh
-phases 1, 18 and 19; each on the port of the checkout DIR: run it in two
-checkouts in turn, A B B A, to compare them in one call)
+phases 1, 18 and 19; the eighth phases 1, 21 and 22; each on the port of
+the checkout DIR: run it in two checkouts in turn, A B B A, to compare
+them in one call)
 """
 import argparse
 import json
@@ -558,7 +582,7 @@ def phase_raster(scene, info, cfg, use_textures=False, label="bench",
                 library_ms=None, device_ms=dev_ms,
                 candidate_pixel_tests=tests,
                 candidate_pixel_tests_unculled=unculled,
-                bound_ms_unculled=old_ms)
+                bound_ms_unculled=old_ms, raster_stats=st)
 
 
 def _warp_case(h, w, c, halo, gen):
@@ -780,6 +804,14 @@ def warp_launch_shapes(fn):
     return out, sorted(seen)
 
 
+def frame_args(scene, frame_info):
+    """(scene, info) of the next frame: frame_info() first (it may advance
+    an animation), then the scene, or `scene()` when a frame makes its own
+    scene (the ext_skin frame's update_animation)."""
+    info = frame_info()
+    return (scene() if callable(scene) else scene), info
+
+
 def timed_frames(tm, scene, frame_info, frames, expected, label,
                  warp_launches, warmup_wrap=None, execute_kw=None):
     """One warm-up frame of tm.execute on frame_info() (called once a
@@ -796,8 +828,8 @@ def timed_frames(tm, scene, frame_info, frames, expected, label,
     execute_kw = execute_kw or {}
 
     def warmup():
-        return tm.execute(scene, frame_info(), state, width=W, height=H,
-                          settings=settings, **execute_kw)
+        return tm.execute(*frame_args(scene, frame_info), state, width=W,
+                          height=H, settings=settings, **execute_kw)
     out, shapes = warp_launch_shapes(warmup_wrap(warmup) if warmup_wrap
                                      else warmup)
     want = sorted(((h, w, c), halo) for name, n in warp_launches.items()
@@ -818,8 +850,8 @@ def timed_frames(tm, scene, frame_info, frames, expected, label,
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         ev0.record()
-        out = tm.execute(scene, frame_info(), state, width=W, height=H,
-                         settings=settings, **execute_kw)
+        out = tm.execute(*frame_args(scene, frame_info), state, width=W,
+                         height=H, settings=settings, **execute_kw)
         state = out.state
         ev1.record()
         torch.cuda.synchronize()
@@ -1220,7 +1252,7 @@ def phase_gtao(gb, info, frame_state):
 PORT_KERNELS = ("raster_fused_kernel", "warp_tap_", "march_kernel",
                 "raster_tiles_kernel", "gtao_kernel", "warp_multi_kernel")
 STAGES = ("dfx.shadows", "dfx.light_shadows", "dfx.gbuffer",
-          "dfx.raster_inputs",
+          "dfx.raster_inputs", "dfx.skinning",
           "dfx.alpha_mask", "dfx.context_composite", "dfx.ssao", "dfx.ssr",
           "dfx.oit", "dfx.light_scattering", "dfx.exposure",
           "dfx.taa_bloom_tonemap", "dfx.dof")
@@ -1278,15 +1310,17 @@ def phase_profile(tm, scene, frame_info, frames, path, label,
     from torch.profiler import ProfilerActivity, profile
     settings = bench_settings()
     execute_kw = execute_kw or {}
-    state = tm.execute(scene, frame_info(), tm.initial_state(W, H), width=W,
-                       height=H, settings=settings, **execute_kw).state
+    state = tm.execute(*frame_args(scene, frame_info),
+                       tm.initial_state(W, H), width=W, height=H,
+                       settings=settings, **execute_kw).state
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(frames):
-            state = tm.execute(scene, frame_info(), state, width=W, height=H,
-                               settings=settings, **execute_kw).state
+            state = tm.execute(*frame_args(scene, frame_info), state,
+                               width=W, height=H, settings=settings,
+                               **execute_kw).state
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     per_frame = wall_ms / frames
@@ -2101,14 +2135,21 @@ def lattice_texture(size=256, holes=8):
 REPEAT, MIRROR = 10497, 33648      # glTF sampler wrap modes
 
 
-def write_glb(path, items, textures=(), lights=()):
+def write_glb(path, items, textures=(), lights=(), skins=(), animation=()):
     """A binary glTF of `items` ((MeshData, row-vector node matrix,
-    material dict) each: one mesh, one node with its matrix; meshes that
-    are the same object share their accessors), `textures` ((uint8 RGBA
-    image, (wrapS, wrapT)) each: image, sampler and texture i, the image
-    embedded as a PNG) and `lights` ((KHR_lights_punctual light dict,
-    row-vector node matrix) each, on a node of its own after the meshes').
-    The port's write_png encodes the images."""
+    material dict[, skin binding]) each: one mesh, one node with its
+    matrix; meshes that are the same object share their accessors; the
+    optional binding {"skin": s, "joints": (V, 4), "weights": (V, 4)} adds
+    JOINTS_0 / WEIGHTS_0 and binds the node to skin s), `textures` ((uint8
+    RGBA image, (wrapS, wrapT)) each: image, sampler and texture i, the
+    image embedded as a PNG), `lights` ((KHR_lights_punctual light dict,
+    row-vector node matrix) each, on a node of its own after the meshes'),
+    `skins` ((row-vector matrix of the skeleton's parent node, [(parent
+    joint or -1, local translation)], inverse bind matrices (J, 4, 4)) each:
+    a parent node after the lights', its joint nodes after it, and the
+    skin) and `animation` ((skin, joint, path, times (N,), values (N, C),
+    or (N, 3, C) for CUBICSPLINE, interpolation) each: one glTF animation,
+    a sampler a channel).  The port's write_png encodes the images."""
     import struct
     import tempfile
     from diligentfx_tpu_torch.utils.image import write_png
@@ -2134,7 +2175,7 @@ def write_glb(path, items, textures=(), lights=()):
         return [float(v) for v in np.asarray(m, np.float32).ravel()]
 
     shared = {}
-    for mesh, node, mat in items:
+    for mesh, node, mat, *bind in items:
         if id(mesh) not in shared:
             shared[id(mesh)] = {
                 "POSITION": accessor(mesh.positions.astype(np.float32), 5126,
@@ -2149,16 +2190,56 @@ def write_glb(path, items, textures=(), lights=()):
                                     5125, "SCALAR")}
         acc = dict(shared[id(mesh)])
         ind = acc.pop("indices")
+        node_dict = {"matrix": matrix(node)}
+        if bind:
+            acc["JOINTS_0"] = accessor(bind[0]["joints"].astype(np.uint16),
+                                       5123, "VEC4")
+            acc["WEIGHTS_0"] = accessor(
+                bind[0]["weights"].astype(np.float32), 5126, "VEC4")
+            node_dict["skin"] = bind[0]["skin"]
         materials.append(mat)
         meshes.append({"primitives": [{"attributes": acc, "indices": ind,
                                        "material": len(materials) - 1}]})
-        nodes.append({"mesh": len(meshes) - 1, "matrix": matrix(node)})
+        nodes.append({"mesh": len(meshes) - 1, **node_dict})
     for i, (_, node) in enumerate(lights):
         nodes.append({"matrix": matrix(node), "extensions": {
             "KHR_lights_punctual": {"light": i}}})
+    roots = list(range(len(nodes)))
+    skin_docs, joint_node = [], []
+    for parent, joints, ibm in skins:
+        roots.append(len(nodes))
+        nodes.append({"matrix": matrix(parent), "children": []})
+        first = len(nodes)
+        joint_node.append(first)
+        for j, (pj, t) in enumerate(joints):
+            nodes.append({"translation": [float(v) for v in t]})
+            owner = nodes[first + pj] if pj >= 0 else nodes[first - 1]
+            owner.setdefault("children", []).append(first + j)
+        skin_docs.append({"joints": list(range(first, first + len(joints))),
+                          "skeleton": first, "inverseBindMatrices": accessor(
+                              np.asarray(ibm, np.float32).reshape(-1, 16),
+                              5126, "MAT4")})
     doc = {"asset": {"version": "2.0"}, "scene": 0,
-           "scenes": [{"nodes": list(range(len(nodes)))}], "nodes": nodes,
+           "scenes": [{"nodes": roots}], "nodes": nodes,
            "meshes": meshes, "materials": materials}
+    if skin_docs:
+        doc["skins"] = skin_docs
+    if animation:
+        samplers, channels = [], []
+        for skin, joint, path_, times, values, interp in animation:
+            values = np.asarray(values, np.float32)
+            samplers.append({
+                "input": accessor(np.asarray(times, np.float32), 5126,
+                                  "SCALAR"),
+                "output": accessor(values.reshape(-1, values.shape[-1]),
+                                   5126, f"VEC{values.shape[-1]}"),
+                "interpolation": interp})
+            channels.append({"sampler": len(samplers) - 1, "target": {
+                "node": joint_node[skin] + joint, "path": path_}})
+        doc["animations"] = [{"samplers": samplers, "channels": channels}]
+    used = sorted({k for m in materials for k in m.get("extensions", {})})
+    if used:
+        doc["extensionsUsed"] = used
     if lights:
         doc["extensions"] = {"KHR_lights_punctual": {
             "lights": [light for light, _ in lights]}}
@@ -2363,19 +2444,21 @@ def phase_gbuffer_k4(rs, cfg):
 
 def oit_probes():
     """(wrap, seen): `wrap(fn)` runs fn with the K-layer raster, the
-    alpha-mask resolve and the binning observed; `seen` then holds the
-    K-layer buffers' overflow maxima by call (the mask resolve's first),
-    the resolve's passed and discarded fragment counts, and every binning's
-    and setup's overflow counts (the G-buffer's and both K-layer
-    rasters')."""
+    alpha-mask resolve, the binning (both layouts) and the triangle setup
+    observed; `seen` then holds the K-layer buffers' overflow maxima by
+    call (the mask resolve's first), the resolve's passed and discarded
+    fragment counts, and every binning's (bin, big) overflow counts and
+    longest list and every setup's near-clip overflow, in call order."""
     from diligentfx_tpu_torch.ops import raster as rz
     from diligentfx_tpu_torch.pbr import oit
-    seen = {"klayer_overflow": [], "tally": {}, "bin": [], "clip": []}
+    seen = {"klayer_overflow": [], "tally": {}, "bin": [], "longest": [],
+            "clip": []}
 
     def wrap(fn):
         def run():
             saved = (oit.rasterize_klayers, oit.resolve_alpha_mask,
-                     rz._bin_triangles, rz._triangle_setup)
+                     rz._bin_triangles, rz._bin_triangles_sub,
+                     rz._triangle_setup)
 
             def klayers(*a, **k):
                 out = saved[0](*a, **k)
@@ -2385,22 +2468,28 @@ def oit_probes():
             def resolve(*a, **k):
                 return saved[1](*a, tally=seen["tally"], **k)
 
-            def binning(*a, **k):
-                out = saved[2](*a, **k)
-                seen["bin"].append((int(out[3]), int(out[4])))
-                return out
+            def binned(binning):
+                def run_binning(*a, **k):
+                    out = binning(*a, **k)
+                    seen["bin"].append((int(out[3]), int(out[4])))
+                    seen["longest"].append(int(out[2]))
+                    return out
+                return run_binning
 
             def setup(*a, **k):
-                out = saved[3](*a, **k)
+                out = saved[4](*a, **k)
                 seen["clip"].append(int(out[-1]))
                 return out
             oit.rasterize_klayers, oit.resolve_alpha_mask = klayers, resolve
-            rz._bin_triangles, rz._triangle_setup = binning, setup
+            rz._bin_triangles, rz._bin_triangles_sub = map(binned,
+                                                           saved[2:4])
+            rz._triangle_setup = setup
             try:
                 return fn()
             finally:
                 (oit.rasterize_klayers, oit.resolve_alpha_mask,
-                 rz._bin_triangles, rz._triangle_setup) = saved
+                 rz._bin_triangles, rz._bin_triangles_sub,
+                 rz._triangle_setup) = saved
         return run
     return wrap, seen
 
@@ -2598,35 +2687,47 @@ def normal_texture(size=512):
     return img
 
 
-def light_heap_glb(path, n_columns=12):
-    """The light / heap atrium as a .glb at `path`: atrium_items (the
-    lattice screens' texture 0, 256^2) with the 2048^2 floor texture 1
-    (REPEAT, uv 0-8 through KHR_texture_transform), a 40 x 6 m back wall
-    behind the columns (the sky shows above it) with the 1000 x 600
-    texture 2 (MIRROR, uv 0-5 by 0-1.5), the 512^2 normal map texture 3 on the columns' capitals and
-    shafts, and two KHR_lights_punctual lights: a spot lamp 3.5 m above
-    the floor aimed at the clutter spheres in front of it (its shadows fall
-    toward the camera) and a point light between the columns."""
+def textured_atrium_items(n_columns=12, screens=True, floor_tex=1,
+                          wall_tex=2, normal_tex=3):
+    """atrium_items with the light / heap frame's textures (texture
+    indices as given): the normal map on the columns' capitals and shafts,
+    the floor texture (uv 0-8 through KHR_texture_transform), and a 40 x 6
+    m back wall behind the columns (the sky shows above it) with the wall
+    texture (uv 0-5 by 0-1.5).  Without `screens`, no lattice screens and
+    no glass panes: the opaque atrium."""
     n_entries = 2 * n_columns + 1             # columns, shafts, the floor
 
     def opaque(i, mat):
         m = _gltf_material(mat)
         if i < 2 * n_columns:
-            m["normalTexture"] = {"index": 3}
+            m["normalTexture"] = {"index": normal_tex}
         elif i == n_entries - 1:
             m["pbrMetallicRoughness"]["baseColorTexture"] = {
-                "index": 1, "extensions": {"KHR_texture_transform": {
+                "index": floor_tex, "extensions": {"KHR_texture_transform": {
                     "scale": [8.0, 8.0]}}}
         return m
 
-    items = atrium_items(n_columns, True, opaque)
+    items = atrium_items(n_columns, screens, opaque)
+    if not screens:
+        items = items[:len(full_chain_entries(n_columns))]
     wall = np.eye(4, dtype=np.float32)
     wall[3, :3] = [0.0, 3.0, -7.5]
     items.append((grid_mesh(16, 4, 40.0, 6.0), wall, {
         "pbrMetallicRoughness": {
-            "baseColorTexture": {"index": 2, "extensions": {
+            "baseColorTexture": {"index": wall_tex, "extensions": {
                 "KHR_texture_transform": {"scale": [5.0, 1.5]}}},
             "metallicFactor": 0.0, "roughnessFactor": 0.8}}))
+    return items
+
+
+def light_heap_glb(path, n_columns=12):
+    """The light / heap atrium as a .glb at `path`: textured_atrium_items
+    (the lattice screens' texture 0, 256^2; the 2048^2 floor texture 1,
+    REPEAT; the 1000 x 600 wall texture 2, MIRROR; the 512^2 normal map
+    texture 3) and two KHR_lights_punctual lights: a spot lamp 3.5 m above
+    the floor aimed at the clutter spheres in front of it (its shadows fall
+    toward the camera) and a point light between the columns."""
+    items = textured_atrium_items(n_columns)
     aim = np.asarray(SPOT_AT, np.float32) - np.asarray(SPOT_POS, np.float32)
     z = -aim / np.linalg.norm(aim)             # the light shines down local -Z
     x = np.cross([0.0, 1.0, 0.0], z)
@@ -3019,6 +3120,641 @@ def lights_only(frames, profile):
     return dict(k4_light_inputs=k4, light_heap_frame=frame)
 
 
+# ---------------------------------------------------------------------------
+# the ext_skin configuration: the glTF material extensions, skinning and
+# animation in a 1080p showroom of the textured atrium
+# ---------------------------------------------------------------------------
+
+EXT_FIGURES = 6
+EXT_SPINE, EXT_LIMB = 8, 6                 # joints of the spine, of a limb
+EXT_JOINTS = EXT_SPINE + 4 * EXT_LIMB      # 32 a figure
+EXT_TUBE = (24, 8)                         # a tube's segments around, rings
+                                           # a bone: 12,288 triangles a figure
+EXT_SPHERE = (48, 96)                      # stacks, slices: 9,216 triangles
+EXT_FPS = 60.0
+EXT_KINDS = ("clearcoat", "sheen", "anisotropy", "iridescence",
+             "transmission", "all")        # the showroom spheres, in order
+# the atrium, six spheres of 9,024 and six figures of 12,288 triangles
+EXT_TRIANGLES = LIGHT_HEAP_OPAQUE + 6 * 9024 + EXT_FIGURES * 12288
+
+
+def _tube(start, axis, length, radius, rings, segs):
+    """An open tube of `rings` x (segs + 1) vertices along `axis` from
+    `start`, facing out: (positions, normals, uvs, indices (T, 3), each
+    vertex's distance along the axis)."""
+    axis = np.asarray(axis, np.float64) / np.linalg.norm(axis)
+    u = np.cross(axis, [0.0, 0.0, 1.0])
+    u /= np.linalg.norm(u)
+    w = np.cross(axis, u)
+    d, th = np.meshgrid(np.linspace(0.0, length, rings),
+                        np.linspace(0.0, 2.0 * np.pi, segs + 1),
+                        indexing="ij")
+    radial = np.cos(th)[..., None] * u + np.sin(th)[..., None] * w
+    pos = np.asarray(start) + d[..., None] * axis + radius * radial
+    uv = np.stack([th / (2.0 * np.pi), d / length], -1)
+    i0 = (np.arange(rings - 1)[:, None] * (segs + 1)
+          + np.arange(segs)[None, :]).ravel()
+    i1, i2 = i0 + 1, i0 + segs + 1
+    idx = np.concatenate([np.stack([i0, i1, i2], -1),
+                          np.stack([i1, i2 + 1, i2], -1)])
+    return (pos.reshape(-1, 3), radial.reshape(-1, 3), uv.reshape(-1, 2),
+            idx, d.ravel())
+
+
+def figure(tube=EXT_TUBE):
+    """One figure in its bind pose: a tube trunk on an 8-joint spine (hips
+    at 0.9 m, 0.2 m bones) and four 6-joint limbs of 0.15 m bones (arms
+    from the 7th spine joint along +-x, legs from the hips down).  Each
+    vertex blends the joints of its chain whose bone centres lie within
+    1.6 bones of it (up to four near a joint; a limb's first rings also
+    the spine joint it hangs from), the weights normalised.  Returns
+    (MeshData, joints (V, 4), weights (V, 4), [(parent, local
+    translation)], inverse bind matrices (32, 4, 4))."""
+    from diligentfx_tpu_torch.gltf.primitives import MeshData, compute_tangents
+    segs, per_bone = tube
+    joints, pos_j = [], []
+    for k in range(EXT_SPINE):
+        pos_j.append(np.array([0.0, 0.9 + 0.2 * k, 0.0]))
+        joints.append(k - 1)
+    chains = [(0, 0.2, list(range(EXT_SPINE)), None, 0.16)]
+    for start, axis, attach, radius in (
+            ((0.18, 2.1, 0.0), (1, 0, 0), 6, 0.06),
+            ((-0.18, 2.1, 0.0), (-1, 0, 0), 6, 0.06),
+            ((0.1, 0.85, 0.0), (0, -1, 0), 0, 0.07),
+            ((-0.1, 0.85, 0.0), (0, -1, 0), 0, 0.07)):
+        first = len(joints)
+        for m in range(EXT_LIMB):
+            pos_j.append(np.asarray(start) + 0.15 * m * np.asarray(axis))
+            joints.append(attach if m == 0 else first + m - 1)
+        chains.append((first, 0.15, list(range(first, first + EXT_LIMB)),
+                       attach, radius))
+    pos, nrm, uv, idx, jo, wt = [], [], [], [], [], []
+    v0 = 0
+    for first, seg, chain, attach, radius in chains:
+        n = len(chain)
+        p0 = pos_j[chain[0]]
+        axis = pos_j[chain[1]] - p0
+        p, nm, u, ix, d = _tube(p0, axis, seg * n, radius, n * per_bone + 1,
+                                segs)
+        w = np.clip(1.0 - np.abs(d[:, None] - (np.arange(n) + 0.5) * seg)
+                    / (1.6 * seg), 0.0, None)
+        cand = np.array(chain)[None, :].repeat(len(d), 0)
+        if attach is not None:
+            w = np.concatenate([w, np.clip(1.0 - d / (0.6 * seg), 0.0,
+                                           None)[:, None] * 0.8], 1)
+            cand = np.concatenate([cand, np.full((len(d), 1), attach)], 1)
+        top = np.argsort(-w, axis=1, kind="stable")[:, :4]
+        w4 = np.take_along_axis(w, top, 1)
+        j4 = np.where(w4 > 0, np.take_along_axis(cand, top, 1), 0)
+        pos.append(p)
+        nrm.append(nm)
+        uv.append(u)
+        idx.append(ix + v0)
+        jo.append(j4)
+        wt.append(w4 / w4.sum(1, keepdims=True))
+        v0 += len(p)
+    pos, nrm, uv = (np.concatenate(x).astype(np.float32)
+                    for x in (pos, nrm, uv))
+    idx = np.concatenate(idx).astype(np.int32)
+    mesh = MeshData(pos, nrm, uv, idx, compute_tangents(pos, nrm, uv, idx))
+    local = [(pj, pos_j[k] - (pos_j[pj] if pj >= 0 else 0.0))
+             for k, pj in enumerate(joints)]
+    ibm = np.tile(np.eye(4, dtype=np.float32), (EXT_JOINTS, 1, 1))
+    ibm[:, 3, :3] = -np.asarray(pos_j)
+    return (mesh, np.concatenate(jo).astype(np.uint16),
+            np.concatenate(wt).astype(np.float32), local, ibm)
+
+
+def _quat(axis, angle):
+    """Quaternions (x, y, z, w) of `angle` (N,) about a unit axis."""
+    axis = np.asarray(axis, np.float64) / np.linalg.norm(axis)
+    return np.concatenate([np.sin(angle / 2)[:, None] * axis,
+                           np.cos(angle / 2)[:, None]], 1)
+
+
+def figure_animation(skin, phase, step_scale=False):
+    """The 2 s loop of one figure, as write_glb's animation channels:
+    LINEAR rotations (slerp) of the spine, CUBICSPLINE rotations of the
+    limbs (tangents dq/dt), a LINEAR translation of the root and, with
+    `step_scale`, a STEP scale of the top spine joint."""
+    out = []
+    tk = np.linspace(0.0, 2.0, 9)
+    for k in range(EXT_SPINE):
+        ang = 0.12 * np.sin(np.pi * tk + phase + 0.4 * k)
+        out.append((skin, k, "rotation", tk, _quat((0.3, 0.0, 1.0), ang),
+                    "LINEAR"))
+    tc = np.linspace(0.0, 2.0, 5)
+    for limb, axis in enumerate(((0, 0, 1), (0, 0, 1), (1, 0, 0),
+                                 (1, 0, 0))):
+        for m in range(EXT_LIMB):
+            arg = np.pi * tc + phase + 0.6 * m + limb
+            ang, dang = 0.35 * np.sin(arg), 0.35 * np.pi * np.cos(arg)
+            q = _quat(axis, ang)
+            a = np.asarray(axis, np.float64)
+            dq = np.concatenate([np.cos(ang / 2)[:, None] * a,
+                                 -np.sin(ang / 2)[:, None]], 1) * (
+                dang / 2)[:, None]
+            out.append((skin, EXT_SPINE + EXT_LIMB * limb + m, "rotation",
+                        tc, np.stack([dq, q, dq], 1), "CUBICSPLINE"))
+    bob = np.stack([0.15 * np.sin(np.pi * tk + phase),
+                    0.9 + 0.05 * np.sin(2 * np.pi * tk + phase),
+                    np.zeros_like(tk)], 1)
+    out.append((skin, 0, "translation", tk, bob, "LINEAR"))
+    if step_scale:
+        s = np.array([1.0, 1.25, 1.0, 0.8, 1.0])[:, None].repeat(3, 1)
+        out.append((skin, EXT_SPINE - 1, "scale", tc, s, "STEP"))
+    return out
+
+
+def showroom_materials(normal_tex):
+    """The six showroom materials (EXT_KINDS): car paint (clear coat 1.0,
+    roughness 0.05), velvet (sheen), brushed metal (anisotropy 0.8 at 0.5
+    rad, with the normal map `normal_tex`), soap film (iridescence), amber
+    glass (transmission and volume) and all five extensions with a clear
+    coat."""
+    def mat(rgb, metallic, rough, **ext):
+        m = {"pbrMetallicRoughness": {"baseColorFactor": list(rgb) + [1.0],
+                                      "metallicFactor": metallic,
+                                      "roughnessFactor": rough},
+             "extensions": {f"KHR_materials_{k}": v for k, v in ext.items()}}
+        return m
+    cc = {"clearcoatFactor": 1.0, "clearcoatRoughnessFactor": 0.05}
+    sheen = {"sheenColorFactor": [0.8, 0.2, 0.4], "sheenRoughnessFactor": 0.5}
+    aniso = {"anisotropyStrength": 0.8, "anisotropyRotation": 0.5}
+    irid = {"iridescenceFactor": 1.0, "iridescenceIor": 1.3,
+            "iridescenceThicknessMinimum": 100.0,
+            "iridescenceThicknessMaximum": 400.0}
+    trans = {"transmissionFactor": 1.0}
+    vol = {"thicknessFactor": 0.5, "attenuationColor": [0.9, 0.5, 0.2],
+           "attenuationDistance": 0.3}
+    brushed = mat((0.9, 0.9, 0.92), 1.0, 0.35, anisotropy=aniso)
+    brushed["normalTexture"] = {"index": normal_tex}
+    every = mat((0.7, 0.6, 0.5), 0.3, 0.3, clearcoat=dict(
+        cc, clearcoatFactor=0.5), sheen=sheen, anisotropy=aniso,
+        iridescence=irid, transmission=trans, volume=vol)
+    every["normalTexture"] = {"index": normal_tex}
+    return [mat((0.6, 0.05, 0.05), 1.0, 0.4, clearcoat=cc),
+            mat((0.15, 0.02, 0.08), 0.0, 0.8, sheen=sheen), brushed,
+            mat((0.9, 0.9, 0.9), 0.0, 0.1, iridescence=irid),
+            mat((1.0, 0.8, 0.5), 0.0, 0.05, transmission=trans, volume=vol),
+            every]
+
+
+def ext_skin_glb(path, n_columns=12, n_figures=EXT_FIGURES,
+                 sphere=EXT_SPHERE, tube=EXT_TUBE, atrium=True,
+                 normal_size=512):
+    """The ext_skin scene as a .glb at `path`: the opaque textured atrium
+    (textured_atrium_items without screens and panes: the 2048^2 floor
+    texture 0, the 1000 x 600 wall texture 1, the normal map texture 2),
+    when `atrium` (else the normal map alone, texture 0); six showroom spheres of radius 0.55 (uv_sphere of
+    `sphere` stacks and slices), one material each (showroom_materials),
+    1.2 m above the floor between the front columns; and `n_figures`
+    skinned figures (figure) behind them, each under a parent node of its
+    own (a turn about y and its place), all moved by one 2 s animation
+    (figure_animation; the STEP scale on the first).  Returns (path, a
+    dict of the spheres' and figures' node indices and material
+    indices)."""
+    from diligentfx_tpu_torch.gltf.primitives import uv_sphere
+    items = (textured_atrium_items(n_columns, False, floor_tex=0,
+                                   wall_tex=1, normal_tex=2)
+             if atrium else [])
+    xs = (np.arange(6) - 2.5) * 2.5
+    ball = uv_sphere(0.55, stacks=sphere[0], slices=sphere[1])
+    sphere_nodes = []
+    for x, m in zip(xs, showroom_materials(2 if atrium else 0)):
+        node = np.eye(4, dtype=np.float32)
+        node[3, :3] = [x, 1.2, 1.5]
+        sphere_nodes.append(len(items))
+        items.append((ball, node, m))
+    skins, anim, figure_nodes = [], [], []
+    for f in range(n_figures):
+        mesh, jo, wt, local, ibm = figure(tube)
+        a = 0.4 * (f - 2.5)
+        parent = np.eye(4, dtype=np.float32)
+        parent[0, [0, 2]] = [np.cos(a), -np.sin(a)]
+        parent[2, [0, 2]] = [np.sin(a), np.cos(a)]
+        parent[3, :3] = [xs[f % 6], 0.0, -1.5 - 1.0 * (f // 6)]
+        skins.append((parent, local, ibm))
+        anim += figure_animation(f, 0.9 * f, step_scale=f == 0)
+        figure_nodes.append(len(items))
+        items.append((mesh, np.eye(4, dtype=np.float32), {
+            "pbrMetallicRoughness": {
+                "baseColorFactor": [0.75, 0.55 - 0.05 * (f % 3), 0.45, 1.0],
+                "metallicFactor": 0.0, "roughnessFactor": 0.6}},
+            {"skin": f, "joints": jo, "weights": wt}))
+    textures = ([(floor_texture(), (REPEAT, REPEAT)),
+                 (wall_texture(), (MIRROR, MIRROR))] if atrium else []) + [
+        (normal_texture(normal_size), (REPEAT, REPEAT))]
+    # one material an item: a node's index is its material's
+    meta = dict(sphere_nodes=sphere_nodes, figure_nodes=figure_nodes,
+                sphere_materials=sphere_nodes)
+    return write_glb(path, items, textures, skins=skins,
+                     animation=anim), meta
+
+
+def ext_skin_model(device, **kw):
+    """load_gltf -> build_render_scene ("array": the texture heap) of
+    ext_skin_glb, written into a temporary directory, with the sun
+    (FULL_CHAIN_SUN, shadow map index 0: the cascades) as the scene's
+    light, and the animation's player: (model, RenderScene, player,
+    the builder's node and material indices)."""
+    import tempfile
+    from diligentfx_tpu_torch.attribs import PBRLightAttribs
+    from diligentfx_tpu_torch.gltf.animation import AnimationPlayer
+    from diligentfx_tpu_torch.gltf.loader import load_gltf
+    from diligentfx_tpu_torch.gltf.model import build_render_scene
+    with tempfile.TemporaryDirectory() as tmp:
+        path, meta = ext_skin_glb(os.path.join(tmp, "showroom.glb"), **kw)
+        model = load_gltf(path)
+    rs = build_render_scene(
+        model, texture_binding_mode="array", device=device,
+        extra_lights=PBRLightAttribs.directional(
+            FULL_CHAIN_SUN, [4, 4, 4], shadow_map_index=0, device=device))
+    return model, rs, AnimationPlayer(model, model.animations), meta
+
+
+def ext_skin_raster_config():
+    """The ext_skin frame's raster (the G-buffer's and the cascades'):
+    the bench G-buffer configuration with lists long enough that no raster
+    of the frames drops a candidate.  The far cascades draw the six
+    figures and spheres into a few tiles: 51,878 candidates in one 32 x
+    128 tile of a 2048^2 cascade (8,192 would drop 163,637); phases 21
+    and 22 print every raster's longest list and overflow."""
+    from diligentfx_tpu_torch.config import RasterizerConfig
+    return RasterizerConfig(tile_h=32, tile_w=128, bin_capacity=65536,
+                            max_tiles_per_tri=16, big_tri_capacity=256,
+                            chunk=8, pair_compaction_cap=1 << 20, sub_bins=4,
+                            big_tile_capacity=64)
+
+
+def ext_skin_info(i, w, h, device):
+    """Frame i of the full-chain camera, the sun casting the cascades."""
+    import torch
+    info = full_chain_info(i, w, h, device)
+    return info._replace(lights=info.lights._replace(
+        shadow_map_index=torch.zeros((1,), dtype=torch.int32,
+                                     device=device)))
+
+
+def ext_skin_attribs(info, size=SHADOW_SIZE):
+    """The four cascades of the sun for the frame's (unjittered) camera."""
+    from diligentfx_tpu_torch import math3d as m3
+    from diligentfx_tpu_torch.components.shadow_map_manager import \
+        distribute_cascades
+    cam = info.camera
+    return distribute_cascades(cam.view, m3.inverse(cam.view),
+                               float(cam.proj[0, 0]), float(cam.proj[1, 1]),
+                               0.1, 100.0, FULL_CHAIN_SUN,
+                               num_cascades=NUM_CASCADES,
+                               shadow_map_size=size)
+
+
+def ext_skin_frames(tm, model, rs, player, w, h, device, size=SHADOW_SIZE):
+    """(frame_info, scene): frame_info() runs frame i's update_animation at
+    t = i / 60 s (previous time one frame earlier), the circling camera
+    and the sun's cascades (render_shadows: K4 a cascade) and returns the
+    info; scene() is the animated scene of that frame."""
+    from diligentfx_tpu_torch.gltf.model import update_animation
+    cur = {"rs": rs, "i": 0}
+
+    def frame_info():
+        i = cur["i"]
+        cur["i"] += 1
+        t = i / EXT_FPS
+        cur["rs"] = update_animation(cur["rs"], model, player, t,
+                                     t - 1.0 / EXT_FPS)
+        info = ext_skin_info(i, w, h, device)
+        return tm.render_shadows(cur["rs"].scene, info,
+                                 ext_skin_attribs(info, size),
+                                 shadow_map_size=size)
+    return frame_info, (lambda: cur["rs"].scene)
+
+
+def ext_cascade_inputs(scene, att, cfg, size=SHADOW_SIZE):
+    """K4's inputs of the four cascades of the ext_skin frame's shadow pass
+    (render_cascade_shadow_maps's: every triangle, both faces):
+    [((setup, candidates, counts, rects), kernel keywords, stats)]."""
+    import torch
+    from diligentfx_tpu_torch.components import shadow_map_manager as smm
+    from diligentfx_tpu_torch.ops import raster as rz
+    from diligentfx_tpu_torch.pbr.renderer import transform_vertices
+    wp, _, _ = transform_vertices(scene)
+    both = torch.ones((scene.num_triangles,), dtype=torch.bool,
+                      device=wp.device)
+    out = []
+    for i in range(NUM_CASCADES):
+        setup, valid, bbox, _, clip_ovf = rz._triangle_setup(
+            smm.cascade_clip(wp, att, i), scene.indices, size, size, both,
+            True, 1e-3)
+        cand, counts, max_count, ovf, big_ovf = rz._bin_triangles(
+            valid, bbox, size, size, cfg)
+        kw = dict(th=cfg.tile_h, tw=cfg.tile_w, tiles_x=size // cfg.tile_w,
+                  chunk=cfg.chunk)
+        stats = dict(valid=int(valid.sum()), candidates=int(counts.sum()),
+                     max_count=int(counts.max()),
+                     max_bin_count=int(max_count), bin_overflow=int(ovf),
+                     big_overflow=int(big_ovf), clip_overflow=int(clip_ovf))
+        out.append(((setup, cand, counts, rz.candidate_rects(setup, size,
+                                                             size)),
+                    kw, stats))
+    return out
+
+
+def phase_ext_skin_kernels(cfg, model, rs, player):
+    """K1 and K4 against their plain versions at the ext_skin frame's
+    inputs (frame 0: the animation at t = 0 and the sun's cascades for its
+    camera): K1 at the textured G-buffer inputs (phase_raster's checks),
+    K4 bit for bit at each of the four cascades, with every cascade's
+    raster statistics (no overflow)."""
+    from diligentfx_tpu_torch.gltf.model import update_animation
+    scene = update_animation(rs, model, player, 0.0, -1.0 / EXT_FPS).scene
+    info = ext_skin_info(0, W, H, DEVICE)
+    k1 = phase_raster(scene, info, cfg, use_textures=True, label="ext_skin")
+    st = k1["raster_stats"]
+    check(st["bin_overflow"] == 0 and st["big_overflow"] == 0,
+          f"the ext_skin G-buffer raster overflows: {st}")
+    cases = ext_cascade_inputs(scene, ext_skin_attribs(info), cfg)
+    for i, (_, _, st) in enumerate(cases):
+        print(f"ext_skin cascade {i} ({SHADOW_SIZE}^2): {st}", flush=True)
+    bad = [st for _, _, st in cases
+           if st["bin_overflow"] or st["big_overflow"] or st["clip_overflow"]]
+    check(not bad, f"an ext_skin cascade drops candidates: {bad}")
+    k4 = {f"cascade_{i}": dict(k4_against_plain(args, kw,
+                                                f"at ext_skin cascade {i}"),
+                               raster_stats=st)
+          for i, (args, kw, st) in enumerate(cases)}
+    return k1, k4
+
+
+def _without(scene, kind, mat):
+    """`scene` with the extension(s) of showroom kind `kind` taken off
+    material `mat` (its factor, strength or colour set to 0)."""
+    def zero(attribs, field):
+        v = getattr(attribs, field).clone()
+        v[mat] = 0.0
+        return attribs._replace(**{field: v})
+    out = scene
+    if kind in ("clearcoat", "all"):
+        out = out._replace(materials=zero(out.materials, "clearcoat_factor"))
+    if kind in ("sheen", "all"):
+        out = out._replace(materials_sheen=zero(out.materials_sheen,
+                                                "color_factor"))
+    if kind in ("anisotropy", "all"):
+        out = out._replace(materials_anisotropy=zero(
+            out.materials_anisotropy, "strength"))
+    if kind in ("iridescence", "all"):
+        out = out._replace(materials_iridescence=zero(
+            out.materials_iridescence, "factor"))
+    if kind in ("transmission", "all"):
+        out = out._replace(
+            materials_transmission=zero(out.materials_transmission,
+                                        "factor"),
+            materials_volume=zero(out.materials_volume, "thickness_factor"))
+    return out
+
+
+def ext_skin_probes(tm, model, rs, player, meta):
+    """What the frame claims to render: a vertex of figure 0 (a limb's)
+    moves between frames 0 and 5 (both projected with frame 0's camera) by
+    more than 3 pixels; with the camera held still (previous view-projection = the
+    current one), the motion vectors of frame 5 are nonzero on the
+    figures and zero on the still atrium and spheres (a median below 0.01
+    px, all but 1% of their pixels within 0.1 px); each showroom sphere's lit
+    G-buffer differs from the same sphere with its extension(s) taken
+    off."""
+    import torch
+    from diligentfx_tpu_torch import math3d as m3
+    from diligentfx_tpu_torch.gltf.model import update_animation
+    from diligentfx_tpu_torch.pbr.deferred import render_gbuffer
+    from diligentfx_tpu_torch.pbr.renderer import transform_vertices
+    ren = tm.renderer
+    slot = {n: rs.mesh_node_ids.index(n)
+            for n in meta["sphere_nodes"] + meta["figure_nodes"]}
+    fig0 = rs.scene.vertex_node == slot[meta["figure_nodes"][0]]
+    info0 = ext_skin_info(0, W, H, DEVICE)
+    px = []
+    for t in (0.0, 5.0 / EXT_FPS):
+        wp, _, _ = transform_vertices(update_animation(
+            rs, model, player, t).scene)
+        c = m3.transform_points(wp[fig0], info0.camera.view_proj)
+        px.append(torch.stack([(c[:, 0] / c[:, 3] * 0.5 + 0.5) * W,
+                               (0.5 - c[:, 1] / c[:, 3] * 0.5) * H], -1))
+    shift = torch.linalg.vector_norm(px[1] - px[0], dim=-1)
+    tip = int(shift.argmax())
+    tip_px = float(shift[tip])
+    print(f"ext_skin probe: figure 0's vertices move up to {tip_px:.2f} px "
+          f"between frames 0 and 5 (frame 0's camera; bind position "
+          f"{rs.scene.positions[fig0][tip].tolist()})", flush=True)
+    check(tip_px > 3.0, f"the figure moved {tip_px:.2f} px at most")
+
+    rs5 = update_animation(rs, model, player, 5.0 / EXT_FPS, 4.0 / EXT_FPS)
+    info5 = ext_skin_info(5, W, H, DEVICE)
+    info5 = info5._replace(prev_view_proj=info5.camera.view_proj)
+    kw = dict(width=W, height=H, cfg=ren.raster_cfg, use_lights=True,
+              atlas=tm.atlas, use_textures=True, enable_clearcoat=True)
+    gb = render_gbuffer(rs5.scene, info5, ren.ibl_maps, ren.env_oct, **kw)
+    mot = torch.linalg.vector_norm(gb.motion * torch.tensor(
+        [W, H], dtype=torch.float32, device=DEVICE), dim=-1)
+    figs = torch.zeros_like(gb.hit)
+    for n in meta["figure_nodes"]:
+        figs |= gb.mesh_id == slot[n]
+    still = gb.hit & ~figs
+    check(bool(figs.any()) and bool(still.any()),
+          "no figure or no still pixel in frame 5")
+    moving = float((mot[figs] > 0.1).float().mean())
+    fig_max = float(mot[figs].max())
+    still_max = float(mot[still].max())
+    still_moving = float((mot[still] > 0.1).float().mean())
+    print(f"ext_skin probe: motion vectors with the camera held, frame 5: "
+          f"{int(figs.sum())} figure pixels, share above 0.1 px {moving:.4f}"
+          f" (median {float(mot[figs].median()):.3f}, max {fig_max:.2f} px);"
+          f" {int(still.sum())} still pixels, share above 0.1 px "
+          f"{still_moving:.2e} (median {float(mot[still].median()):.2e}, "
+          f"max {still_max:.3g} px)", flush=True)
+    check(moving > 0.3 and fig_max > 1.0, f"the figures' motion vectors: "
+          f"{moving:.4f} of their pixels above 0.1 px, at most {fig_max}")
+    worst = torch.bincount(gb.mesh_id[still & (mot > 0.1)].long())
+    print(f"ext_skin probe: still pixels above 0.1 px by mesh slot, the "
+          f"most: {sorted(enumerate(worst.tolist()), key=lambda x: -x[1])[:4]}"
+          f" of {len(rs.mesh_node_ids)} slots", flush=True)
+    # still pixels: zero but for the interpolation's rounding, which a few
+    # ill-conditioned pixels amplify (0.087% above 0.1 px, up to 4.85 px,
+    # in the first measurement)
+    check(float(mot[still].median()) < 0.01 and still_moving < 1e-2,
+          f"{still_moving:.3g} of the still pixels move more than 0.1 px")
+
+    scene0 = update_animation(rs, model, player, 0.0).scene
+
+    def lit(scene):
+        g = render_gbuffer(scene, info0, ren.ibl_maps, ren.env_oct, **kw)
+        return g, g.direct + g.ambient_diffuse + g.ambient_specular
+    gb0, full = lit(scene0)
+    diffs = {}
+    for kind, n, mat in zip(EXT_KINDS, meta["sphere_nodes"],
+                            meta["sphere_materials"]):
+        _, bare = lit(_without(scene0, kind, mat))
+        px_ = gb0.mesh_id == slot[n]
+        diffs[kind] = (int(px_.sum()),
+                       float((full - bare).abs()[px_].mean()))
+    print(f"ext_skin probe: each sphere's pixels and the mean |change| of "
+          f"its lit layers with its extension taken off: {diffs}",
+          flush=True)
+    check(all(n > 500 and d > 1e-3 for n, d in diffs.values()),
+          f"a showroom sphere is hidden or shows no extension: {diffs}")
+    return dict(vertex_shift_px=tip_px, figure_motion_share=moving,
+                figure_motion_max_px=fig_max,
+                still_motion_max_px=still_max,
+                still_motion_share=still_moving, sphere_changes=diffs)
+
+
+def phase_ext_skin_frame(cfg, model, rs, player, meta, frames, out_png,
+                         ibl_source, profile=""):
+    """The ext_skin frame at 1080p: per frame update_animation, the
+    circling camera, render_shadows (the sun's four 2048^2 EVSM2
+    cascades, K4 4) and execute with the clear coat on
+    (PBRRendererCreateInfo(enable_clear_coat=True)), the heap and the bench
+    effects; one warm-up frame (every raster's overflow and longest list
+    printed, none overflowing), the probes, then `frames` timed frames with
+    the counts zeroed just before and read just after (K1 1, K2 20, K3 1,
+    K4 4 a frame); 3 profiled frames (the dfx.gbuffer, dfx.shadows and
+    dfx.skinning ranges) and update_animation's host time."""
+    import torch
+    from diligentfx_tpu_torch.config import PBRRendererCreateInfo
+    from diligentfx_tpu_torch.gltf.model import update_animation
+    from diligentfx_tpu_torch.hydrogent import task_manager as ttm
+    from diligentfx_tpu_torch.ops.texture import TextureHeap
+    from diligentfx_tpu_torch.pbr.renderer import PBRRenderer
+    scene = rs.scene
+    check(isinstance(rs.atlas, TextureHeap), "the scene has no texture heap")
+    ext = [f for f in scene._fields if f.startswith("materials_")
+           and getattr(scene, f) is not None]
+    n_skinned = int((scene.weights.sum(-1) > 1e-6).sum())
+    print(f"ext_skin showroom: {scene.num_triangles} triangles "
+          f"({scene.num_vertices} vertices, {n_skinned} skinned), "
+          f"{scene.joint_matrices.shape[0]} joints in {len(model.skins)} "
+          f"skins, {len(model.animations[0].channels)} animation channels, "
+          f"extensions {ext}; heap {tuple(rs.atlas.texels.shape)} texels",
+          flush=True)
+    check(len(ext) == 5 and scene.joint_matrices.shape[0] == 192
+          and scene.num_triangles == EXT_TRIANGLES,
+          "the showroom lacks an extension, joints or triangles")
+    renderer = PBRRenderer(PBRRendererCreateInfo(enable_shadows=True,
+                                                 enable_clear_coat=True),
+                           raster_cfg=cfg, device=DEVICE,
+                           env_oct=ibl_source.env_oct,
+                           ibl_maps=ibl_source.ibl_maps)
+    tm = ttm.HnTaskManager(renderer, csm_task_manager_ci(), atlas=rs.atlas)
+    frame_info, scene_of = ext_skin_frames(tm, model, rs, player, W, H,
+                                           DEVICE)
+    wrap, seen = oit_probes()
+    out, state, host_ms, dev_ms, launches = timed_frames(
+        tm, scene_of, frame_info, frames, CSM_FRAME_LAUNCHES, "ext_skin",
+        WARP_FRAME, warmup_wrap=wrap)
+    print(f"ext_skin warm-up rasters (4 cascades, the G-buffer): (bin, "
+          f"big) overflow {seen['bin']}, longest lists {seen['longest']}, "
+          f"near-clip overflow {seen['clip']}", flush=True)
+    check(len(seen["bin"]) == 5 and all(b == (0, 0) for b in seen["bin"])
+          and not any(seen["clip"]),
+          f"an ext_skin raster overflows: {seen}")
+    if out_png:
+        root, ext_ = os.path.splitext(out_png)
+        _write_png(f"{root}_ext_skin{ext_ or '.png'}", out.color)
+    probes = ext_skin_probes(tm, model, rs, player, meta)
+    # update_animation alone, synchronised: the host numpy and the upload
+    anim_ms = []
+    for i in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        update_animation(rs, model, player, i / EXT_FPS,
+                         (i - 1) / EXT_FPS)
+        torch.cuda.synchronize()
+        anim_ms.append((time.perf_counter() - t0) * 1e3)
+    print(f"ext_skin update_animation alone: median {np.median(anim_ms):.3f}"
+          f" ms host clock, device synchronised", flush=True)
+    pinfo, pscene = ext_skin_frames(tm, model, rs, player, W, H, DEVICE)
+    prof = phase_profile(tm, pscene, pinfo, 3, profile, "ext_skin",
+                         ranges=("dfx.gbuffer", "dfx.shadows",
+                                 "dfx.skinning"))
+    return dict(frame_ms_median=float(np.median(host_ms)),
+                frame_events_ms_median=float(np.median(dev_ms)),
+                frames=frames, launches=launches, rasters=seen,
+                probes=probes, profile=prof,
+                update_animation_host_ms=float(np.median(anim_ms)),
+                triangles=scene.num_triangles)
+
+
+def small_ext_skin_frames(device):
+    """Two 256x128 ext_skin frames (t = 0 and 1 / 60 s, the circling
+    camera, 256^2 cascades) of the showroom without the atrium (two
+    figures, spheres of 12 x 24), on the CPU path and on `device`: (cpu
+    colour, colour, the device's launches)."""
+    from diligentfx_tpu_torch.config import PBRRendererCreateInfo
+    from diligentfx_tpu_torch.hydrogent.task_manager import HnTaskManager
+    from diligentfx_tpu_torch.pbr.renderer import PBRRenderer
+    ci = PBRRendererCreateInfo(brdf_lut_dim=32, num_brdf_samples=16,
+                               irradiance_cube_dim=16,
+                               prefiltered_env_map_dim=32,
+                               num_specular_env_samples=16,
+                               enable_shadows=True, enable_clear_coat=True)
+    cfg = ext_skin_raster_config()
+    ref = PBRRenderer(ci, raster_cfg=cfg, device="cpu")
+    colors = []
+    for dev in ("cpu", device):
+        ren = (ref if dev == "cpu" else
+               PBRRenderer(ci, raster_cfg=cfg, device=dev,
+                           env_oct=ref.env_oct, ibl_maps=ref.ibl_maps.to(dev)))
+        model, rs, player, _ = ext_skin_model(
+            dev, atrium=False, n_figures=2, sphere=(12, 24), tube=(8, 2),
+            normal_size=64)
+        tm = HnTaskManager(ren, csm_task_manager_ci(), atlas=rs.atlas)
+        frame_info, scene_of = ext_skin_frames(tm, model, rs, player,
+                                               SMALL_W, SMALL_H, dev,
+                                               size=256)
+        state = tm.initial_state(SMALL_W, SMALL_H)
+        zero_launches()
+        for _ in range(2):
+            out = tm.execute(*frame_args(scene_of, frame_info), state,
+                             width=SMALL_W, height=SMALL_H,
+                             settings=bench_settings())
+            state = out.state
+        colors.append(out.color.cpu().numpy())
+    return colors[0], colors[1], read_launches()
+
+
+def phase_ext_skin_reference():
+    """The 256x128 ext_skin frames on the GPU against the port's CPU path
+    (the fused K1 G-buffer of the skinned, extension-material showroom, K4
+    on its four 256^2 cascades a frame)."""
+    from diligentfx_tpu_torch.utils.image import psnr
+    cpu, gpu, launches = small_ext_skin_frames(DEVICE)
+    p = psnr(cpu, gpu)
+    print(f"256x128 ext_skin frame, GPU vs the port's CPU path: PSNR "
+          f"{p:.2f} dB, max abs diff {np.abs(cpu - gpu).max():.3g}; "
+          f"launches in 2 frames {launches}", flush=True)
+    check(np.isfinite(gpu).all(), "small ext_skin frame not finite")
+    check(p > 50.0, f"GPU ext_skin frame disagrees with the CPU path: "
+                    f"{p:.2f} dB")
+    check(launches["raster_tiles"] == 8 and
+          launches["raster_tiles_fused"] == 2,
+          f"the ext_skin frames launched {launches}")
+    return p
+
+
+def ext_skin_only(frames, profile):
+    """Phases 21 and 22 alone: K1 and K4 at the ext_skin frame's inputs and
+    the 1080p ext_skin frame, for A/B runs."""
+    from diligentfx_tpu_torch.config import PBRRendererCreateInfo
+    from diligentfx_tpu_torch.pbr.renderer import PBRRenderer
+    cfg = ext_skin_raster_config()
+    model, rs, player, meta = ext_skin_model(DEVICE)
+    k1, k4 = phase_ext_skin_kernels(cfg, model, rs, player)
+    ibl = PBRRenderer(PBRRendererCreateInfo(), raster_cfg=cfg, device=DEVICE)
+    frame = phase_ext_skin_frame(cfg, model, rs, player, meta, frames, "",
+                                 ibl, profile)
+    return dict(k1_ext_skin_inputs=k1, k4_ext_skin_cascades=k4,
+                ext_skin_frame=frame)
+
+
 # goals of the tile rasters' redesign, device ms (torch.profiler kernel
 # rows): K4 over the four cascades, K1 at each of its three inputs
 RASTER_GOALS_MS = {"raster_tiles": 0.45, "bench": 0.15, "csm": 0.20,
@@ -3134,7 +3870,8 @@ def main() -> int:
                     help="also profile 3 frames (device time by stage and by "
                          "kernel); write the profiler's table to this path")
     ap.add_argument("--only", choices=("warp", "raster", "csm",
-                                        "march_gtao", "oit", "lights"),
+                                        "march_gtao", "oit", "lights",
+                                        "ext_skin"),
                     help="warp: run only phases 1, 3 and 13 (K6 on random "
                          "taps within the halo); raster: only phases 1, 2, "
                          "8 (without the csm frame) and 11; csm: only "
@@ -3143,7 +3880,8 @@ def main() -> int:
                          "phases 5 and 6; oit: only phases 1, 15 and 16 "
                          "(with --profile, the profiler's table to that "
                          "path); lights: only phases 1, 18 and 19 (with "
-                         "--profile, likewise); and print their JSON line")
+                         "--profile, likewise); ext_skin: only phases 1, 21 "
+                         "and 22 (likewise); and print their JSON line")
     ap.add_argument("--root", default=HERE,
                     help="import the port from this checkout (with --only, "
                          "to A/B two checkouts' kernels in one call)")
@@ -3192,6 +3930,12 @@ def main() -> int:
     if args.only == "lights":
         print(json.dumps({"root": args.root,
                           **lights_only(args.frames, args.profile)}))
+        print(card, flush=True)
+        return 0
+    if args.only == "ext_skin":
+        print(json.dumps({"root": args.root,
+                          **ext_skin_only(args.frames, args.profile)},
+                         default=str))
         print(card, flush=True)
         return 0
     cfg = bench_raster_config()
@@ -3262,6 +4006,17 @@ def main() -> int:
         if args.profile else "")
     del rs_light, light_setup
     light_psnr = phase_light_heap_reference()
+    x_cfg = ext_skin_raster_config()
+    x_model, x_rs, x_player, x_meta = ext_skin_model(DEVICE)
+    k1_x, k4["ext_skin_cascades"] = phase_ext_skin_kernels(
+        x_cfg, x_model, x_rs, x_player)
+    merge_k1(k1, k1_x, "ext_skin_inputs")
+    ext_frame = phase_ext_skin_frame(
+        x_cfg, x_model, x_rs, x_player, x_meta, args.frames, args.out_png,
+        tm.renderer, f"{os.path.splitext(args.profile)[0]}_ext_skin.txt"
+        if args.profile else "")
+    del x_model, x_rs, x_player
+    ext_psnr = phase_ext_skin_reference()
     for k in (k1, k2, k3):
         k["launches"] = launches[k["name"]]
         k["frames"] = args.frames
@@ -3272,6 +4027,7 @@ def main() -> int:
         k["full_chain_frame_launches"] = fc_launches[k["name"]]
         k["mask_blend_frame_launches"] = oit_frame["launches"][k["name"]]
         k["light_heap_frame_launches"] = light_frame["launches"][k["name"]]
+        k["ext_skin_frame_launches"] = ext_frame["launches"][k["name"]]
     k4["launches"] = csm_launches["raster_tiles"]
     k4["frames"] = args.frames
     k4["launches_per_frame"] = csm_launches["raster_tiles"] / args.frames
@@ -3281,7 +4037,9 @@ def main() -> int:
                   "two-pass G-buffer: one launch a frame "
                   "(mask_blend_frame_launches over the same frames); the "
                   "light / heap frame: the G-buffer and the 8 shadow-atlas "
-                  "slices, 9 a frame (light_heap_frame_launches)")
+                  "slices, 9 a frame (light_heap_frame_launches); the "
+                  "ext_skin frame's cascades, 4 a frame "
+                  "(ext_skin_frame_launches)")
     k5["frame_launches"] = launches["gtao_fused"]
     k5["launches_per_frame"] = 0.0
     k6["frame_launches"] = launches["warp_bilinear_multi"]
@@ -3316,6 +4074,17 @@ def main() -> int:
           f"{light_frame['gbuffer_device_ms_atlas']:.3f}; 256x128 vs the CPU "
           f"path {light_psnr:.2f} dB on {card}; total run "
           f"{time.perf_counter() - t_start:.1f} s")
+    x_prof = ext_frame["profile"]
+    print(f"ext_skin_frame_ms_median {ext_frame['frame_ms_median']:.3f} "
+          f"(CUDA events {ext_frame['frame_events_ms_median']:.3f}) over "
+          f"{args.frames} frames at {W}x{H}, {ext_frame['triangles']} "
+          f"triangles; update_animation "
+          f"{ext_frame['update_animation_host_ms']:.3f} ms host; profiled "
+          f"stages {json.dumps(x_prof['stages'])}; device busy "
+          f"{x_prof['device_busy_ms']:.3f} of "
+          f"{x_prof['frame_ms_profiled']:.3f} ms, {x_prof['launches']} "
+          f"launches a frame; 256x128 vs the CPU path {ext_psnr:.2f} dB on "
+          f"{card}; total run {time.perf_counter() - t_start:.1f} s")
     if DEVICE_MS_FROM_EVENTS:
         print(f"device_ms from CUDA events, the profiler showing no device "
               f"time, for kernels named {DEVICE_MS_FROM_EVENTS}")

@@ -108,13 +108,68 @@ class PBRMaterialBasicAttribs(NamedTuple):
         )
 
 
-def stack_materials(mats: Sequence[PBRMaterialBasicAttribs],
-                    device=None) -> PBRMaterialBasicAttribs:
-    """Stack per-material attribs into one batched tuple (leading dim =
-    material id)."""
-    return PBRMaterialBasicAttribs(*(
-        torch.stack([getattr(m, f) for m in mats]).to(device)
-        for f in PBRMaterialBasicAttribs._fields))
+class PBRMaterialSheenAttribs(NamedTuple):
+    """PBR_Structures.fxh:185-191 (KHR_materials_sheen)."""
+    color_factor: Tensor      # (3,)
+    roughness_factor: Tensor  # ()
+
+    @classmethod
+    def create(cls, color_factor=(0, 0, 0), roughness_factor=0.0):
+        return cls(_vec(color_factor, 3), _f32(roughness_factor))
+
+
+class PBRMaterialAnisotropyAttribs(NamedTuple):
+    """PBR_Structures.fxh:196-202 (KHR_materials_anisotropy)."""
+    strength: Tensor  # ()
+    rotation: Tensor  # () radians
+
+    @classmethod
+    def create(cls, strength=0.0, rotation=0.0):
+        return cls(_f32(strength), _f32(rotation))
+
+
+class PBRMaterialIridescenceAttribs(NamedTuple):
+    """PBR_Structures.fxh:207-213 (KHR_materials_iridescence)."""
+    factor: Tensor             # ()
+    ior: Tensor                # ()
+    thickness_minimum: Tensor  # () nm
+    thickness_maximum: Tensor  # () nm
+
+    @classmethod
+    def create(cls, factor=0.0, ior=1.3, thickness_minimum=100.0,
+               thickness_maximum=400.0):
+        return cls(_f32(factor), _f32(ior), _f32(thickness_minimum),
+                   _f32(thickness_maximum))
+
+
+class PBRMaterialTransmissionAttribs(NamedTuple):
+    """PBR_Structures.fxh:218-224 (KHR_materials_transmission)."""
+    factor: Tensor  # ()
+
+    @classmethod
+    def create(cls, factor=0.0):
+        return cls(_f32(factor))
+
+
+class PBRMaterialVolumeAttribs(NamedTuple):
+    """PBR_Structures.fxh:229-239 (KHR_materials_volume)."""
+    attenuation_color: Tensor     # (3,)
+    thickness_factor: Tensor      # ()
+    attenuation_distance: Tensor  # ()
+
+    @classmethod
+    def create(cls, attenuation_color=(1, 1, 1), thickness_factor=0.0,
+               attenuation_distance=1e9):
+        return cls(_vec(attenuation_color, 3), _f32(thickness_factor),
+                   _f32(attenuation_distance))
+
+
+def stack_materials(mats: Sequence[NamedTuple], device=None):
+    """Stack per-material attribs of one kind (PBRMaterialBasicAttribs or
+    an extension's) into one batched tuple (leading dim = material id)."""
+    cls = type(mats[0])
+    return cls(*(torch.stack([getattr(m, f) for m in mats]).to(device)
+                 for f in cls._fields))
 
 
 class PBRLightAttribs(NamedTuple):

@@ -13,7 +13,12 @@ import numpy as np
 import torch
 
 from diligentfx_tpu_torch.attribs import (CameraAttribs, PBRLightAttribs,
+                                          PBRMaterialAnisotropyAttribs,
                                           PBRMaterialBasicAttribs,
+                                          PBRMaterialIridescenceAttribs,
+                                          PBRMaterialSheenAttribs,
+                                          PBRMaterialTransmissionAttribs,
+                                          PBRMaterialVolumeAttribs,
                                           PBRRendererShaderParameters)
 from diligentfx_tpu_torch.components.shadow_atlas import ShadowAtlasManager
 from diligentfx_tpu_torch.components.shadow_map_manager import \
@@ -41,25 +46,33 @@ def _fields(obj, cls, device):
     return cls(*(tensor(getattr(obj, f), device) for f in cls._fields))
 
 
+_EXTENSIONS = {"materials_sheen": PBRMaterialSheenAttribs,
+               "materials_anisotropy": PBRMaterialAnisotropyAttribs,
+               "materials_iridescence": PBRMaterialIridescenceAttribs,
+               "materials_transmission": PBRMaterialTransmissionAttribs,
+               "materials_volume": PBRMaterialVolumeAttribs}
+
+
 def scene_from_jax(scene, device=None) -> ScenePrimitives:
-    """ScenePrimitives of unskinned scenes without material extensions,
-    with their texture bindings (tex_ids, tex_uv_transform, tex_wraps), the
-    alpha-mask tail (mask_indices) and the blend geometry (blend_indices,
-    blend_tri_material) when present.  Takes a JAX RenderScene's scene
-    (gltf/model.py) as well as a ScenePrimitives of build_scene."""
-    for name in ("joints", "materials_sheen", "materials_anisotropy",
-                 "materials_iridescence", "materials_transmission",
-                 "materials_volume"):
-        if getattr(scene, name) is not None:
-            raise NotImplementedError(f"scene.{name} is not ported yet")
+    """ScenePrimitives with its texture bindings (tex_ids,
+    tex_uv_transform, tex_wraps), the alpha-mask tail (mask_indices), the
+    blend geometry (blend_indices, blend_tri_material), the stacked
+    material-extension attribs and the skinning data (joints, weights,
+    joint_matrices, prev_joint_matrices) when present.  Takes a JAX
+    RenderScene's scene (gltf/model.py) as well as a ScenePrimitives of
+    build_scene."""
     base = {f: tensor(getattr(scene, f), device)
             for f in ("positions", "normals", "uvs", "tangents", "indices",
                       "vertex_node", "tri_material", "tri_double_sided",
                       "node_matrices", "prev_node_matrices")}
     for f in ("tex_ids", "tex_uv_transform", "tex_wraps", "mask_indices",
-              "blend_indices", "blend_tri_material"):
+              "blend_indices", "blend_tri_material", "joints", "weights",
+              "joint_matrices", "prev_joint_matrices"):
         if getattr(scene, f) is not None:
             base[f] = tensor(getattr(scene, f), device)
+    for f, cls in _EXTENSIONS.items():
+        if getattr(scene, f) is not None:
+            base[f] = _fields(getattr(scene, f), cls, device)
     return ScenePrimitives(
         materials=_fields(scene.materials, PBRMaterialBasicAttribs, device),
         **base)
@@ -71,6 +84,8 @@ def ibl_maps_from_jax(maps, device=None) -> IBLMaps:
         irradiance=tensor(maps.irradiance, device),
         prefiltered=tuple(tensor(m, device) for m in maps.prefiltered),
         preintegrated_ggx=tensor(maps.preintegrated_ggx, device),
+        preintegrated_charlie=tensor(maps.preintegrated_charlie, device),
+        sheen_albedo_scaling=tensor(maps.sheen_albedo_scaling, device),
         irradiance_sh=tensor(maps.irradiance_sh, device),
         env_brdf_coeffs=tensor(maps.env_brdf_coeffs, device),
         pref_packed=tensor(maps.pref_packed, device))

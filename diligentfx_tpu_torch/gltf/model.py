@@ -10,9 +10,12 @@ ALPHA_MODE_MASK triangles go to the tail of the index buffer
 `blend_indices` / `blend_tri_material` and render through K-layer OIT.
 JPEG images decode through Pillow when it is installed, else a neutral gray.
 
-Skins and the material extensions (sheen, anisotropy, iridescence,
-transmission, volume) raise until skinning, animation and the extensions
-are ported (ROADMAP.md §1 item 5); so does `update_animation`.
+The material extensions (sheen, anisotropy, iridescence, transmission,
+volume) stack into the scene's extension attribs, each only when a
+material uses it; skinned meshes flatten into per-vertex joints (offset per
+skin into one joint-matrix array) and normalised weights.
+`update_animation` evaluates the animation at a time and uploads the node
+and joint matrices, the previous ones kept for motion vectors.
 """
 from __future__ import annotations
 
@@ -22,7 +25,12 @@ import numpy as np
 import torch
 
 from diligentfx_tpu_torch.attribs import (PBRLightAttribs,
+                                          PBRMaterialAnisotropyAttribs,
                                           PBRMaterialBasicAttribs,
+                                          PBRMaterialIridescenceAttribs,
+                                          PBRMaterialSheenAttribs,
+                                          PBRMaterialTransmissionAttribs,
+                                          PBRMaterialVolumeAttribs,
                                           stack_materials)
 from diligentfx_tpu_torch.device import resolve_device
 from diligentfx_tpu_torch.gltf.loader import GLTFModel, GLTFTextureRef
@@ -38,10 +46,6 @@ SLOT_EMISSIVE = 3
 SLOT_OCCLUSION = 4
 NUM_SLOTS = 5
 
-ITEM5 = ("skinning, animation and the material extensions are not ported "
-         "yet: ROADMAP.md §1 item 5")
-
-
 class RenderScene(NamedTuple):
     scene: object               # pbr.renderer.ScenePrimitives
     atlas: object               # TextureAtlas or TextureHeap
@@ -51,25 +55,77 @@ class RenderScene(NamedTuple):
 
 def update_animation(rs: RenderScene, model: GLTFModel, player, t: float,
                      prev_t: Optional[float] = None) -> RenderScene:
-    """Advance animations (JAX model.py:39): not ported yet."""
-    raise NotImplementedError(f"update_animation: {ITEM5}")
+    """Advance the animation (JAX model.py:39): evaluate the node worlds
+    and the skins' joint matrices at time t on the host and upload them to
+    the scene's device.  The previous matrices are the scene's current
+    ones, or, with `prev_t`, the ones evaluated at prev_t (motion vectors;
+    HnSkinningComputation's double buffering).  The upload is in the range
+    dfx.skinning."""
+    from diligentfx_tpu_torch.gltf.animation import compute_skin_matrices
+    scene = rs.scene
+    dev = scene.node_matrices.device
+
+    def up(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def joint_mats(worlds):
+        return np.concatenate([compute_skin_matrices(model, s, worlds)
+                               for s in range(len(model.skins))])
+
+    worlds = player.evaluate(t)
+    skinned = bool(model.skins) and scene.joint_matrices is not None
+    with torch.profiler.record_function("dfx.skinning"):
+        node_m = up(np.stack([worlds[ni].astype(np.float32)
+                              for ni in rs.mesh_node_ids]))
+        prev_node_m = scene.node_matrices
+        jm = prev_jm = None
+        if skinned:
+            jm = up(joint_mats(worlds))
+            prev_jm = scene.joint_matrices
+        if prev_t is not None:
+            prev_worlds = player.evaluate(prev_t)
+            prev_node_m = up(np.stack([prev_worlds[ni].astype(np.float32)
+                                       for ni in rs.mesh_node_ids]))
+            if skinned:
+                prev_jm = up(joint_mats(prev_worlds))
+    scene = scene._replace(
+        node_matrices=node_m, prev_node_matrices=prev_node_m,
+        joint_matrices=jm if jm is not None else scene.joint_matrices,
+        prev_joint_matrices=(prev_jm if prev_jm is not None
+                             else scene.prev_joint_matrices))
+    return rs._replace(scene=scene)
 
 
-def _extensions_used(mats) -> list:
-    """The material extensions any material uses, by the JAX package's
-    tests of which stacked extension attribs to build (model.py:153-170)."""
-    used = []
+def _extension_attribs(mats, device) -> dict:
+    """The stacked extension attribs (JAX model.py:146-170), each only when
+    a material uses its extension: ScenePrimitives field -> attribs on
+    `device`."""
+    out = {}
     if any(np.any(np.asarray(m.sheen_color) > 0) for m in mats):
-        used.append("sheen")
+        out["materials_sheen"] = stack_materials([
+            PBRMaterialSheenAttribs.create(m.sheen_color, m.sheen_roughness)
+            for m in mats], device)
     if any(m.anisotropy_strength != 0 for m in mats):
-        used.append("anisotropy")
+        out["materials_anisotropy"] = stack_materials([
+            PBRMaterialAnisotropyAttribs.create(m.anisotropy_strength,
+                                                m.anisotropy_rotation)
+            for m in mats], device)
     if any(m.iridescence_factor != 0 for m in mats):
-        used.append("iridescence")
+        out["materials_iridescence"] = stack_materials([
+            PBRMaterialIridescenceAttribs.create(
+                m.iridescence_factor, m.iridescence_ior,
+                m.iridescence_thickness_min, m.iridescence_thickness_max)
+            for m in mats], device)
     if any(m.transmission_factor != 0 for m in mats):
-        used.append("transmission")
+        out["materials_transmission"] = stack_materials([
+            PBRMaterialTransmissionAttribs.create(m.transmission_factor)
+            for m in mats], device)
     if any(m.volume_thickness != 0 for m in mats):
-        used.append("volume")
-    return used
+        out["materials_volume"] = stack_materials([
+            PBRMaterialVolumeAttribs.create(
+                m.volume_attenuation_color, m.volume_thickness,
+                min(m.volume_attenuation_distance, 1e9)) for m in mats], device)
+    return out
 
 
 def build_render_scene(model: GLTFModel, atlas_size: int = 1024,
@@ -105,10 +161,6 @@ def build_render_scene(model: GLTFModel, atlas_size: int = 1024,
         return image_to_tex[key]
 
     mats = model.materials or []
-    ext = _extensions_used(mats)
-    if ext:
-        raise NotImplementedError(
-            f"material extensions {ext}: {ITEM5}")
     basic = []
     tex_ids = np.full((max(len(mats), 1), NUM_SLOTS), -1, np.int32)
     tex_xform = np.tile(np.array([1, 0, 0, 1, 0, 0], np.float32),
@@ -150,13 +202,20 @@ def build_render_scene(model: GLTFModel, atlas_size: int = 1024,
              else white_atlas(device=dev))
 
     # flatten scene nodes with meshes (BLEND geometry splits into the OIT set)
-    if any(model.nodes[ni].skin >= 0 and model.nodes[ni].mesh >= 0
-           for ni in model.default_scene_nodes):
-        raise NotImplementedError(f"a skinned mesh: {ITEM5}")
     pos, nrm, uv, tan = [], [], [], []
     idx, vnode, tmat, tds = [], [], [], []
     bidx, btmat = [], []
     node_mats = []
+    joints_l, weights_l = [], []
+    any_skin = any(model.nodes[ni].skin >= 0 and model.nodes[ni].mesh >= 0
+                   for ni in model.default_scene_nodes)
+    # each skin's offset into the concatenated joint-matrix array
+    skin_offsets = []
+    off = 0
+    for sk in model.skins:
+        skin_offsets.append(off)
+        off += len(sk["joints"])
+    total_joints = max(off, 1)
     mesh_node_ids = []
     v_off = 0
     node_slot = 0
@@ -187,6 +246,17 @@ def build_render_scene(model: GLTFModel, atlas_size: int = 1024,
             uv.append(u.astype(np.float32))
             tan.append(t.astype(np.float32))
             vnode.append(np.full(v, node_slot, np.int32))
+            if any_skin:
+                if (node.skin >= 0 and prim.joints is not None
+                        and prim.weights is not None):
+                    joints_l.append(prim.joints.astype(np.int32)
+                                    + skin_offsets[node.skin])
+                    w4 = prim.weights.astype(np.float32)
+                    wsum = np.maximum(w4.sum(-1, keepdims=True), 1e-9)
+                    weights_l.append(w4 / wsum)
+                else:
+                    joints_l.append(np.full((v, 4), -1, np.int32))
+                    weights_l.append(np.zeros((v, 4), np.float32))
             mat_i = prim.material if prim.material >= 0 else 0
             nt = prim.indices.shape[0]
             is_blend = (mat_i < len(mats)
@@ -249,7 +319,14 @@ def build_render_scene(model: GLTFModel, atlas_size: int = 1024,
                        else None),
         blend_tri_material=(t_(np.concatenate(btmat), torch.int32) if btmat
                             else None),
+        **_extension_attribs(mats, dev),
     )
+    if joints_l:
+        eye = np.tile(np.eye(4, dtype=np.float32)[None], (total_joints, 1, 1))
+        scene = scene._replace(
+            joints=t_(np.concatenate(joints_l), torch.int32),
+            weights=t_(np.concatenate(weights_l), torch.float32),
+            joint_matrices=t_(eye), prev_joint_matrices=t_(eye))
 
     # lights from the node hierarchy
     lights = []

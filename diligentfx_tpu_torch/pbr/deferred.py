@@ -15,11 +15,12 @@
   2. material textures (the atlas or the texture heap: base colour, normal
      map, phys-desc, emissive, occlusion with the LOD from the
      derivatives);
-  3. shading, split into the layers the post chain composites: direct
-     (punctual, shadowed by the cascaded shadow factor or by each light's
-     own shadow slices, + emissive),
-     ambient diffuse, ambient specular and the split-sum environment
-     factor.
+  3. shading, with the material extension layers the scene uses (clear
+     coat, sheen, anisotropy, iridescence, transmission, volume), split
+     into the layers the post chain composites: direct (punctual,
+     shadowed by the cascaded shadow factor or by each light's own shadow
+     slices, + emissive), ambient diffuse, ambient specular and the
+     split-sum environment factor.
 
 The port reads no environment: `render_gbuffer`'s `fuse` argument stands
 for the JAX package's DFX_FUSE.
@@ -114,15 +115,19 @@ def _vertex_inputs(scene: ScenePrimitives, info: RenderInfo,
                              prev_clip[:, 3]], dim=-1)
     attrs = ([world_pos] if include_pos else []) + [world_nrm, prev_cxyw]
     if use_textures:
-        # tangents transform like normals (rigid / uniform scale), by the
-        # node matrices alone as in the JAX package
-        vm = scene.node_matrices[scene.vertex_node.long()]
-        t = scene.tangents
-        tan3 = m3.normalize(t[:, 0:1] * vm[:, 0, :3] + t[:, 1:2] * vm[:, 1, :3]
-                            + t[:, 2:3] * vm[:, 2, :3])
-        attrs += [scene.uvs, tan3, t[:, 3:4]]
+        attrs += [scene.uvs, _node_tangents(scene), scene.tangents[:, 3:4]]
     packed = torch.cat(attrs, dim=-1)
     return clip, winv, packed, packed.shape[1]
+
+
+def _node_tangents(scene: ScenePrimitives) -> Tensor:
+    """World tangents (V, 3) for the shading: transformed like normals
+    (rigid / uniform scale) by the NODE matrices alone, skinned or not, as
+    the JAX package does (deferred.py:97-102)."""
+    vm = scene.node_matrices[scene.vertex_node.long()]
+    t = scene.tangents
+    return m3.normalize(t[:, 0:1] * vm[:, 0, :3] + t[:, 1:2] * vm[:, 1, :3]
+                        + t[:, 2:3] * vm[:, 2, :3])
 
 
 UV0 = 6     # channel of u in the packed attributes (after normal, prev clip)
@@ -187,29 +192,22 @@ def _two_pass_raster(scene: ScenePrimitives, info: RenderInfo, *,
     return vb, clip, winv, packed
 
 
-def _fuse_ok(scene: ScenePrimitives, fuse: str) -> bool:
+def _fuse_ok(scene: ScenePrimitives, fuse: str, use_textures: bool) -> bool:
     """Whether the fused raster K1 serves this scene (JAX deferred.py:172):
     "on" and "off" force it (the port's stand-in for DFX_FUSE); "auto"
     fuses unless the scene has an alpha-mask tail, whose resolve rewrites
-    the raster's winners.  The JAX package fuses only on its accelerator;
-    K1 has a plain version wherever the port runs, and the port has taken
-    the fused path on every device since it began, so "auto" keeps that
-    choice for scenes without a mask tail."""
+    the raster's winners, or anisotropy without textures: K1 then carries
+    no tangents, and the two-pass route interpolates them from its
+    barycentrics.  The JAX package fuses only on its accelerator; K1 has
+    a plain version wherever the port runs, and the port has taken the
+    fused path on every device since it began, so "auto" keeps that choice
+    for the other scenes."""
     if fuse not in ("auto", "on", "off"):
         raise ValueError(f"fuse must be auto, on or off, got {fuse!r}")
     if fuse != "auto":
         return fuse == "on"
-    return scene.mask_indices is None
-
-
-def _check_supported(scene: ScenePrimitives):
-    for name in ("joints", "materials_sheen", "materials_anisotropy",
-                 "materials_iridescence", "materials_transmission",
-                 "materials_volume"):
-        if getattr(scene, name) is not None:
-            raise NotImplementedError(
-                f"scene.{name} is not ported yet: skinning, animation and "
-                "the material extensions, ROADMAP.md §1 item 5")
+    return scene.mask_indices is None and (
+        use_textures or scene.materials_anisotropy is None)
 
 
 def _slot_sample(scene: ScenePrimitives, info: RenderInfo, atlas,
@@ -243,7 +241,8 @@ def _shade_band(scene: ScenePrimitives, info: RenderInfo, ibl_maps, env_oct,
                 use_ibl: bool, use_lights: bool, fast_env: bool,
                 atlas=None, use_textures: bool = False, shadow_mode=None,
                 pcf_kernel_size: int = 3, light_shadow_kinds: tuple = (),
-                two_pass=None) -> GBufferData:
+                two_pass=None, enable_clearcoat: bool = False
+                ) -> GBufferData:
     """Deferred shading of the whole padded frame (JAX deferred.py:224),
     from the fused kernel's channel-first output `fused_px`, or, when it
     is None, from the two-pass visibility `vb` (with barycentrics) and
@@ -324,10 +323,11 @@ def _shade_band(scene: ScenePrimitives, info: RenderInfo, ibl_maps, env_oct,
     roughness = mgrp(8, 9)
     occlusion = torch.ones_like(metallic)
 
-    if use_textures and atlas is not None:
+    if use_textures:
         uv_px = grp(ao + 6, ao + 8)
         tan_px = grp(ao + 8, ao + 11)
         tan_sign = grp(ao + 11, ao + 12)
+    if use_textures and atlas is not None:
         slot_sample = functools.partial(_slot_sample, scene, info, atlas,
                                         mat_id.long(), uv_px, duv_dx, duv_dy)
         bc_t, bc_on = slot_sample(0)
@@ -364,14 +364,88 @@ def _shade_band(scene: ScenePrimitives, info: RenderInfo, ibl_maps, env_oct,
     srf = brdf.SurfaceReflectanceInfo(*(torch.where(is_sg, b, a)
                                         for a, b in zip(srf, srf_sg)))
     ndotv = torch.clamp(m3.dot(nrm_px, view), 0.0, 1.0)
+
+    # ---- the material extension layers (JAX deferred.py:417-497), each
+    # on for the whole frame once a material of the scene uses it (the
+    # analogue of the ENABLE_* macros) ---------------------------------------
+    mid = mat_id.long()
+    clearcoat = None
+    if enable_clearcoat:
+        clearcoat = sh.ClearcoatShadingInfo(
+            srf=sh.get_surface_reflectance_clearcoat(mgrp(13, 14)),
+            normal=nrm_px, factor=mgrp(12, 13))
+    sheen = None
+    if scene.materials_sheen is not None:
+        ms = scene.materials_sheen
+        sheen = sh.SheenShadingInfo(
+            color=ms.color_factor[mid],
+            roughness=torch.clamp(ms.roughness_factor[mid][..., None],
+                                  min=0.03))
+    anisotropy = None
+    if scene.materials_anisotropy is not None:
+        ma = scene.materials_anisotropy
+        strength = ma.strength[mid][..., None]
+        rot = ma.rotation[mid][..., None]
+        if not use_textures:
+            # the two-pass route (render_gbuffer): interpolate the tangents
+            packed_t = torch.cat([_node_tangents(scene),
+                                  scene.tangents[:, 3:4]], dim=-1)
+            ti = rz.interpolate_all(vb, scene.indices, packed_t,
+                                    two_pass[1])
+            tan_v, tan_s = ti[..., :3], ti[..., 3:4]
+        else:
+            tan_v, tan_s = tan_px, tan_sign
+        t_o = m3.normalize(tan_v - nrm_px * m3.dot(tan_v, nrm_px))
+        b_o = m3.cross(nrm_px, t_o) * tan_s
+        t_rot = m3.normalize(t_o * torch.cos(rot) + b_o * torch.sin(rot))
+        b_rot = m3.normalize(m3.cross(nrm_px, t_rot))
+        alpha_r = torch.clamp(roughness * roughness, min=1e-3)
+        anisotropy = sh.AnisotropyShadingInfo(
+            strength=strength, tangent=t_rot, bitangent=b_rot,
+            alpha_roughness_t=torch.clamp(alpha_r * (1.0 + strength),
+                                          min=1e-3),
+            alpha_roughness_b=alpha_r)
+    iridescence = None
+    if scene.materials_iridescence is not None:
+        mi = scene.materials_iridescence
+        factor = mi.factor[mid][..., None]
+        thickness = mi.thickness_maximum[mid][..., None]
+        iri_f = brdf.iridescence_fresnel(1.0, mi.ior[mid][..., None],
+                                         srf.reflectance0, thickness, ndotv)
+        iri_f0 = brdf.schlick_to_f0(ndotv, iri_f, torch.ones_like(iri_f))
+        # the base F0 mixed toward the thin film's (RenderPBR.psh:236-255)
+        srf = srf._replace(reflectance0=srf.reflectance0
+                           + (iri_f0 - srf.reflectance0) * factor)
+        iridescence = sh.IridescenceShadingInfo(
+            factor=factor, thickness=thickness, fresnel=iri_f, f0=iri_f0)
+    transmission = None
+    if scene.materials_transmission is not None:
+        transmission = scene.materials_transmission.factor[mid][..., None]
+    volume_thickness = volume_attenuation = None
+    if scene.materials_volume is not None:
+        mv = scene.materials_volume
+        volume_thickness = mv.thickness_factor[mid][..., None]
+        # Beer-Lambert sigma_t = -ln(attenuation colour) / distance, a
+        # material's row
+        sigma = (-torch.log(torch.clamp(mv.attenuation_color, min=1e-4))
+                 / torch.clamp(mv.attenuation_distance[..., None],
+                               min=1e-6))
+        volume_attenuation = sigma[mid]
+
     rp = info.renderer_params
     shading = sh.SurfaceShadingInfo(
         pos=pos_px, view=view, occlusion=occlusion,
         emissive=emissive * rp.emission_scale,
         base=sh.BaseLayerShadingInfo(srf=srf, metallic=metallic,
                                      normal=nrm_px, ndotv=ndotv),
-        ibl_scale=rp.ibl_scale[:3])
-    lighting = sh.default_lighting(pos_px)
+        ibl_scale=rp.ibl_scale[:3], clearcoat=clearcoat, sheen=sheen,
+        anisotropy=anisotropy, iridescence=iridescence,
+        transmission=transmission, volume_thickness=volume_thickness,
+        volume_attenuation=volume_attenuation)
+    # the sheen albedo-scaling LUT stays out, as in the JAX package's
+    # deferred shading (its crude fallback)
+    lighting = sh.default_lighting(pos_px, with_sheen=sheen is not None,
+                                   with_clearcoat=clearcoat is not None)
     if use_lights:
         shadow_factors = None
         if light_shadow_kinds:
@@ -389,8 +463,10 @@ def _shade_band(scene: ScenePrimitives, info: RenderInfo, ibl_maps, env_oct,
     scale = rp.ibl_scale[:3]
     if use_ibl and ibl_maps is not None:
         lighting = sh.apply_ibl(shading, ibl_maps, lighting, fast_env=fast_env)
-        amb_d = lighting.diffuse_ibl * scale
-        amb_s = lighting.specular_ibl * scale
+        amb_d = lighting.base.diffuse_ibl * scale
+        amb_s = lighting.base.specular_ibl * scale
+        # the split-sum factor SSR substitutes with: the iridescent F0 mix
+        # in, the iridescence k_s mix out, as in the JAX package
         if fast_env and ibl_maps.env_brdf_coeffs is not None:
             pre_int = brdf.env_brdf_fitted(ndotv, srf.perceptual_roughness,
                                            ibl_maps.env_brdf_coeffs)
@@ -409,12 +485,28 @@ def _shade_band(scene: ScenePrimitives, info: RenderInfo, ibl_maps, env_oct,
         amb_s = torch.zeros_like(base_color)
         spec_factor = torch.zeros_like(base_color)
 
-    direct = lighting.punctual + shading.emissive
+    direct = lighting.base.punctual + shading.emissive
     unlit = workflow == float(sh.PBR_WORKFLOW_UNLIT)
     direct = torch.where(unlit, base_color, direct)
     amb_d = torch.where(unlit, zero, amb_d)
     amb_s = torch.where(unlit, zero, amb_s)
     spec_factor = torch.where(unlit, zero, spec_factor)
+    # the extension layers fold into the direct / ambient split as
+    # ResolveLighting composes them (PBR_Shading.fxh:847-879)
+    if sheen is not None and lighting.sheen is not None:
+        direct = direct + lighting.sheen.punctual
+        amb_s = amb_s + lighting.sheen.specular_ibl * scale
+    if clearcoat is not None and lighting.clearcoat is not None:
+        cc_ndotv = torch.clamp(m3.dot(clearcoat.normal, view), min=0.1)
+        cc_fresnel = brdf.schlick_reflection(
+            cc_ndotv, clearcoat.srf.reflectance0[..., 0:1],
+            clearcoat.srf.reflectance90[..., 0:1])
+        atten = 1.0 - clearcoat.factor * cc_fresnel
+        direct = (direct * atten
+                  + lighting.clearcoat.punctual * clearcoat.factor)
+        amb_d = amb_d * atten
+        amb_s = (amb_s * atten
+                 + lighting.clearcoat.specular_ibl * scale * clearcoat.factor)
 
     ray = _camera_rays(info.camera, pad_w, pad_h)
     if fast_env:
@@ -463,17 +555,22 @@ def render_gbuffer(scene: ScenePrimitives, info: RenderInfo, ibl_maps,
     light_shadow_factors: info carries the per-light slices, and the
     cascades for "csm"), else the cascaded shadow factor when
     `shadow_mode` is set (info carries the shadow attribs, maps and
-    moments)."""
-    if enable_clearcoat or emit_debug:
-        raise NotImplementedError("clear coat and debug AOVs are not ported "
-                                  "yet (later slices: ROADMAP.md §1 items 5 "
-                                  "and 6)")
+    moments).  The scene's material extensions (sheen, anisotropy,
+    iridescence, transmission, volume) and, with `enable_clearcoat`, the
+    clear coat of the material table shade every pixel once present;
+    skinned scenes blend their joints in the vertex stage."""
+    if emit_debug:
+        raise NotImplementedError("debug AOVs are not ported yet (a later "
+                                  "slice: ROADMAP.md §1 item 6)")
     if shadow_mode is not None and info.shadow_attribs is None:
         raise ValueError("shadow_mode needs info.shadow_attribs and maps")
-    _check_supported(scene)
     pad_w, pad_h = rz.pad_viewport(width, height, cfg)
     two_pass = None
-    if _fuse_ok(scene, fuse):
+    if _fuse_ok(scene, fuse, use_textures):
+        if scene.materials_anisotropy is not None and not use_textures:
+            raise ValueError("anisotropy without textures needs the two-pass "
+                             "route (fuse 'auto' or 'off'): the fused raster "
+                             "carries no tangents")
         vb, fused_px, _stats = _fused_raster(
             scene, info, pad_w=pad_w, pad_h=pad_h, cfg=cfg,
             use_textures=use_textures)
@@ -488,6 +585,6 @@ def render_gbuffer(scene: ScenePrimitives, info: RenderInfo, ibl_maps,
                      use_textures=use_textures, shadow_mode=shadow_mode,
                      pcf_kernel_size=pcf_kernel_size,
                      light_shadow_kinds=light_shadow_kinds,
-                     two_pass=two_pass)
+                     two_pass=two_pass, enable_clearcoat=enable_clearcoat)
     return GBufferData(*(x[:height, :width] if isinstance(x, torch.Tensor)
                          else x for x in gb))

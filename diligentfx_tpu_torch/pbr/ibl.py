@@ -1,5 +1,5 @@
 """IBL precompute (the port of diligentfx_tpu/pbr/ibl.py): split-sum BRDF
-LUT, SH-9 irradiance, GGX-prefiltered octahedral mip chain, the
+LUT, the Charlie sheen LUT, SH-9 irradiance, GGX-prefiltered octahedral mip chain, the
 tensor-Chebyshev fit of the LUT and the footprint-packed pyramid.
 
 Runs once at PBRRenderer construction; sample loops are plain Python loops
@@ -64,6 +64,34 @@ def precompute_brdf_lut(dim: int = 512, num_samples: int = 512,
         fc = brdf.pow5(1.0 - vdoth)
         acc = acc + torch.stack([(1.0 - fc) * g_vis, fc * g_vis], dim=-1)
     return acc / num_samples
+
+
+def precompute_charlie_lut(dim: int = 64, num_samples: int = 256,
+                           device=None) -> Tensor:
+    """Preintegrated Charlie sheen BRDF (directional albedo), (dim, dim, 1):
+    x-axis NdotV, y-axis sheen roughness; uniform hemisphere samples summed
+    one after the other, in the JAX package's fori_loop order."""
+    t = (torch.arange(dim, dtype=torch.float32, device=device) + 0.5) / dim
+    r, nv = torch.meshgrid(t, t, indexing="ij")
+    nv = torch.clamp(nv, min=1e-3)
+    v = torch.stack([torch.sqrt(1.0 - nv * nv), torch.zeros_like(nv), nv],
+                    dim=-1)
+    u1, u2 = _hammersley(num_samples, device)
+    ones = torch.ones_like(nv)
+    acc = torch.zeros_like(nv)
+    for i in range(num_samples):
+        cos_t = u1[i]
+        sin_t = torch.sqrt(torch.clamp(1.0 - cos_t * cos_t, min=0.0))
+        phi = 2.0 * PI * u2[i]
+        l = torch.stack([sin_t * torch.cos(phi) * ones,
+                         sin_t * torch.sin(phi) * ones, cos_t * ones], dim=-1)
+        h = normalize(v + l)
+        ndotl = saturate(l[..., 2])
+        ndoth = saturate(h[..., 2])
+        acc = acc + (brdf.ndf_charlie(ndoth, r)
+                     * brdf.sheen_visibility(ndotl, nv, r) * ndotl)
+    # the pdf of uniform hemisphere sampling is 1 / (2 pi)
+    return (acc * (2.0 * PI) / num_samples)[..., None]
 
 
 _SH_A = (PI, 2.0 * PI / 3.0, 2.0 * PI / 3.0, 2.0 * PI / 3.0,
@@ -168,15 +196,21 @@ def fit_env_brdf(lut: Tensor, k: int = 8) -> Tensor:
 def precompute_ibl_maps(env_oct: Tensor, *, brdf_lut_dim: int = 512,
                         num_brdf_samples: int = 512, irradiance_dim: int = 64,
                         prefiltered_dim: int = 256, num_mips: int = 7,
-                        num_spec_samples: int = 256) -> IBLMaps:
-    """One-stop IBL precompute (PBR_Renderer::PrecomputeCubemaps)."""
+                        num_spec_samples: int = 256,
+                        charlie_dim: int = 64) -> IBLMaps:
+    """One-stop IBL precompute (PBR_Renderer::PrecomputeCubemaps).  The
+    sheen albedo-scaling LUT is the Charlie LUT itself (the same integral,
+    as in the JAX package)."""
     lut = precompute_brdf_lut(brdf_lut_dim, num_brdf_samples, env_oct.device)
+    charlie = precompute_charlie_lut(charlie_dim, 256, env_oct.device)
     pref = prefilter_env_ggx_oct(env_oct, prefiltered_dim, num_mips,
                                  num_spec_samples)
     return IBLMaps(
         irradiance=precompute_irradiance_oct(env_oct, irradiance_dim),
         prefiltered=pref,
         preintegrated_ggx=lut,
+        preintegrated_charlie=charlie,
+        sheen_albedo_scaling=charlie,
         irradiance_sh=project_sh9(env_oct),
         env_brdf_coeffs=fit_env_brdf(lut),
         pref_packed=build_packed_pyramid(pref),

@@ -37,9 +37,13 @@ Tensor = torch.Tensor
 
 
 class ScenePrimitives(NamedTuple):
-    """Packed scene (JAX renderer.py:47).  The optional fields the port does
-    not render yet (material extensions, skinning) must stay None;
-    render_gbuffer raises otherwise.
+    """Packed scene (JAX renderer.py:47).
+
+    materials_sheen ... materials_volume: the stacked extension attribs
+    (attribs.py), each None when no material uses it.  joints (V, 4) int32
+    (-1 for an unskinned vertex) and weights (V, 4) blend the world-space
+    joint matrices (J, 4, 4) (inverse bind @ joint world, from the host);
+    prev_joint_matrices are the previous frame's, for motion vectors.
 
     mask_indices: the ALPHA_MODE_MASK triangles, which are the TAIL of
     `indices` (the opaque raster takes indices[:T - Tm]; the tail goes
@@ -166,15 +170,30 @@ class RenderInfo(NamedTuple):
 
 def transform_vertices(scene: ScenePrimitives, model: Optional[Tensor] = None,
                        previous: bool = False):
-    """Vertex stage: node matrix per vertex + batched exact-fp32 transform.
+    """Vertex stage: node matrix per vertex + batched exact-fp32 transform;
+    with skinning data, the four-joint blend of the current (or, with
+    `previous`, the previous frame's) joint matrices replaces the node
+    matrix of every vertex whose weights sum above 1e-6 (JAX
+    renderer.py:187-196; RenderPBR.vsh).  The blend is fp32 multiply-adds,
+    w0 M[j0] + ... + w3 M[j3], in the range dfx.skinning.
     Returns (world_pos (V,3), world_normal (V,3), world_tangent (V,3))."""
-    if scene.joints is not None:
-        raise NotImplementedError("skinning is not ported yet (later slice: "
-                                  "ROADMAP.md §1 item 5)")
     mats = scene.prev_node_matrices if previous else scene.node_matrices
     if model is not None:
         mats = torch.stack([m3.mul44(m, model) for m in mats])
     vm = mats.reshape(-1, 16)[scene.vertex_node.long()].reshape(-1, 4, 4)
+    if scene.joints is not None:
+        with torch.profiler.record_function("dfx.skinning"):
+            jm = (scene.prev_joint_matrices
+                  if previous and scene.prev_joint_matrices is not None
+                  else scene.joint_matrices).reshape(-1, 16)
+            jidx = torch.clamp(scene.joints, min=0).long()
+            jw = scene.weights
+            skin_m = jw[:, 0:1] * jm[jidx[:, 0]]
+            for k in range(1, 4):
+                skin_m = skin_m + jw[:, k:k + 1] * jm[jidx[:, k]]
+            skinned = torch.sum(jw, dim=-1, keepdim=True) > 1e-6
+            vm = torch.where(skinned[..., None], skin_m.reshape(-1, 4, 4),
+                             vm)
     p = scene.positions
     world = (p[:, 0:1] * vm[:, 0, :3] + p[:, 1:2] * vm[:, 1, :3]
              + p[:, 2:3] * vm[:, 2, :3] + vm[:, 3, :3])

@@ -727,3 +727,94 @@ def test_sample_heap_matches_cpu(cuda, lod):
                           wrap_u=wrap[..., 0].to(d), wrap_v=wrap[..., 1].to(d))
            for h, d in zip(heaps, ("cpu", cuda))]
     assert torch.allclose(out[1].cpu(), out[0], rtol=0, atol=1e-6)
+
+
+def _showroom(device, **kw):
+    """chip_smoke.py's ext_skin showroom without the atrium, at a small
+    size, animated to t = 0.4 s (previous 0.3 s): (RenderScene, meta)."""
+    import chip_smoke as cs
+    from diligentfx_tpu_torch.gltf.model import update_animation
+    model, rs, player, meta = cs.ext_skin_model(device, atrium=False,
+                                                normal_size=64, **kw)
+    return update_animation(rs, model, player, 0.4, 0.3), meta
+
+
+def test_skin_blend_matches_cpu(cuda):
+    """transform_vertices of the skinned showroom (two figures of 32
+    joints, the unskinned spheres) on the card against the CPU, current and
+    previous frame: world positions bit for bit (the blend is fp32
+    multiply-adds, one operation a kernel: no FMA, no TF32), normals and
+    tangents within 1e-6 (the card's rsqrt)."""
+    from diligentfx_tpu_torch.pbr.renderer import transform_vertices
+    scenes = [_showroom(d, n_figures=2, sphere=(12, 24), tube=(8, 2))[0]
+              for d in ("cpu", cuda)]
+    for previous in (False, True):
+        a, b = (transform_vertices(rs.scene, previous=previous)
+                for rs in scenes)
+        assert torch.equal(a[0], b[0].cpu())
+        for x, y in zip(a[1:], b[1:]):
+            torch.testing.assert_close(y.cpu(), x, rtol=0, atol=1e-6)
+    sc = scenes[1].scene
+    assert bool((sc.weights.sum(-1) > 0).any())
+    assert bool((sc.joints == -1).any())
+
+
+def test_charlie_lut_and_iridescence_match_cpu(cuda):
+    """precompute_charlie_lut (64^2, 256 samples) and iridescence_fresnel
+    (random IORs, base F0, 0-1200 nm films, all angles) on the card
+    against the CPU: within 1e-5 (the card's pow, exp, cos and sqrt differ
+    from the CPU's in the last bits; the LUT sums 256 of them)."""
+    from diligentfx_tpu_torch.pbr import brdf, ibl
+    lut = [ibl.precompute_charlie_lut(64, 256, device=d)
+           for d in ("cpu", cuda)]
+    torch.testing.assert_close(lut[1].cpu(), lut[0], rtol=0, atol=1e-5)
+    g = np.random.default_rng(3)
+    args = [g.uniform(1.0, 2.5, (4096, 1)), g.uniform(0.02, 1.0, (4096, 3)),
+            g.uniform(0.0, 1200.0, (4096, 1)), g.uniform(0.0, 1.0,
+                                                         (4096, 1))]
+    args = [torch.from_numpy(a.astype(np.float32)) for a in args]
+    cpu = brdf.iridescence_fresnel(1.0, *args)
+    gpu = brdf.iridescence_fresnel(1.0, *(a.to(cuda) for a in args))
+    assert float(cpu.max() - cpu.min()) > 0.5
+    torch.testing.assert_close(gpu.cpu(), cpu, rtol=1e-5, atol=1e-5)
+
+
+def test_raster_kernel_at_skinned_dense_scene(cuda):
+    """K1 against its plain version at the textured G-buffer inputs of the
+    skinned showroom (two figures of 12,288 triangles, six spheres of
+    2,208) at 512 x 256: depth, ids and every channel bit for bit."""
+    import chip_smoke as cs
+    from diligentfx_tpu_torch import math3d as m3
+    from diligentfx_tpu_torch.attribs import (CameraAttribs,
+                                              PBRLightAttribs,
+                                              PBRRendererShaderParameters)
+    from diligentfx_tpu_torch.pbr.deferred import fused_raster_inputs
+    from diligentfx_tpu_torch.pbr.renderer import RenderInfo
+    rs, _ = _showroom(cuda, n_figures=2, sphere=(24, 48))
+    w, h = 512, 256
+    eye = [0.0, 2.5, 14.0]
+    info = RenderInfo(
+        camera=CameraAttribs.create(
+            m3.look_at(eye, [0.0, 1.0, 0.0], device=cuda),
+            m3.perspective(0.8, w / h, 0.1, 50.0, device=cuda), eye, 0.1,
+            50.0, w, h, device=cuda),
+        lights=PBRLightAttribs.directional(cs.FULL_CHAIN_SUN, [4, 4, 4],
+                                           device=cuda),
+        renderer_params=PBRRendererShaderParameters.create(device=cuda))
+    # up to 3,056 candidates in one 8 x 128 sub-bin
+    cfg = RasterizerConfig(tile_h=32, tile_w=128, bin_capacity=16384,
+                           max_tiles_per_tri=16, big_tri_capacity=256,
+                           chunk=8, pair_compaction_cap=1 << 18, sub_bins=4,
+                           big_tile_capacity=64)
+    k = fused_raster_inputs(rs.scene, info, pad_w=w, pad_h=h, cfg=cfg,
+                            use_textures=True)
+    assert int(k.stats.bin_overflow) == int(k.stats.big_overflow) == 0
+    args = (k.setup, k.planes, k.candidates, k.counts, k.mat_table, k.rects)
+    z, tid, out = trk.raster_tiles_fused(*args, **k.kernel_kw)
+    torch.cuda.synchronize()
+    zp, tidp, outp = trk.raster_tiles_fused_plain(*args, **k.kernel_kw)
+    assert torch.equal(tid, tidp)
+    hit = tid >= 0
+    assert 0.02 < float(hit.float().mean()) < 0.9
+    assert torch.equal(z[hit], zp[hit])
+    assert torch.equal(out[:, hit], outp[:, hit])

@@ -290,19 +290,20 @@ def test_load_gltf_bytes_matches_jax(tmp_path):
 
 def assert_scene_equal(ref, got):
     """Every array of a JAX RenderScene equals the port's: the scene's
-    fields (None where the JAX one is None), its materials, the atlas
+    fields (None where the JAX one is None), its materials and material
+    extensions field by field, the atlas
     (mips, scale_bias, layer) or the texture heap (texels, mip_base,
     mip_size), the lights and the node slots."""
     rs, gs = ref.scene, got.scene
     for f in type(gs)._fields:
         a, b = getattr(rs, f), getattr(gs, f)
-        if f == "materials":
-            for g in type(b)._fields:
+        assert (a is None) == (b is None), f
+        if f.startswith("materials"):
+            for g in (type(b)._fields if b is not None else ()):
                 np.testing.assert_array_equal(
                     np.asarray(getattr(a, g)), getattr(b, g).numpy(),
-                    err_msg=g)
+                    err_msg=f"{f}.{g}")
             continue
-        assert (a is None) == (b is None), f
         if a is not None:
             a = np.array(a)
             assert b.dtype == torch.from_numpy(a).dtype, f
@@ -366,8 +367,13 @@ def test_build_render_scene_all_blend(tmp_path):
 
 def test_unported_options_raise(tmp_path):
     """The texture heap ("array" mode) builds the JAX package's scene and
-    heap (an unknown mode raises ValueError); material extensions and
-    skins raise, naming their ROADMAP item."""
+    heap (an unknown mode raises ValueError); a material with every
+    extension and a skinned quad (a node with a skin, its primitive without
+    joints: -1 joints, zero weights, one identity joint matrix) build the
+    JAX package's scenes, and update_animation of the skinned quad equals
+    the JAX package's, with and without a previous time."""
+    from diligentfx_tpu.gltf.animation import AnimationPlayer as JPlayer
+    from diligentfx_tpu_torch.gltf.animation import AnimationPlayer
     from tests.test_gltf import make_quad_gltf
     path = mixed_scene(str(tmp_path / "mixed.gltf"))
     model = tloader.load_gltf(path)
@@ -379,12 +385,29 @@ def test_unported_options_raise(tmp_path):
     with pytest.raises(ValueError, match="texture_binding_mode"):
         tmodel.build_render_scene(model, texture_binding_mode="bindless",
                                   device="cpu")
-    model.materials[0].sheen_color = (0.5, 0.5, 0.5)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tmodel.build_render_scene(model, device="cpu")
-    model = tloader.load_gltf(make_quad_gltf(str(tmp_path)))
-    model.nodes[0].skin = 0
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tmodel.build_render_scene(model, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tmodel.update_animation(None, model, None, 0.0)
+    jmodel_ = jloader.load_gltf(path)
+    for m in (model, jmodel_):
+        mat = m.materials[0]
+        mat.sheen_color, mat.sheen_roughness = (0.5, 0.4, 0.3), 0.6
+        mat.anisotropy_strength, mat.anisotropy_rotation = 0.7, 0.4
+        mat.iridescence_factor, mat.iridescence_ior = 1.0, 1.4
+        mat.transmission_factor = 0.9
+        mat.volume_thickness = 0.5
+        mat.volume_attenuation_color = (0.9, 0.5, 0.2)
+    got = tmodel.build_render_scene(model, device="cpu")
+    assert_scene_equal(jmodel.build_render_scene(jmodel_), got)
+    assert got.scene.materials_volume.attenuation_color.shape == (
+        len(model.materials), 3)
+    qpath = make_quad_gltf(str(tmp_path))
+    model, jm_ = tloader.load_gltf(qpath), jloader.load_gltf(qpath)
+    model.nodes[0].skin = jm_.nodes[0].skin = 0
+    got = tmodel.build_render_scene(model, device="cpu")
+    ref = jmodel.build_render_scene(jm_)
+    assert_scene_equal(ref, got)
+    assert got.scene.joints.tolist() == [[-1] * 4] * 4
+    assert got.scene.joint_matrices.shape == (1, 4, 4)
+    player, jplayer = AnimationPlayer(model, []), JPlayer(jm_, [])
+    for prev_t in (None, 0.5):
+        assert_scene_equal(
+            jmodel.update_animation(ref, jm_, jplayer, 1.0, prev_t),
+            tmodel.update_animation(got, model, player, 1.0, prev_t))
