@@ -9,8 +9,9 @@ mask / blend frame of a glTF file it writes (alpha-masked screens, glass
 panes through K-layer OIT), the light / heap frame of another (spot,
 point and sun shadows through the shadow atlas, textures at their native
 sizes in the texture heap) and the ext_skin frame of a third (the glTF
-material extensions, skinned figures and their animation), and checks
-them.
+material extensions, skinned figures and their animation) and that
+showroom's editor frame (selection, grid, bound box, vector field, depth
+bounds, the debug views), and checks them.
 
 Phases (any failure exits non-zero; no phase is skipped):
   1. build csrc/*.cu with nvcc (one process per source, all at once);
@@ -140,7 +141,26 @@ Phases (any failure exits non-zero; no phase is skipped):
      frame), update_animation alone and 3 profiled frames (the
      dfx.gbuffer, dfx.shadows and dfx.skinning ranges);
  23. two 256x128 ext_skin frames of the showroom without the atrium on
-     the GPU against the port's CPU path.
+     the GPU against the port's CPU path;
+ 24. the editor frame: phase 22's showroom and frame with the editor's
+     components on (selection, coordinate grid, bound box, vector field,
+     depth bounds): figure 0 and sphere 0 selected, the bound box around
+     figure 0's skinned vertices, each frame's cascades fitted to the
+     previous frame's depth range; one warm-up frame, then --frames timed
+     frames with the counts zeroed just before and read just after (K1 1,
+     K2 20, K3 1, K4 4 a frame); the probes (the selection keeps its
+     colour and desaturates the rest, one outline band at most
+     selection_outline_width px wide, the grid, box and vector field
+     change pixels, the depth range and the cascades fitted to it,
+     reset_taa, emit_aovs=False bit-equal, vis_only on both raster
+     routes); 3 profiled frames with the IRIDESCENCE view (the
+     dfx.components and dfx.debug_view ranges); every debug view but NONE,
+     one frame each, timed as a whole, finite, zero where nothing was hit,
+     each extension view differing between its sphere and the columns;
+ 25. two 256x128 editor frames of the showroom without the atrium (the
+     overlays, the IRIDESCENCE view; the first on the fused K1 route, the
+     second on the two-pass K4 route) on the GPU against the port's CPU
+     path.
 
 Prints the median frame times, one JSON line with each kernel's launches,
 times and bound, the card's name and power limit, and last
@@ -154,11 +174,13 @@ Usage: python3 chip_smoke.py [--frames N] [--out-png PATH] [--profile PATH]
        python3 chip_smoke.py --only oit [--profile PATH] [--root DIR]
        python3 chip_smoke.py --only lights [--profile PATH] [--root DIR]
        python3 chip_smoke.py --only ext_skin [--profile PATH] [--root DIR]
+       python3 chip_smoke.py --only editor [--profile PATH] [--root DIR]
 (the second runs phases 1, 3 and 13 alone, K6 on random taps; the third
 phases 1, 2, 8 without the csm frame, and 11 without the full-chain frame;
 the fourth phases 1 and 9; the fifth phase 1, one bench frame for its
 G-buffer, and phases 5 and 6; the sixth phases 1, 15 and 16; the seventh
-phases 1, 18 and 19; the eighth phases 1, 21 and 22; each on the port of
+phases 1, 18 and 19; the eighth phases 1, 21 and 22; the ninth phases 1,
+24 and 25; each on the port of
 the checkout DIR: run it in two checkouts in turn, A B B A, to compare
 them in one call)
 """
@@ -813,23 +835,34 @@ def frame_args(scene, frame_info):
 
 
 def timed_frames(tm, scene, frame_info, frames, expected, label,
-                 warp_launches, warmup_wrap=None, execute_kw=None):
+                 warp_launches, warmup_wrap=None, execute_kw=None,
+                 settings_of=None, on_output=None):
     """One warm-up frame of tm.execute on frame_info() (called once a
     frame), which must launch K2 at the shapes of `warp_launches`
     (WARP_SHAPES name -> launches), then `frames` timed frames (host clock
     ending in a synchronise, CUDA events beside it), with the launch counts
     zeroed just before and read just after and held to `expected` a frame.
     `warmup_wrap(fn)`, when given, wraps the warm-up frame's call (to
-    observe it); `execute_kw` are more keywords of execute.  Returns (last
-    output, state, host ms list, device ms list, launches)."""
+    observe it); `execute_kw` are more keywords of execute;
+    `settings_of()`, when given, makes each frame's FrameSettings (after
+    frame_info), else bench_settings(); `on_output(out)` sees each
+    frame's output.  Returns (last output, state, host ms list, device ms
+    list, launches)."""
     import torch
-    settings = bench_settings()
+    settings_of = settings_of or bench_settings
+    on_output = on_output or (lambda out: None)
     state = tm.initial_state(W, H)
     execute_kw = execute_kw or {}
 
+    def frame(state):
+        args = frame_args(scene, frame_info)
+        out = tm.execute(*args, state, width=W, height=H,
+                         settings=settings_of(), **execute_kw)
+        on_output(out)
+        return out
+
     def warmup():
-        return tm.execute(*frame_args(scene, frame_info), state, width=W,
-                          height=H, settings=settings, **execute_kw)
+        return frame(state)
     out, shapes = warp_launch_shapes(warmup_wrap(warmup) if warmup_wrap
                                      else warmup)
     want = sorted(((h, w, c), halo) for name, n in warp_launches.items()
@@ -850,8 +883,7 @@ def timed_frames(tm, scene, frame_info, frames, expected, label,
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         ev0.record()
-        out = tm.execute(*frame_args(scene, frame_info), state, width=W,
-                         height=H, settings=settings, **execute_kw)
+        out = frame(state)
         state = out.state
         ev1.record()
         torch.cuda.synchronize()
@@ -1254,8 +1286,9 @@ PORT_KERNELS = ("raster_fused_kernel", "warp_tap_", "march_kernel",
 STAGES = ("dfx.shadows", "dfx.light_shadows", "dfx.gbuffer",
           "dfx.raster_inputs", "dfx.skinning",
           "dfx.alpha_mask", "dfx.context_composite", "dfx.ssao", "dfx.ssr",
-          "dfx.oit", "dfx.light_scattering", "dfx.exposure",
-          "dfx.taa_bloom_tonemap", "dfx.dof")
+          "dfx.oit", "dfx.components", "dfx.light_scattering",
+          "dfx.exposure", "dfx.taa_bloom_tonemap", "dfx.debug_view",
+          "dfx.dof")
 
 
 # the kernel-name keys whose device time came from CUDA events because
@@ -1291,36 +1324,39 @@ def phase_raster_inputs_host(scene, info, cfg, frames):
 
 
 def phase_profile(tm, scene, frame_info, frames, path, label,
-                  ranges=("dfx.shadows",), execute_kw=None):
+                  ranges=("dfx.shadows",), execute_kw=None,
+                  settings_of=None):
     """Where a frame's time goes: torch.profiler over `frames` frames of
     HnTaskManager.execute on frame_info() (the csm and light / heap frames'
     shadow passes included): device time of each stage (the dfx.* ranges;
     dfx.raster_inputs and dfx.alpha_mask lie inside dfx.gbuffer, dfx.ssao,
-    dfx.ssr, dfx.oit, dfx.light_scattering and dfx.exposure inside
-    dfx.context_composite, dfx.dof inside dfx.taa_bloom_tonemap,
+    dfx.ssr, dfx.oit, dfx.components, dfx.light_scattering and
+    dfx.exposure inside dfx.context_composite, dfx.dof, dfx.debug_view
+    and the vector field's dfx.components inside dfx.taa_bloom_tonemap,
     dfx.shadows and dfx.light_shadows before them all) and
     of each kernel, and the device's idle share; for the stages of `ranges`
     that ran, their kernels and host ops (range_breakdown).  A stage's
     device time leaves out the port's own kernels (PORT_KERNELS), printed
-    on a line of their own.  `execute_kw` are more keywords of execute.
-    Writes the profiler's table to `path` (none when empty); returns the
-    stages' and ranges' numbers."""
+    on a line of their own.  `execute_kw` are more keywords of execute,
+    `settings_of()` makes each frame's FrameSettings (bench_settings by
+    default).  Writes the profiler's table to `path` (none when empty);
+    returns the stages' and ranges' numbers."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    settings = bench_settings()
+    settings_of = settings_of or bench_settings
     execute_kw = execute_kw or {}
     state = tm.execute(*frame_args(scene, frame_info),
                        tm.initial_state(W, H), width=W, height=H,
-                       settings=settings, **execute_kw).state
+                       settings=settings_of(), **execute_kw).state
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(frames):
-            state = tm.execute(*frame_args(scene, frame_info), state,
-                               width=W, height=H, settings=settings,
-                               **execute_kw).state
+            args = frame_args(scene, frame_info)
+            state = tm.execute(*args, state, width=W, height=H,
+                               settings=settings_of(), **execute_kw).state
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     per_frame = wall_ms / frames
@@ -3283,7 +3319,7 @@ def showroom_materials(normal_tex):
     aniso = {"anisotropyStrength": 0.8, "anisotropyRotation": 0.5}
     irid = {"iridescenceFactor": 1.0, "iridescenceIor": 1.3,
             "iridescenceThicknessMinimum": 100.0,
-            "iridescenceThicknessMaximum": 400.0}
+            "iridescenceThicknessMaximum": 600.0}
     trans = {"transmissionFactor": 1.0}
     vol = {"thicknessFactor": 0.5, "attenuationColor": [0.9, 0.5, 0.2],
            "attenuationDistance": 0.3}
@@ -3755,6 +3791,410 @@ def ext_skin_only(frames, profile):
                 ext_skin_frame=frame)
 
 
+# ---------------------------------------------------------------------------
+# the editor frame: the ext_skin showroom with the editor's components
+# (selection, coordinate grid, bound box, vector field, depth bounds) and
+# the debug views
+# ---------------------------------------------------------------------------
+
+EDITOR_SWITCHES = ("enable_selection", "enable_grid", "enable_bound_box",
+                   "enable_vector_field", "enable_depth_bounds")
+# each extension view (DebugViewType value) -> the showroom sphere
+# (EXT_KINDS index) whose extension it shows
+EXT_VIEW_SPHERE = {20: 0, 21: 0, 22: 0, 23: 0, 24: 1, 25: 1, 26: 1, 27: 2,
+                   28: 2, 29: 3, 30: 3, 31: 3, 32: 4, 33: 4}
+EDITOR_VIEW = "IRIDESCENCE"    # the profiled frames' view and phase 25's
+
+
+def editor_task_manager_ci(**kw):
+    """The ext_skin frame's configuration (csm_task_manager_ci) with the
+    editor's five switches on."""
+    import dataclasses
+    return dataclasses.replace(csm_task_manager_ci(),
+                               **{name: True for name in EDITOR_SWITCHES},
+                               **kw)
+
+
+def editor_frames(tm, model, rs, player, meta, w, h, device,
+                  size=SHADOW_SIZE):
+    """The editor frame's inputs, as ext_skin_frames gives the ext_skin
+    frame's, with frame i's cascades fitted to frame i-1's depth range
+    (its depth_range through adjust_cascade_range(..., 0.1, 100.0) into
+    distribute_cascades; the camera's range on the first frame): the
+    ComputeDepthBounds task's purpose.  Returns (frame_info, scene_of,
+    settings_of, on_output, cur): settings_of() is the frame's
+    FrameSettings, bench_settings with the selection (figure 0's and
+    sphere 0's mesh slots, -1 padded to 4) and the bound box of figure 0's
+    skinned vertices grown by 5 cm; on_output(out) keeps the frame's depth
+    range; cur holds the last depth range, the far distance the last
+    cascades were fitted to and their attribs."""
+    import torch
+    from diligentfx_tpu_torch import math3d as m3
+    from diligentfx_tpu_torch.components.shadow_map_manager import (
+        adjust_cascade_range, distribute_cascades)
+    from diligentfx_tpu_torch.gltf.model import update_animation
+    from diligentfx_tpu_torch.hydrogent.task_manager import BoundBoxParams
+    from diligentfx_tpu_torch.pbr.renderer import transform_vertices
+    fig = rs.mesh_node_ids.index(meta["figure_nodes"][0])
+    ball = rs.mesh_node_ids.index(meta["sphere_nodes"][0])
+    ids = torch.tensor([fig, ball, -1, -1], dtype=torch.int32, device=device)
+    fig_vertices = torch.nonzero(rs.scene.vertex_node == fig)[:, 0]
+    cur = {"rs": rs, "i": 0, "depth_range": None, "fit_far": None,
+           "attribs": None}
+
+    def frame_info():
+        i = cur["i"]
+        cur["i"] += 1
+        t = i / EXT_FPS
+        cur["rs"] = update_animation(cur["rs"], model, player, t,
+                                     t - 1.0 / EXT_FPS)
+        info = ext_skin_info(i, w, h, device)
+        near, far = 0.1, 100.0
+        if cur["depth_range"] is not None:
+            near, far = adjust_cascade_range(cur["depth_range"], 0.1, 100.0)
+            cur["fit_far"] = cur["depth_range"].scene_far_z
+        cam = info.camera
+        cur["attribs"] = distribute_cascades(
+            cam.view, m3.inverse(cam.view), cam.proj[0, 0], cam.proj[1, 1],
+            near, far, FULL_CHAIN_SUN, num_cascades=NUM_CASCADES,
+            shadow_map_size=size)
+        return tm.render_shadows(cur["rs"].scene, info, cur["attribs"],
+                                 shadow_map_size=size)
+
+    def settings_of():
+        wp = transform_vertices(cur["rs"].scene)[0][fig_vertices]
+        return bench_settings()._replace(
+            selected_ids=ids, bound_box=BoundBoxParams(
+                box_min=wp.amin(0) - 0.05, box_max=wp.amax(0) + 0.05))
+
+    def on_output(out):
+        cur["depth_range"] = out.depth_range
+    return frame_info, (lambda: cur["rs"].scene), settings_of, on_output, cur
+
+
+def _saturation(color):
+    return color.amax(-1) - color.amin(-1)
+
+
+def editor_probes(renderer, rs, meta, inputs, selection_width):
+    """What the editor frame claims, on one frame of its inputs (`inputs`
+    = (info, scene, settings)) rendered with TAA and bloom off, so each
+    overlay's pixels are exact: against the same frame with the overlays
+    off, the selected figure's and sphere's pixels keep their colour
+    (within 1e-5) and the other covered pixels lose saturation; the
+    outline band (unselected pixels over 0.5 and at most
+    `selection_width` px from the selection, by the port's jump flood)
+    takes one colour, which no pixel farther out has; the grid, the bound
+    box and the vector field each change pixels of the frame."""
+    import dataclasses
+    import torch
+    from diligentfx_tpu_torch.components.selection import \
+        closest_selected_location
+    from diligentfx_tpu_torch.hydrogent.task_manager import HnTaskManager
+    info, scene, settings = inputs
+    base = dataclasses.replace(csm_task_manager_ci(), enable_taa=False,
+                               enable_bloom=False)
+
+    def frame(**switches):
+        tm = HnTaskManager(renderer, dataclasses.replace(base, **switches),
+                           atlas=rs.atlas)
+        return tm.execute(scene, info, tm.initial_state(W, H), width=W,
+                          height=H, settings=settings)
+    off = frame()
+    gb = off.gbuffer
+    ids = settings.selected_ids
+    selected = ((gb.mesh_id[..., None] == ids) & (ids >= 0)).any(-1)
+    sel = frame(enable_selection=True)
+    n_sel = int(selected.sum())
+    kept = float((sel.color - off.color).abs()[selected].max())
+    loc = closest_selected_location(selected)
+    yg, xg = torch.meshgrid(torch.arange(H, device=DEVICE),
+                            torch.arange(W, device=DEVICE), indexing="ij")
+    d = torch.sqrt((loc[..., 0] - xg) ** 2 + (loc[..., 1] - yg) ** 2)
+    band = (d > 0.5) & (d <= selection_width) & ~selected
+    rest = gb.hit & ~selected & ~band
+    sat_ratio = float(_saturation(sel.color)[rest].mean()
+                      / _saturation(off.color)[rest].mean())
+    # the band's pixels all take the (tone-mapped) outline colour, up to
+    # the rounding of c + (o - c)
+    outline = sel.color[band]
+    oc = outline[0]
+    spread = float((outline - oc).abs().max())
+    far_out = (~selected & (d > selection_width + 0.5))
+    stray = int(((sel.color - oc).abs().amax(-1) <= 1e-5)[far_out].sum())
+    print(f"editor probe: {n_sel} selected pixels (figure 0, sphere 0) keep "
+          f"their colour within {kept:.3g}; the other covered pixels' "
+          f"saturation {sat_ratio:.3f} of the frame without the selection; "
+          f"outline band {int(band.sum())} pixels of colour "
+          f"{oc.tolist()} (spread {spread:.3g}), {stray} pixels of it "
+          f"farther than {selection_width} px", flush=True)
+    check(n_sel > 500 and kept <= 1e-5,
+          f"the selected pixels ({n_sel}) changed by {kept}")
+    check(sat_ratio < 0.8, f"unselected saturation ratio {sat_ratio}")
+    check(int(band.sum()) > 100 and spread <= 1e-5 and stray == 0,
+          "the selection outline is not one band of one colour at most "
+          f"{selection_width} px wide")
+    changed = {}
+    for name, least in (("enable_grid", 0.005 * W * H),
+                        ("enable_bound_box", 200),
+                        ("enable_vector_field", 1024)):
+        out = frame(**{name: True})
+        changed[name] = int(((out.color - off.color).abs().amax(-1)
+                             > 1e-3).sum())
+        check(changed[name] > least,
+              f"{name} changed {changed[name]} pixels, expected > {least}")
+    print(f"editor probe: pixels each overlay changes: {changed}",
+          flush=True)
+    return dict(selected_pixels=n_sel, selected_max_change=kept,
+                unselected_saturation_ratio=sat_ratio,
+                outline_pixels=int(band.sum()), overlay_pixels=changed)
+
+
+def editor_api_probes(tm, renderer, rs, frame_info, scene_of, settings_of,
+                      cur, state):
+    """The rest of the task manager's API on the editor frame: the depth
+    range (0 < near < far) and the cascades fitted to it, which end at or
+    before scene_far_z * 1.01; reset_taa zeroes the TAA sample counts (and
+    suspend_super_sampling); an emit_aovs=False frame's colour equals the
+    emit_aovs=True frame's bit for bit and has no shading AOVs; a
+    vis_only frame runs on the fused route (K1 1, K4 4: the cascades) and
+    on the two-pass route (K4 5)."""
+    import dataclasses
+    import torch
+    from diligentfx_tpu_torch.hydrogent.task_manager import HnTaskManager
+    dr = cur["depth_range"]
+    near, far = float(dr.scene_near_z), float(dr.scene_far_z)
+    end = float(cur["attribs"].cascade_cam_z_end[-1])
+    fit = float(cur["fit_far"])
+    print(f"editor probe: depth range {near:.4f}-{far:.4f} m, the last "
+          f"cascades fitted to {fit:.4f} m end at {end:.4f} m", flush=True)
+    check(0.0 < near < far, f"depth range {near}-{far}")
+    check(end <= fit * 1.01 * (1 + 1e-6),
+          f"the cascades end at {end} m, past {fit} * 1.01")
+    counts = [float(f(state).taa.sample_count.max())
+              for f in (lambda s: s, tm.reset_taa,
+                        tm.suspend_super_sampling)]
+    check(counts[0] >= 1.0 and counts[1] == counts[2] == 0.0,
+          f"reset_taa: sample counts {counts}")
+    inputs = (frame_info(), scene_of(), settings_of())
+    outs = {}
+    for emit in (True, False):
+        t = HnTaskManager(renderer, dataclasses.replace(tm.ci,
+                                                        emit_aovs=emit),
+                          atlas=rs.atlas)
+        outs[emit] = t.execute(inputs[1], inputs[0], state, width=W,
+                               height=H, settings=inputs[2])
+    same = torch.equal(outs[True].color, outs[False].color)
+    dropped = [f for f in ("normal_world", "base_color", "direct",
+                           "ambient_specular", "background", "debug")
+               if getattr(outs[False].gbuffer, f) is not None]
+    print(f"editor probe: the emit_aovs=False frame's colour bit-equal to "
+          f"the emit_aovs=True frame's: {same}; AOVs it kept of those it "
+          f"drops: {dropped}", flush=True)
+    check(same and not dropped and outs[True].gbuffer.direct is not None,
+          "emit_aovs=False changed the colour or kept a shading AOV")
+    vis = {}
+    for fuse in ("auto", "off"):
+        t = HnTaskManager(renderer, dataclasses.replace(tm.ci,
+                                                        vis_only=True),
+                          atlas=rs.atlas)
+        zero_launches()
+        out = t.execute(scene_of(), frame_info(), t.initial_state(W, H),
+                        width=W, height=H, settings=settings_of(), fuse=fuse)
+        torch.cuda.synchronize()
+        n = read_launches()
+        vis[fuse] = (n["raster_tiles_fused"], n["raster_tiles"])
+        check(bool(torch.isfinite(out.color).all()),
+              "the vis_only frame is not finite")
+    print(f"editor probe: vis_only frames' (K1, K4) launches, shadow pass "
+          f"included: fused {vis['auto']}, two-pass {vis['off']}",
+          flush=True)
+    check(vis == {"auto": (1, 4), "off": (0, 5)},
+          f"vis_only frames launched {vis}")
+    return dict(depth_range_m=(near, far), cascades_end_m=end,
+                cascades_fit_far_m=fit, emit_aovs_bit_equal=same,
+                vis_only_launches=vis)
+
+
+def debug_view_sweep(renderer, rs, meta, inputs):
+    """Every view but NONE, one frame each on an HnTaskManager with that
+    view_mode (the ext_skin configuration, the frame's inputs): finite and
+    zero where nothing was hit; each extension view (20-33) differs
+    between the sphere that carries its extension and the plain column
+    shafts (the means of their pixels, by more than 1e-3).  Returns the
+    sweep's seconds (synchronised) and the extension views' differences."""
+    import dataclasses
+    import torch
+    from diligentfx_tpu_torch.config import DebugViewType
+    from diligentfx_tpu_torch.hydrogent.task_manager import HnTaskManager
+    info, scene, _ = inputs
+    slot = rs.mesh_node_ids.index
+    shafts = torch.tensor([slot(n) for n in range(1, 24, 2)], device=DEVICE)
+    views = [v for v in DebugViewType if v != DebugViewType.NONE]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = {}
+    for view in views:
+        tm = HnTaskManager(renderer, dataclasses.replace(
+            csm_task_manager_ci(), view_mode=view), atlas=rs.atlas)
+        outs[view] = tm.execute(scene, info, tm.initial_state(W, H), width=W,
+                                height=H, settings=bench_settings())
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    diffs = {}
+    for view, out in outs.items():
+        color, gb = out.color, out.gbuffer
+        check(bool(torch.isfinite(color).all()), f"{view.name} not finite")
+        check(bool((color[~gb.hit] == 0).all()),
+              f"{view.name} is not zero where nothing was hit")
+        if view in EXT_VIEW_SPHERE:
+            ball = gb.mesh_id == slot(
+                meta["sphere_nodes"][EXT_VIEW_SPHERE[view]])
+            column = (gb.mesh_id[..., None] == shafts).any(-1)
+            diffs[view.name] = float((color[ball].mean(0)
+                                      - color[column].mean(0)).abs().max())
+            check(int(ball.sum()) > 500 and int(column.sum()) > 500
+                  and diffs[view.name] > 1e-3,
+                  f"{view.name} does not show its extension: "
+                  f"{diffs[view.name]}")
+    print(f"editor debug-view sweep: {len(views)} views, one frame each, "
+          f"{seconds:.3f} s (synchronised); extension views, |sphere - "
+          f"column| of their means: {diffs}", flush=True)
+    return seconds, len(views), diffs
+
+
+def phase_editor_frame(cfg, model, rs, player, meta, frames, out_png,
+                       ibl_source, profile=""):
+    """The editor frame at 1080p: the ext_skin frame (per frame
+    update_animation, the circling camera, render_shadows and execute with
+    the clear coat on) with the editor's five switches on
+    (editor_task_manager_ci), the selection and bound box of editor_frames
+    and the cascades fitted to the previous frame's depth range; one
+    warm-up frame, then `frames` timed frames with the counts zeroed just
+    before and read just after (K1 1, K2 20, K3 1, K4 4 a frame, the
+    ext_skin frame's); the probes (editor_probes, editor_api_probes); 3
+    profiled frames with the EDITOR_VIEW debug view on (the dfx.components
+    and dfx.debug_view ranges); and the sweep of every debug view."""
+    import torch
+    from diligentfx_tpu_torch.config import (DebugViewType,
+                                             PBRRendererCreateInfo)
+    from diligentfx_tpu_torch.hydrogent import task_manager as ttm
+    from diligentfx_tpu_torch.pbr.renderer import PBRRenderer
+    renderer = PBRRenderer(PBRRendererCreateInfo(enable_shadows=True,
+                                                 enable_clear_coat=True),
+                           raster_cfg=cfg, device=DEVICE,
+                           env_oct=ibl_source.env_oct,
+                           ibl_maps=ibl_source.ibl_maps)
+    ci = editor_task_manager_ci()
+    tm = ttm.HnTaskManager(renderer, ci, atlas=rs.atlas)
+    frame_info, scene_of, settings_of, on_output, cur = editor_frames(
+        tm, model, rs, player, meta, W, H, DEVICE)
+    out, state, host_ms, dev_ms, launches = timed_frames(
+        tm, scene_of, frame_info, frames, CSM_FRAME_LAUNCHES, "editor",
+        WARP_FRAME, settings_of=settings_of, on_output=on_output)
+    print(f"editor frame launches over {frames} frames: {launches} (the "
+          f"ext_skin frame's K1 1, K2 20, K3 1, K4 4 a frame: the "
+          f"components launch no kernel of the port)", flush=True)
+    if out_png:
+        root, ext_ = os.path.splitext(out_png)
+        _write_png(f"{root}_editor{ext_ or '.png'}", out.color)
+    api = editor_api_probes(tm, renderer, rs, frame_info, scene_of,
+                            settings_of, cur, state)
+    inputs = (frame_info(), scene_of(), settings_of())
+    probes = editor_probes(renderer, rs, meta, inputs,
+                           ci.selection_outline_width)
+    view = DebugViewType[EDITOR_VIEW]
+    ptm = ttm.HnTaskManager(renderer, editor_task_manager_ci(view_mode=view),
+                            atlas=rs.atlas)
+    pinfo, pscene, psettings, pout, _ = editor_frames(
+        ptm, model, rs, player, meta, W, H, DEVICE)
+    prof = phase_profile(ptm, pscene, pinfo, 3, profile, "editor",
+                         ranges=("dfx.components", "dfx.debug_view"),
+                         settings_of=psettings)
+    sweep_s, n_views, sweep = debug_view_sweep(renderer, rs, meta, inputs)
+    return dict(frame_ms_median=float(np.median(host_ms)),
+                frame_events_ms_median=float(np.median(dev_ms)),
+                frames=frames, launches=launches, probes=probes,
+                api_probes=api, profile=prof, profiled_view=EDITOR_VIEW,
+                sweep_seconds=sweep_s, sweep_views=n_views,
+                sweep_extension_differences=sweep)
+
+
+def small_editor_frames(device):
+    """Two 256x128 editor frames (t = 0 and 1 / 60 s, the circling camera,
+    256^2 cascades fitted to the depth range) of the showroom without the
+    atrium (two figures, spheres of 12 x 24), the overlays on, the
+    EDITOR_VIEW debug view, the first frame on the fused K1 route and the
+    second on the two-pass K4 route, on the CPU path and on `device`:
+    (cpu colour, colour, the device's launches)."""
+    from diligentfx_tpu_torch.config import (DebugViewType,
+                                             PBRRendererCreateInfo)
+    from diligentfx_tpu_torch.hydrogent.task_manager import HnTaskManager
+    from diligentfx_tpu_torch.pbr.renderer import PBRRenderer
+    ci = PBRRendererCreateInfo(brdf_lut_dim=32, num_brdf_samples=16,
+                               irradiance_cube_dim=16,
+                               prefiltered_env_map_dim=32,
+                               num_specular_env_samples=16,
+                               enable_shadows=True, enable_clear_coat=True)
+    cfg = ext_skin_raster_config()
+    ref = PBRRenderer(ci, raster_cfg=cfg, device="cpu")
+    colors = []
+    for dev in ("cpu", device):
+        ren = (ref if dev == "cpu" else
+               PBRRenderer(ci, raster_cfg=cfg, device=dev,
+                           env_oct=ref.env_oct, ibl_maps=ref.ibl_maps.to(dev)))
+        model, rs, player, meta = ext_skin_model(
+            dev, atrium=False, n_figures=2, sphere=(12, 24), tube=(8, 2),
+            normal_size=64)
+        tm = HnTaskManager(ren, editor_task_manager_ci(
+            view_mode=DebugViewType[EDITOR_VIEW]), atlas=rs.atlas)
+        frame_info, scene_of, settings_of, on_output, _ = editor_frames(
+            tm, model, rs, player, meta, SMALL_W, SMALL_H, dev, size=256)
+        state = tm.initial_state(SMALL_W, SMALL_H)
+        zero_launches()
+        for fuse in ("auto", "off"):
+            out = tm.execute(*frame_args(scene_of, frame_info), state,
+                             width=SMALL_W, height=SMALL_H,
+                             settings=settings_of(), fuse=fuse)
+            on_output(out)
+            state = out.state
+        colors.append(out.color.cpu().numpy())
+    return colors[0], colors[1], read_launches()
+
+
+def phase_editor_reference():
+    """The 256x128 editor frames on the GPU against the port's CPU path:
+    both debug-payload routes (K1's fused G-buffer, then K4's two-pass
+    one), the overlays and the view."""
+    from diligentfx_tpu_torch.utils.image import psnr
+    cpu, gpu, launches = small_editor_frames(DEVICE)
+    p = psnr(cpu, gpu)
+    print(f"256x128 editor frame ({EDITOR_VIEW} view), GPU vs the port's "
+          f"CPU path: PSNR {p:.2f} dB, max abs diff "
+          f"{np.abs(cpu - gpu).max():.3g}; launches in 2 frames {launches}",
+          flush=True)
+    check(np.isfinite(gpu).all(), "small editor frame not finite")
+    check(p > 50.0, f"GPU editor frame disagrees with the CPU path: "
+                    f"{p:.2f} dB")
+    check(launches["raster_tiles"] == 9 and
+          launches["raster_tiles_fused"] == 1,
+          f"the editor frames launched {launches}")
+    return p
+
+
+def editor_only(frames, profile):
+    """Phases 24 and 25 alone: the 1080p editor frame and its 256x128
+    frames against the CPU path, for A/B runs."""
+    from diligentfx_tpu_torch.config import PBRRendererCreateInfo
+    from diligentfx_tpu_torch.pbr.renderer import PBRRenderer
+    cfg = ext_skin_raster_config()
+    model, rs, player, meta = ext_skin_model(DEVICE)
+    ibl = PBRRenderer(PBRRendererCreateInfo(), raster_cfg=cfg, device=DEVICE)
+    frame = phase_editor_frame(cfg, model, rs, player, meta, frames, "", ibl,
+                               profile)
+    return dict(editor_frame=frame, editor_psnr=phase_editor_reference())
+
+
 # goals of the tile rasters' redesign, device ms (torch.profiler kernel
 # rows): K4 over the four cascades, K1 at each of its three inputs
 RASTER_GOALS_MS = {"raster_tiles": 0.45, "bench": 0.15, "csm": 0.20,
@@ -3871,7 +4311,7 @@ def main() -> int:
                          "kernel); write the profiler's table to this path")
     ap.add_argument("--only", choices=("warp", "raster", "csm",
                                         "march_gtao", "oit", "lights",
-                                        "ext_skin"),
+                                        "ext_skin", "editor"),
                     help="warp: run only phases 1, 3 and 13 (K6 on random "
                          "taps within the halo); raster: only phases 1, 2, "
                          "8 (without the csm frame) and 11; csm: only "
@@ -3881,7 +4321,8 @@ def main() -> int:
                          "(with --profile, the profiler's table to that "
                          "path); lights: only phases 1, 18 and 19 (with "
                          "--profile, likewise); ext_skin: only phases 1, 21 "
-                         "and 22 (likewise); and print their JSON line")
+                         "and 22 (likewise); editor: only phases 1, 24 and "
+                         "25 (likewise); and print their JSON line")
     ap.add_argument("--root", default=HERE,
                     help="import the port from this checkout (with --only, "
                          "to A/B two checkouts' kernels in one call)")
@@ -3935,6 +4376,12 @@ def main() -> int:
     if args.only == "ext_skin":
         print(json.dumps({"root": args.root,
                           **ext_skin_only(args.frames, args.profile)},
+                         default=str))
+        print(card, flush=True)
+        return 0
+    if args.only == "editor":
+        print(json.dumps({"root": args.root,
+                          **editor_only(args.frames, args.profile)},
                          default=str))
         print(card, flush=True)
         return 0
@@ -4015,8 +4462,17 @@ def main() -> int:
         x_cfg, x_model, x_rs, x_player, x_meta, args.frames, args.out_png,
         tm.renderer, f"{os.path.splitext(args.profile)[0]}_ext_skin.txt"
         if args.profile else "")
+    t_editor = time.perf_counter()
+    editor_frame = phase_editor_frame(
+        x_cfg, x_model, x_rs, x_player, x_meta, args.frames, args.out_png,
+        tm.renderer, f"{os.path.splitext(args.profile)[0]}_editor.txt"
+        if args.profile else "")
+    editor_s = [time.perf_counter() - t_editor]
     del x_model, x_rs, x_player
     ext_psnr = phase_ext_skin_reference()
+    t_editor = time.perf_counter()
+    editor_psnr = phase_editor_reference()
+    editor_s.append(time.perf_counter() - t_editor)
     for k in (k1, k2, k3):
         k["launches"] = launches[k["name"]]
         k["frames"] = args.frames
@@ -4028,6 +4484,7 @@ def main() -> int:
         k["mask_blend_frame_launches"] = oit_frame["launches"][k["name"]]
         k["light_heap_frame_launches"] = light_frame["launches"][k["name"]]
         k["ext_skin_frame_launches"] = ext_frame["launches"][k["name"]]
+        k["editor_frame_launches"] = editor_frame["launches"][k["name"]]
     k4["launches"] = csm_launches["raster_tiles"]
     k4["frames"] = args.frames
     k4["launches_per_frame"] = csm_launches["raster_tiles"] / args.frames
@@ -4039,7 +4496,8 @@ def main() -> int:
                   "light / heap frame: the G-buffer and the 8 shadow-atlas "
                   "slices, 9 a frame (light_heap_frame_launches); the "
                   "ext_skin frame's cascades, 4 a frame "
-                  "(ext_skin_frame_launches)")
+                  "(ext_skin_frame_launches); the editor frame's cascades, "
+                  "4 a frame (editor_frame_launches)")
     k5["frame_launches"] = launches["gtao_fused"]
     k5["launches_per_frame"] = 0.0
     k6["frame_launches"] = launches["warp_bilinear_multi"]
@@ -4085,6 +4543,20 @@ def main() -> int:
           f"{x_prof['frame_ms_profiled']:.3f} ms, {x_prof['launches']} "
           f"launches a frame; 256x128 vs the CPU path {ext_psnr:.2f} dB on "
           f"{card}; total run {time.perf_counter() - t_start:.1f} s")
+    e_prof = editor_frame["profile"]
+    print(f"editor_frame_ms_median {editor_frame['frame_ms_median']:.3f} "
+          f"(CUDA events {editor_frame['frame_events_ms_median']:.3f}) over "
+          f"{args.frames} frames at {W}x{H}; profiled ({EDITOR_VIEW} view) "
+          f"stages {json.dumps(e_prof['stages'])}; ranges "
+          f"{json.dumps(e_prof['ranges'])}; device busy "
+          f"{e_prof['device_busy_ms']:.3f} of "
+          f"{e_prof['frame_ms_profiled']:.3f} ms, {e_prof['launches']} "
+          f"launches a frame; debug-view sweep "
+          f"{editor_frame['sweep_views']} views in "
+          f"{editor_frame['sweep_seconds']:.3f} s; 256x128 vs the CPU path "
+          f"{editor_psnr:.2f} dB; phases 24 and 25 {editor_s[0]:.1f} and "
+          f"{editor_s[1]:.1f} s on {card}; total run "
+          f"{time.perf_counter() - t_start:.1f} s")
     if DEVICE_MS_FROM_EVENTS:
         print(f"device_ms from CUDA events, the profiler showing no device "
               f"time, for kernels named {DEVICE_MS_FROM_EVENTS}")

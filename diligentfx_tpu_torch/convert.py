@@ -20,14 +20,17 @@ from diligentfx_tpu_torch.attribs import (CameraAttribs, PBRLightAttribs,
                                           PBRMaterialTransmissionAttribs,
                                           PBRMaterialVolumeAttribs,
                                           PBRRendererShaderParameters)
+from diligentfx_tpu_torch.components.depth_range import DepthRange
 from diligentfx_tpu_torch.components.shadow_atlas import ShadowAtlasManager
 from diligentfx_tpu_torch.components.shadow_map_manager import \
     ShadowMapAttribs
 from diligentfx_tpu_torch.config import RasterizerConfig
-from diligentfx_tpu_torch.hydrogent.task_manager import (FrameSettings,
+from diligentfx_tpu_torch.hydrogent.task_manager import (BoundBoxParams,
+                                                         FrameSettings,
                                                          FrameState,
                                                          TaskManagerCreateInfo)
 from diligentfx_tpu_torch.ops.texture import TextureAtlas, TextureHeap
+from diligentfx_tpu_torch.pbr.deferred import GBufferData
 from diligentfx_tpu_torch.pbr.renderer import RenderInfo, ScenePrimitives
 from diligentfx_tpu_torch.pbr.shading import IBLMaps
 from diligentfx_tpu_torch.postfx.dof import DoFState
@@ -161,16 +164,40 @@ def _settings(obj, cls):
                   for f, d in zip(cls._fields, cls())})
 
 
-def frame_settings_from_jax(settings) -> FrameSettings:
-    """FrameSettings of the ported effects (SSR, SSAO, TAA, DoF, bloom, tone
-    mapping); the JAX package's selection and bound-box inputs must be
-    unset."""
-    for name in ("selected_ids", "bound_box"):
-        if getattr(settings, name) is not None:
-            raise NotImplementedError(f"FrameSettings.{name} is not ported yet")
+def frame_settings_from_jax(settings, device=None) -> FrameSettings:
+    """FrameSettings: the effects' settings, the selected ids and the bound
+    box (tensors on `device`)."""
     port = FrameSettings()
-    return FrameSettings(**{f: _settings(getattr(settings, f), type(d))
-                            for f, d in zip(FrameSettings._fields, port)})
+    kw = {f: _settings(getattr(settings, f), type(d))
+          for f, d in zip(FrameSettings._fields, port)
+          if f not in ("selected_ids", "bound_box")}
+    if settings.selected_ids is not None:
+        kw["selected_ids"] = tensor(settings.selected_ids, device)
+    bb = settings.bound_box
+    if bb is not None:
+        kw["bound_box"] = BoundBoxParams(
+            box_min=tensor(bb.box_min, device).to(torch.float32),
+            box_max=tensor(bb.box_max, device).to(torch.float32),
+            transform=(tensor(bb.transform, device)
+                       if bb.transform is not None else None))
+    return FrameSettings(**kw)
+
+
+def gbuffer_from_jax(gb, device=None) -> GBufferData:
+    """GBufferData with its debug payload (the JAX package's `debug` dict)
+    when present; AOVs the JAX frame dropped stay None."""
+    def opt(x):
+        return tensor(x, device) if x is not None else None
+    fields = {f: opt(getattr(gb, f)) for f in GBufferData._fields
+              if f != "debug"}
+    debug = ({k: tensor(v, device) for k, v in gb.debug.items()}
+             if gb.debug is not None else None)
+    return GBufferData(**fields, debug=debug)
+
+
+def depth_range_from_jax(dr, device=None) -> DepthRange:
+    """DepthRange of compute_depth_range (0-dim tensors)."""
+    return _fields(dr, DepthRange, device)
 
 
 def epipolar_settings_from_jax(settings) -> EpipolarSettings:

@@ -3,12 +3,14 @@
 from the atlas or the texture heap, shadowed by the cascades or by each
 light's slices of the shadow atlas, alpha-masked geometry resolved)
 -> PostFX context + history disocclusion -> SSAO -> SSR -> composite ->
-K-layer OIT of the blend geometry -> epipolar light scattering -> auto
-exposure -> TAA -> DoF -> bloom -> tone map -> sRGB.
+K-layer OIT of the blend geometry -> the editor components (coordinate
+grid, bound box, selection desaturation and outline, depth bounds) ->
+epipolar light scattering -> auto exposure -> TAA -> DoF -> bloom -> [a
+debug view] -> tone map -> sRGB -> [the motion-vector field].
 
-`FrameState` carries the temporal history between frames.  Every task
-switch the port does not have yet raises NotImplementedError when the task
-manager is built; none is silently ignored.
+`FrameState` carries the temporal history between frames.  The SSR
+profiling knobs raise NotImplementedError when the task manager is built;
+no switch is silently ignored.
 """
 from __future__ import annotations
 
@@ -19,7 +21,11 @@ import torch
 
 from diligentfx_tpu_torch import math3d as m3
 from diligentfx_tpu_torch.attribs import CameraAttribs
+from diligentfx_tpu_torch.components import renderers as comp
+from diligentfx_tpu_torch.components import selection as sel
 from diligentfx_tpu_torch.components import shadow_map_manager as smm
+from diligentfx_tpu_torch.components.depth_range import (DepthRange,
+                                                         compute_depth_range)
 from diligentfx_tpu_torch.config import (DebugViewType, ShadowMode,
                                          ToneMappingMode)
 from diligentfx_tpu_torch.ops.raster import pad_viewport
@@ -42,11 +48,10 @@ from diligentfx_tpu_torch.postfx.context import (PostFXResources,
                                                  taa_jitter_sequence)
 from diligentfx_tpu_torch.postfx.tonemap import (ToneMappingAttribs,
                                                  average_log_luminance,
+                                                 reverse_exp_tone_map,
                                                  tone_map)
 
 Tensor = torch.Tensor
-
-LATER = "a later slice"
 
 
 @dataclass(frozen=True)
@@ -105,42 +110,33 @@ class TaskManagerCreateInfo:
     vis_only: bool = False
 
 
-_UNPORTED = (
-    ("enable_selection", LATER + " (components: selection)"),
-    ("enable_grid", LATER + " (components: coordinate grid)"),
-    ("enable_bound_box", LATER + " (components: bound box)"),
-    ("enable_vector_field", LATER + " (components: vector field)"),
-    ("enable_depth_bounds", LATER + " (components: depth bounds)"),
-    ("vis_only", LATER + " (profiling switches)"),
-)
-
-
 def _check_ci(ci: TaskManagerCreateInfo) -> None:
-    for name, where in _UNPORTED:
-        if getattr(ci, name):
-            raise NotImplementedError(
-                f"TaskManagerCreateInfo.{name} is not ported yet: {where}")
-    if ci.view_mode != DebugViewType.NONE:
-        raise NotImplementedError(
-            f"debug view modes are not ported yet: {LATER} (debug AOVs, "
-            "ROADMAP.md §1 item 6)")
-    if not ci.emit_aovs:
-        raise NotImplementedError(
-            f"emit_aovs=False is not ported yet: {LATER}")
     if ci.ssr_stage_cut or ci.ssr_march_sweep != "dyn":
         raise NotImplementedError(
             "ssr_stage_cut and ssr_march_sweep are TPU profiling knobs and "
             "are not ported (every march sweep computes the same result)")
 
 
+class BoundBoxParams(NamedTuple):
+    """A frame's bound box (the RenderBoundBox task's input): its corners
+    and an optional (4, 4) transform."""
+    box_min: Tensor
+    box_max: Tensor
+    transform: Optional[Tensor] = None
+
+
 class FrameSettings(NamedTuple):
-    """Dynamic per-frame effect parameters (the ported effects)."""
+    """Dynamic per-frame parameters: the effects' settings, the selected
+    prim (node) ids, -1 padded (ProcessSelection; with enable_selection),
+    and the bound box to draw (with enable_bound_box)."""
     ssr: fx_ssr.SSRSettings = fx_ssr.SSRSettings()
     ssao: fx_ssao.SSAOSettings = fx_ssao.SSAOSettings()
     taa: fx_taa.TAASettings = fx_taa.TAASettings()
     dof: fx_dof.DoFSettings = fx_dof.DoFSettings()
     bloom: fx_bloom.BloomSettings = fx_bloom.BloomSettings()
     tone_mapping: ToneMappingAttribs = ToneMappingAttribs()
+    selected_ids: Optional[Tensor] = None
+    bound_box: Optional[BoundBoxParams] = None
 
 
 class FrameState(NamedTuple):
@@ -162,6 +158,9 @@ class FrameOutput(NamedTuple):
     color: Tensor           # (H, W, 3) final
     gbuffer: GBufferData
     state: FrameState
+    # the ComputeDepthBounds product (enable_depth_bounds): feeds the next
+    # frame's cascade fitting through smm.adjust_cascade_range
+    depth_range: Optional[DepthRange] = None
 
 
 class FrameBegin(NamedTuple):
@@ -183,6 +182,8 @@ class FrameFx(NamedTuple):
     new_ssao: Optional[fx_ssao.SSAOState] = None
     new_ssr: Optional[fx_ssr.SSRState] = None
     new_exposure: Optional[Tensor] = None
+    ao: Optional[Tensor] = None              # SSAO's factor (None: off)
+    depth_range: Optional[DepthRange] = None
 
 
 class HnTaskManager:
@@ -230,6 +231,20 @@ class HnTaskManager:
             prev_depth=(z1 + 1.0 if (ci.enable_taa or ci.enable_ssr
                                      or ci.enable_ssao) else None))
 
+    def reset_taa(self, state: FrameState) -> FrameState:
+        """HnTaskManager::ResetTAA (JAX task_manager.py:255): the next frame
+        rejects the TAA history (a camera cut, a resize); the other
+        temporal products stay."""
+        if state.taa is None:
+            return state
+        return state._replace(taa=state.taa._replace(
+            sample_count=torch.zeros_like(state.taa.sample_count)))
+
+    def suspend_super_sampling(self, state: FrameState) -> FrameState:
+        """HnTaskManager::SuspendSuperSampling: reset_taa, the jitter
+        sequence being stateless."""
+        return self.reset_taa(state)
+
     def render_shadows(self, scene: ScenePrimitives, info: RenderInfo,
                        attribs: smm.ShadowMapAttribs, *,
                        shadow_map_size: int) -> RenderInfo:
@@ -261,7 +276,8 @@ class HnTaskManager:
         raster path (pbr/deferred.py render_gbuffer; the JAX package reads
         DFX_FUSE instead).  The blend geometry, when the scene has some and
         oit_layer_count > 0, composites through K-layer OIT after the
-        screen-space effects (range dfx.oit)."""
+        screen-space effects (range dfx.oit); the editor components run in
+        the range dfx.components, a debug view in dfx.debug_view."""
         # named ranges: torch.profiler attributes host and device time to
         # the frame's three stages (a few microseconds a frame otherwise);
         # the effects' own ranges nest inside them
@@ -313,7 +329,9 @@ def _frame_begin(scene, info: RenderInfo, state: FrameState,
                         atlas=atlas, use_textures=atlas is not None,
                         enable_clearcoat=renderer.ci.enable_clear_coat,
                         fast_env=ci.fast_env_taps,
-                        light_shadow_kinds=light_shadow_kinds, fuse=fuse)
+                        light_shadow_kinds=light_shadow_kinds, fuse=fuse,
+                        emit_debug=ci.view_mode != DebugViewType.NONE,
+                        vis_only=ci.vis_only)
     return FrameBegin(gb=gb, info=info, first_frame=first_frame)
 
 
@@ -425,6 +443,12 @@ def _frame_fx(begin: FrameBegin, state: FrameState, settings: FrameSettings,
         with torch.profiler.record_function("dfx.oit"):
             color, _ = _oit(color, gb, info, scene, renderer, ci)
 
+    depth_range = None
+    if (ci.enable_grid or ci.enable_bound_box or ci.enable_selection
+            or ci.enable_depth_bounds):
+        with torch.profiler.record_function("dfx.components"):
+            color, depth_range = _components(color, gb, info, settings, ci)
+
     if ci.enable_light_scattering and atmosphere_lut is not None:
         with torch.profiler.record_function("dfx.light_scattering"):
             shadow_data = None
@@ -458,7 +482,7 @@ def _frame_fx(begin: FrameBegin, state: FrameState, settings: FrameSettings,
     return FrameFx(color=color, gb=gb, info=info, resources=resources,
                    first_frame=first_frame, disocclusion=disocclusion,
                    new_ssao=new_ssao, new_ssr=new_ssr,
-                   new_exposure=new_exposure)
+                   new_exposure=new_exposure, ao=ao, depth_range=depth_range)
 
 
 def _frame_post(fx: FrameFx, state: FrameState, settings: FrameSettings,
@@ -484,11 +508,19 @@ def _frame_post(fx: FrameFx, state: FrameState, settings: FrameSettings,
                 use_pallas=ci.dof_use_pallas)
     if ci.enable_bloom:
         color = fx_bloom.apply_bloom(color, settings.bloom)
-    if ci.tone_mapping_mode != ToneMappingMode.NONE:
+    view = ci.view_mode != DebugViewType.NONE
+    if view:
+        # the AOV replaces the colour and skips the tone map and sRGB
+        with torch.profiler.record_function("dfx.debug_view"):
+            color = _debug_aov(ci.view_mode, gb, fx.ao)
+    if not view and ci.tone_mapping_mode != ToneMappingMode.NONE:
         color = tone_map(color, ci.tone_mapping_mode, settings.tone_mapping,
                          ave_log_lum=info.renderer_params.average_log_lum)
-    if ci.convert_output_to_srgb:
+    if not view and ci.convert_output_to_srgb:
         color = m3.linear_to_srgb(color)
+    if ci.enable_vector_field:
+        with torch.profiler.record_function("dfx.components"):
+            color = comp.render_vector_field(color, gb.motion)
     new_state = FrameState(
         frame_index=state.frame_index + 1,
         prev_view_proj=info.camera.view_proj, taa=new_taa, ssr=fx.new_ssr,
@@ -496,4 +528,123 @@ def _frame_post(fx: FrameFx, state: FrameState, settings: FrameSettings,
         average_log_lum=(fx.new_exposure if ci.enable_auto_exposure
                          else state.average_log_lum),
         prev_depth=gb.depth if state.prev_depth is not None else None)
-    return FrameOutput(color=color, gbuffer=gb, state=new_state)
+    if not (ci.emit_aovs or view):
+        # only what an application reads back: colour, depth, the mesh id
+        # (picking), motion
+        gb = gb._replace(
+            normal_world=None, normal_view=None, base_color=None,
+            material_data=None, world_pos=None, direct=None,
+            ambient_diffuse=None, ambient_specular=None,
+            spec_env_factor=None, background=None, debug=None)
+    return FrameOutput(color=color, gbuffer=gb, state=new_state,
+                       depth_range=fx.depth_range)
+
+
+def _components(color: Tensor, gb: GBufferData, info: RenderInfo,
+                settings: FrameSettings, ci: TaskManagerCreateInfo):
+    """The editor's composite tasks in the JAX order (task_manager.py:
+    538-571): the coordinate grid, the bound box, the selection
+    (desaturation, then the outline, its colour pre-compensated for the
+    tone map as ReverseExpToneMap does, clamped to 20) and the depth
+    bounds.  Returns (colour, DepthRange or None)."""
+    if ci.enable_grid:
+        color = comp.render_coordinate_grid(color, gb.depth, info.camera)
+    if ci.enable_bound_box and settings.bound_box is not None:
+        bb = settings.bound_box
+        color = comp.render_bound_box(color, gb.depth, info.camera,
+                                      bb.box_min, bb.box_max,
+                                      transform=bb.transform)
+    if ci.enable_selection and settings.selected_ids is not None:
+        ids = settings.selected_ids.to(gb.mesh_id.device)
+        selected = ((gb.mesh_id[..., None] == ids) & (ids >= 0)).any(-1)
+        color = sel.desaturate_unselected(color, selected,
+                                          desaturation=ci.desaturation_factor)
+        oc = reverse_exp_tone_map(
+            torch.tensor([0.95, 0.6, 0.1], device=color.device),
+            ave_log_lum=info.renderer_params.average_log_lum)
+        color = sel.selection_outline(
+            color, selected, outline_width=ci.selection_outline_width,
+            outline_color=torch.clamp(oc, max=20.0))
+    depth_range = None
+    if ci.enable_depth_bounds:
+        depth_range = compute_depth_range(gb.depth, info.camera)
+    return color, depth_range
+
+
+def _debug_aov(view: DebugViewType, gb: GBufferData,
+               ao: Optional[Tensor]) -> Tensor:
+    """The debug view `view` of the G-buffer (JAX task_manager.py:689; the
+    35-entry DebugViewType table, PBR_Renderer.hpp:401-439), zero where
+    nothing was hit.  `ao` is SSAO's factor (None: no SSAO).  The extension
+    views read gb.debug (render_gbuffer's emit_debug); an absent entry
+    renders black."""
+    V = DebugViewType
+    ones3 = torch.ones_like(gb.base_color)
+    dbg = gb.debug or {}
+
+    def d(key):
+        if key in dbg:
+            v = dbg[key]
+            return v * ones3 if v.shape[-1] == 1 else v
+        return torch.zeros_like(ones3)
+
+    def texcoord():
+        # one UV set: TEXCOORD1 aliases TEXCOORD0
+        uv = dbg.get("texcoord0")
+        if uv is None:
+            return torch.zeros_like(ones3)
+        return torch.cat([torch.remainder(uv, 1.0),
+                          torch.zeros_like(uv[..., :1])], -1)
+
+    def occlusion():
+        occ = gb.material_data[..., 2:3]
+        return (occ * ao[..., None] if ao is not None else occ) * ones3
+
+    def white_base_color():
+        # the lighting with a white base colour: the diffuse ambient term's
+        # base colour divided out
+        return gb.direct + gb.ambient_diffuse / torch.clamp(gb.base_color,
+                                                            min=1e-3)
+
+    views = {
+        V.TEXCOORD0: texcoord, V.TEXCOORD1: texcoord,
+        V.BASE_COLOR: lambda: gb.base_color,
+        V.TRANSPARENCY: lambda: d("transparency"),
+        V.OCCLUSION: occlusion,
+        V.EMISSIVE: lambda: d("emissive"),
+        V.METALLIC: lambda: gb.material_data[..., 0:1] * ones3,
+        V.ROUGHNESS: lambda: gb.material_data[..., 1:2] * ones3,
+        V.DIFFUSE_COLOR: lambda: d("diffuse_color"),
+        V.SPECULAR_COLOR: lambda: d("specular_color"),
+        V.REFLECTANCE90: lambda: d("reflectance90"),
+        V.MESH_NORMAL: lambda: gb.normal_view * 0.5 + 0.5,
+        V.SHADING_NORMAL: lambda: gb.normal_world * 0.5 + 0.5,
+        V.MOTION_VECTORS: lambda: torch.cat(
+            [torch.abs(gb.motion) * 20.0,
+             torch.zeros_like(gb.motion[..., :1])], -1),
+        V.NDOTV: lambda: d("ndotv"),
+        V.PUNCTUAL_LIGHTING: lambda: gb.direct,
+        V.DIFFUSE_IBL: lambda: gb.ambient_diffuse,
+        V.SPECULAR_IBL: lambda: gb.ambient_specular,
+        V.WHITE_BASE_COLOR: white_base_color,
+        V.CLEAR_COAT: lambda: d("clearcoat_lit"),
+        V.CLEAR_COAT_FACTOR: lambda: d("clearcoat_factor"),
+        V.CLEAR_COAT_ROUGHNESS: lambda: d("clearcoat_roughness"),
+        V.CLEAR_COAT_NORMAL: lambda: d("clearcoat_normal") * 0.5 + 0.5,
+        V.SHEEN: lambda: d("sheen_lit"),
+        V.SHEEN_COLOR: lambda: d("sheen_color"),
+        V.SHEEN_ROUGHNESS: lambda: d("sheen_roughness"),
+        V.ANISOTROPY_STRENGTH: lambda: d("anisotropy_strength"),
+        V.ANISOTROPY_DIRECTION: lambda: d("anisotropy_direction") * 0.5
+        + 0.5,
+        V.IRIDESCENCE: lambda: d("iridescence_fresnel"),
+        V.IRIDESCENCE_FACTOR: lambda: d("iridescence_factor"),
+        # against the glTF-typical 1200 nm ceiling
+        V.IRIDESCENCE_THICKNESS: lambda: d("iridescence_thickness") / 1200.0,
+        V.TRANSMISSION: lambda: d("transmission"),
+        V.THICKNESS: lambda: d("thickness"),
+        V.SCENE_DEPTH: lambda: gb.depth[..., None] * ones3,
+    }
+    out = views.get(view, lambda: gb.base_color)()
+    return torch.where(gb.hit[..., None], out,
+                       torch.zeros((), device=out.device))

@@ -241,13 +241,14 @@ def _shade_band(scene: ScenePrimitives, info: RenderInfo, ibl_maps, env_oct,
                 use_ibl: bool, use_lights: bool, fast_env: bool,
                 atlas=None, use_textures: bool = False, shadow_mode=None,
                 pcf_kernel_size: int = 3, light_shadow_kinds: tuple = (),
-                two_pass=None, enable_clearcoat: bool = False
-                ) -> GBufferData:
+                two_pass=None, enable_clearcoat: bool = False,
+                emit_debug: bool = False) -> GBufferData:
     """Deferred shading of the whole padded frame (JAX deferred.py:224),
     from the fused kernel's channel-first output `fused_px`, or, when it
     is None, from the two-pass visibility `vb` (with barycentrics) and
-    `two_pass` = (clip, winv, packed attrs with world position).  Returns
-    the PADDED G-buffer."""
+    `two_pass` = (clip, winv, packed attrs with world position).  With
+    `emit_debug`, `debug` carries the per-pixel products of the debug
+    views (debug_payload).  Returns the PADDED G-buffer."""
     dev = vb.depth.device
     hit = vb.tri_id >= 0
     hit_m = hit[..., None]
@@ -517,6 +518,12 @@ def _shade_band(scene: ScenePrimitives, info: RenderInfo, ibl_maps, env_oct,
         bg = sample_env_oct([env_oct], ray,
                             torch.zeros(ray.shape[:-1], device=dev))
     nrm_view = m3.transform_directions(nrm_px, info.camera.view)
+    debug = None
+    if emit_debug:
+        debug = debug_payload(
+            uv_px if use_textures else torch.zeros_like(motion), mgrp(3, 4),
+            emissive, srf, ndotv, clearcoat, sheen, anisotropy, iridescence,
+            transmission, volume_thickness, lighting)
 
     return GBufferData(
         depth=torch.where(hit, vb.depth, torch.ones((), device=dev)),
@@ -535,7 +542,57 @@ def _shade_band(scene: ScenePrimitives, info: RenderInfo, ibl_maps, env_oct,
         spec_env_factor=torch.where(hit_m, spec_factor, zero),
         background=bg,
         hit=hit,
+        debug=debug,
     )
+
+
+def debug_payload(texcoord0, transparency, emissive, srf, ndotv, clearcoat,
+                  sheen, anisotropy, iridescence, transmission,
+                  volume_thickness, lighting) -> dict:
+    """The per-pixel products of the debug views that the G-buffer's other
+    AOVs do not carry (JAX deferred.py:617-657; PBR_Renderer.hpp:401-439):
+    21 entries, zeros for an extension the scene does not use, as a shader
+    compiled without it renders it."""
+    z1 = torch.zeros_like(ndotv)
+    z3 = torch.zeros_like(emissive)
+
+    def of(layer, name, zero):
+        return getattr(layer, name) if layer is not None else zero
+    return dict(
+        texcoord0=texcoord0, transparency=transparency, emissive=emissive,
+        diffuse_color=srf.diffuse_color, specular_color=srf.reflectance0,
+        reflectance90=srf.reflectance90, ndotv=ndotv,
+        clearcoat_factor=of(clearcoat, "factor", z1),
+        clearcoat_roughness=(clearcoat.srf.perceptual_roughness
+                             if clearcoat is not None else z1),
+        clearcoat_normal=of(clearcoat, "normal", z3),
+        clearcoat_lit=of(lighting.clearcoat, "punctual", z3),
+        sheen_color=of(sheen, "color", z3),
+        sheen_roughness=of(sheen, "roughness", z1),
+        sheen_lit=of(lighting.sheen, "punctual", z3),
+        anisotropy_strength=of(anisotropy, "strength", z1),
+        anisotropy_direction=of(anisotropy, "tangent", z3),
+        iridescence_fresnel=of(iridescence, "fresnel", z3),
+        iridescence_factor=of(iridescence, "factor", z1),
+        iridescence_thickness=of(iridescence, "thickness", z1),
+        transmission=transmission if transmission is not None else z1,
+        thickness=volume_thickness if volume_thickness is not None else z1)
+
+
+def _vis_only_gbuffer(vb) -> GBufferData:
+    """The visibility-only G-buffer of `vis_only` (JAX deferred.py:135-153):
+    the raster's depth and triangle id, every other channel filled with
+    depth-derived values so the effects downstream still do their work."""
+    hit = vb.tri_id >= 0
+    d1 = torch.where(hit, vb.depth, torch.ones((), device=vb.depth.device))
+    c1 = d1[..., None]
+    c3 = torch.cat([c1, c1, c1], dim=-1)
+    return GBufferData(
+        depth=d1, mesh_id=vb.tri_id, normal_world=c3, normal_view=c3,
+        base_color=c3, material_data=c3,
+        motion=torch.cat([c1, c1], dim=-1) * 1e-3, world_pos=c3, direct=c3,
+        ambient_diffuse=c3, ambient_specular=c3, spec_env_factor=c3,
+        background=c3, hit=hit)
 
 
 def render_gbuffer(scene: ScenePrimitives, info: RenderInfo, ibl_maps,
@@ -545,7 +602,8 @@ def render_gbuffer(scene: ScenePrimitives, info: RenderInfo, ibl_maps,
                    use_textures: bool = False, enable_clearcoat: bool = False,
                    fast_env: bool = False, emit_debug: bool = False,
                    light_shadow_kinds: tuple = (),
-                   fuse: str = "auto") -> GBufferData:
+                   fuse: str = "auto", vis_only: bool = False
+                   ) -> GBufferData:
     """The G-buffer main pass (JAX deferred.py:111): the fused K1 raster
     with UV derivatives when textured, or the two-pass K4 raster with the
     alpha-mask resolve (`_fuse_ok` chooses; "auto" takes the two-pass path
@@ -558,10 +616,9 @@ def render_gbuffer(scene: ScenePrimitives, info: RenderInfo, ibl_maps,
     moments).  The scene's material extensions (sheen, anisotropy,
     iridescence, transmission, volume) and, with `enable_clearcoat`, the
     clear coat of the material table shade every pixel once present;
-    skinned scenes blend their joints in the vertex stage."""
-    if emit_debug:
-        raise NotImplementedError("debug AOVs are not ported yet (a later "
-                                  "slice: ROADMAP.md §1 item 6)")
+    skinned scenes blend their joints in the vertex stage.  `emit_debug`
+    adds the debug views' payload (`debug`); `vis_only` stops after the
+    raster (_vis_only_gbuffer), a profiling switch."""
     if shadow_mode is not None and info.shadow_attribs is None:
         raise ValueError("shadow_mode needs info.shadow_attribs and maps")
     pad_w, pad_h = rz.pad_viewport(width, height, cfg)
@@ -579,12 +636,24 @@ def render_gbuffer(scene: ScenePrimitives, info: RenderInfo, ibl_maps,
                                          pad_h=pad_h, cfg=cfg, atlas=atlas,
                                          use_textures=use_textures)
         fused_px = None
+    if vis_only:
+        return _crop(_vis_only_gbuffer(vb), width, height)
     gb = _shade_band(scene, info, ibl_maps, env_oct, vb, fused_px,
                      pad_w=pad_w, pad_h=pad_h, use_ibl=use_ibl,
                      use_lights=use_lights, fast_env=fast_env, atlas=atlas,
                      use_textures=use_textures, shadow_mode=shadow_mode,
                      pcf_kernel_size=pcf_kernel_size,
                      light_shadow_kinds=light_shadow_kinds,
-                     two_pass=two_pass, enable_clearcoat=enable_clearcoat)
-    return GBufferData(*(x[:height, :width] if isinstance(x, torch.Tensor)
-                         else x for x in gb))
+                     two_pass=two_pass, enable_clearcoat=enable_clearcoat,
+                     emit_debug=emit_debug)
+    return _crop(gb, width, height)
+
+
+def _crop(gb: GBufferData, width: int, height: int) -> GBufferData:
+    """The G-buffer's (and its debug payload's) viewport of the padded
+    frame."""
+    def crop(x):
+        if isinstance(x, dict):
+            return {k: crop(v) for k, v in x.items()}
+        return x[:height, :width] if isinstance(x, torch.Tensor) else x
+    return GBufferData(*(crop(x) for x in gb))

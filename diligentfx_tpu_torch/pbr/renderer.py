@@ -296,11 +296,8 @@ def _render_frame(scene: ScenePrimitives, info: RenderInfo, ibl_maps, env_oct,
                   tone_mapping_mode: ToneMappingMode,
                   convert_output_to_srgb: bool, shadow_mode=None,
                   pcf_kernel_size: int = 3, fuse: str = "auto") -> Tensor:
-    """The forward frame (JAX renderer.py:296)."""
-    if debug_view != DebugViewType.NONE:
-        raise NotImplementedError("debug views are not ported yet: a later "
-                                  "slice (debug AOVs, ROADMAP.md §1 item "
-                                  "6)")
+    """The forward frame (JAX renderer.py:296); a debug view replaces the
+    colour before the tone map (_debug_color)."""
     if fuse not in ("auto", "on", "off"):
         raise ValueError(f"fuse must be auto, on or off, got {fuse!r}")
     pad_w, pad_h = rz.pad_viewport(width, height, cfg)
@@ -394,6 +391,11 @@ def _render_frame(scene: ScenePrimitives, info: RenderInfo, ibl_maps, env_oct,
                                                     device=dev))
     color = torch.where(hit[..., None], color, bg)
 
+    if debug_view != DebugViewType.NONE:
+        color = _debug_color(debug_view, vb, base_color, metallic, roughness,
+                             nrm_px, ndotv, emissive, srf, lighting, color)
+        return color[:height, :width]
+
     # ---- tone map + sRGB ---------------------------------------------------
     if tone_mapping_mode != ToneMappingMode.NONE:
         color = tone_map(color, tone_mapping_mode, ToneMappingAttribs(
@@ -402,3 +404,32 @@ def _render_frame(scene: ScenePrimitives, info: RenderInfo, ibl_maps, env_oct,
     if convert_output_to_srgb:
         color = m3.linear_to_srgb(color)
     return color[:height, :width]
+
+
+def _debug_color(view: DebugViewType, vb, base_color, metallic, roughness,
+                 normal, ndotv, emissive, srf, lighting, color) -> Tensor:
+    """The forward renderer's debug views (RenderPBR.psh:574-613; JAX
+    renderer.py:437): 13 views of the shading inputs and lighting terms,
+    the lit colour for the others; zero where nothing was hit."""
+    V = DebugViewType
+    hit = vb.tri_id >= 0
+    ones3 = torch.ones_like(base_color)
+    views = {
+        V.BASE_COLOR: lambda: base_color,
+        V.METALLIC: lambda: metallic * ones3,
+        V.ROUGHNESS: lambda: roughness * ones3,
+        V.DIFFUSE_COLOR: lambda: srf.diffuse_color,
+        V.SPECULAR_COLOR: lambda: srf.reflectance0,
+        V.REFLECTANCE90: lambda: srf.reflectance90,
+        V.SHADING_NORMAL: lambda: normal * 0.5 + 0.5,
+        V.NDOTV: lambda: ndotv * ones3,
+        V.PUNCTUAL_LIGHTING: lambda: lighting.base.punctual,
+        V.DIFFUSE_IBL: lambda: lighting.base.diffuse_ibl,
+        V.SPECULAR_IBL: lambda: lighting.base.specular_ibl,
+        V.EMISSIVE: lambda: emissive,
+        V.SCENE_DEPTH: lambda: torch.where(
+            hit, vb.depth, torch.ones((), device=hit.device))[..., None]
+        * ones3,
+    }
+    out = views.get(view, lambda: color)()
+    return torch.where(hit[..., None], out, torch.zeros((), device=hit.device))

@@ -169,6 +169,18 @@ def tone_map(color: Tensor, mode: ToneMappingMode,
     raise ValueError(f"unknown tone mapping mode {mode}")
 
 
+def reverse_exp_tone_map(color: Tensor, middle_gray=0.18,
+                         ave_log_lum=0.3) -> Tensor:
+    """ReverseExpToneMap (JAX tonemap.py:166): the HDR colour the EXP tone
+    map takes to `color`, used to pre-compensate the selection outline's
+    colour (HnPostProcessTask.cpp:844-850)."""
+    dev = color.device
+    lum_scale = _f32(middle_gray, dev) / torch.clamp(_f32(ave_log_lum, dev),
+                                                     min=1e-6)
+    c = torch.clamp(color, 0.0, 0.99)
+    return -torch.log(torch.clamp(1.0 - c, min=1e-6)) / lum_scale
+
+
 def average_log_luminance(color: Tensor, eps: float = 1e-4) -> Tensor:
     """Auto-exposure measurement: exp(mean(log(lum))) over the image, a
     0-dim tensor on the colour's device (UpdateAverageLuminance)."""

@@ -818,3 +818,88 @@ def test_raster_kernel_at_skinned_dense_scene(cuda):
     assert 0.02 < float(hit.float().mean()) < 0.9
     assert torch.equal(z[hit], zp[hit])
     assert torch.equal(out[:, hit], outp[:, hit])
+
+
+def test_small_editor_frame_matches_cpu_path(cuda):
+    """chip_smoke.py's 256 x 128 editor frames (phase 25: the showroom
+    without the atrium, the five editor switches, the IRIDESCENCE view,
+    the first frame on the fused K1 route, the second on the two-pass K4
+    route) on the card against the CPU path: above 50 dB, K1 1 and K4 9
+    launches."""
+    import chip_smoke as cs
+    from diligentfx_tpu_torch.utils.image import psnr
+    cpu, gpu, launches = cs.small_editor_frames(cuda)
+    assert np.isfinite(gpu).all()
+    assert psnr(cpu, gpu) > 50.0
+    assert launches["raster_tiles_fused"] == 1
+    assert launches["raster_tiles"] == 9
+
+
+@pytest.mark.parametrize("fuse", ["on", "off"])
+def test_debug_payload_matches_cpu(cuda, fuse):
+    """render_gbuffer(emit_debug=True) of the skinned showroom (every
+    extension, the normal map, the clear coat) on the card, on the fused
+    K1 route and the two-pass K4 route, against the CPU: the same hit
+    pixels and each of the 21 payload entries within 1e-4 + 1e-4 relative
+    on all but 0.1% of its values (the card's transcendentals; the clear
+    coat's alpha-0.01 highlight)."""
+    import chip_smoke as cs
+    from diligentfx_tpu_torch import math3d as m3
+    from diligentfx_tpu_torch.attribs import (CameraAttribs,
+                                              PBRLightAttribs,
+                                              PBRRendererShaderParameters)
+    from diligentfx_tpu_torch.config import PBRRendererCreateInfo
+    from diligentfx_tpu_torch.pbr.deferred import render_gbuffer
+    from diligentfx_tpu_torch.pbr.renderer import PBRRenderer, RenderInfo
+    w, h = 256, 128
+    cfg = cs.ext_skin_raster_config()
+    ci = PBRRendererCreateInfo(brdf_lut_dim=16, num_brdf_samples=8,
+                               irradiance_cube_dim=16,
+                               prefiltered_env_map_dim=16,
+                               num_specular_env_samples=8)
+    ref = PBRRenderer(ci, raster_cfg=cfg, device="cpu")
+    gbs = []
+    for d in ("cpu", cuda):
+        rs, _ = _showroom(d, n_figures=2, sphere=(12, 24), tube=(8, 2))
+        eye = [0.0, 1.5, 7.0]
+        info = RenderInfo(
+            camera=CameraAttribs.create(
+                m3.look_at(eye, [0.0, 1.0, 0.0], device=d),
+                m3.perspective(0.8, w / h, 0.1, 50.0, device=d), eye, 0.1,
+                50.0, w, h, device=d),
+            lights=PBRLightAttribs.directional(cs.FULL_CHAIN_SUN, [4, 4, 4],
+                                               device=d),
+            renderer_params=PBRRendererShaderParameters.create(device=d))
+        gbs.append(render_gbuffer(
+            rs.scene, info, ref.ibl_maps.to(d), ref.env_oct.to(d), width=w,
+            height=h, cfg=cfg, atlas=rs.atlas, use_textures=True,
+            enable_clearcoat=True, emit_debug=True, fuse=fuse))
+    cpu, gpu = gbs
+    hit = cpu.hit
+    assert torch.equal(gpu.hit.cpu(), hit) and 0.05 < float(
+        hit.float().mean()) < 0.9
+    assert sorted(gpu.debug) == sorted(cpu.debug) and len(cpu.debug) == 21
+    for key, want in cpu.debug.items():
+        got = gpu.debug[key].cpu()[hit]
+        want = want[hit]
+        assert bool(torch.isfinite(got).all()), key
+        bad = (got - want).abs() > 1e-4 + 1e-4 * want.abs()
+        assert float(bad.float().mean()) <= 1e-3, (key, float(
+            (got - want).abs().max()))
+
+
+@pytest.mark.parametrize("seed,sigma", [(0, 0.02), (1, 0.3), (2, 1.5)])
+def test_vector_field_matches_sequential_on_card(cuda, seed, sigma):
+    """components/renderers.py render_vector_field on CUDA tensors against
+    render_vector_field_plain on the same tensors: bit for bit (the same
+    elementwise kernels on the same values), at 1080 x 1920 with segments
+    that overlap and leave the frame."""
+    from diligentfx_tpu_torch.components import renderers as cr
+    g = np.random.default_rng(seed)
+    field = torch.from_numpy(g.normal(0, sigma, (1080, 1920, 2)).astype(
+        np.float32))
+    color = torch.from_numpy(g.random((1080, 1920, 3)).astype(np.float32))
+    got = cr.render_vector_field(color.to(cuda), field.to(cuda))
+    plain = cr.render_vector_field_plain(color.to(cuda), field.to(cuda))
+    assert torch.equal(got, plain)
+    assert bool((got != color.to(cuda)).any())

@@ -243,16 +243,25 @@ def _port_renderer():
                         device="cpu")
 
 
+# switches the port once refused; the editor's and vis_only are ported
+# (tests/test_torch_editor_frame.py), the SSR profiling knobs stay refused
 UNPORTED = {"enable_selection": True, "enable_grid": True, "vis_only": True,
             "ssr_stage_cut": "march", "ssr_march_sweep": "static"}
+REFUSED = ("ssr_stage_cut", "ssr_march_sweep")
 
 
 @pytest.mark.parametrize("switch", list(UNPORTED))
 def test_unported_switches_raise(switch):
+    """The SSR profiling knobs raise NotImplementedError when the task
+    manager is built; the switches ported since build."""
     ci = dataclasses.replace(cv.task_manager_ci_from_jax(SLICE),
                              **{switch: UNPORTED[switch]})
-    with pytest.raises(NotImplementedError):
-        ttm.HnTaskManager(_port_renderer(), ci)
+    if switch in REFUSED:
+        with pytest.raises(NotImplementedError):
+            ttm.HnTaskManager(_port_renderer(), ci)
+    else:
+        tm = ttm.HnTaskManager(_port_renderer(), ci)
+        assert getattr(tm.ci, switch) == UNPORTED[switch]
 
 
 def test_default_task_manager_config_raises():

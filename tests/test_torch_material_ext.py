@@ -460,17 +460,18 @@ LIT = ("direct", "ambient_diffuse", "ambient_specular", "spec_env_factor")
 
 
 def _gbuffer_vs_jax(renderers, scene, info, fuse, clearcoat, atlas=None,
-                    jatlas=None):
+                    jatlas=None, emit_debug=False):
     """The port's render_gbuffer and the JAX _shade_band, run eagerly on
-    the port's visibility (fused channels, or barycentrics, clip and 1/w):
-    (port G-buffer, JAX G-buffer, whether the port fused)."""
+    the port's visibility (fused channels, or barycentrics, clip and 1/w),
+    with the debug views' payload when `emit_debug`: (port G-buffer, JAX
+    G-buffer, whether the port fused)."""
     ren, port = renderers
     pscene, pinfo = cv.scene_from_jax(scene), cv.render_info_from_jax(info)
     textured = atlas is not None
     pgb = td.render_gbuffer(pscene, pinfo, port.ibl_maps, port.env_oct,
                             width=W, height=H, cfg=PCFG, fuse=fuse,
                             enable_clearcoat=clearcoat, atlas=atlas,
-                            use_textures=textured)
+                            use_textures=textured, emit_debug=emit_debug)
     fused = td._fuse_ok(pscene, fuse, textured)
     if fused:
         vb, fused_px, _ = td._fused_raster(pscene, pinfo, pad_w=W, pad_h=H,
@@ -494,7 +495,8 @@ def _gbuffer_vs_jax(renderers, scene, info, fuse, clearcoat, atlas=None,
             use_lights=True, shadow_mode=None, pcf_kernel_size=3,
             atlas=jatlas, use_textures=textured,
             enable_clearcoat=clearcoat, fast_env=False,
-            light_shadow_kinds=(), fused_px=fused_px)
+            light_shadow_kinds=(), fused_px=fused_px,
+            emit_debug=emit_debug)
     return pgb, jgb, fused
 
 
@@ -551,12 +553,9 @@ def build_scene_like(scene):
         "materials_transmission", "materials_volume")})
 
 
-@pytest.mark.parametrize("fuse", ["auto", "off"])
-def test_textured_anisotropy_gbuffer_matches_jax(renderers, fuse):
-    """Every extension and the clear coat with a normal map: the fused
-    route now carries the node-transformed tangents the anisotropy reads
-    (and the two-pass route interpolates them), against the JAX
-    _shade_band on the same visibility."""
+def textured_ext_scene():
+    """ext_scene("all") with a normal map on every material (a 32^2 atlas
+    texture, its UVs scaled by 2): the JAX scene, RenderInfo and atlas."""
     from diligentfx_tpu.gltf.model import NUM_SLOTS, SLOT_NORMAL
     from diligentfx_tpu.ops.texture import AtlasBuilder
     scene, info = ext_scene("all")
@@ -574,6 +573,16 @@ def test_textured_anisotropy_gbuffer_matches_jax(renderers, fuse):
         tex_uv_transform=jnp.asarray(np.tile(np.array(
             [2, 0, 0, 2, 0, 0], np.float32), (3, NUM_SLOTS, 1))),
         tex_wraps=jnp.zeros((3, NUM_SLOTS, 2), jnp.int32))
+    return scene, info, jatlas
+
+
+@pytest.mark.parametrize("fuse", ["auto", "off"])
+def test_textured_anisotropy_gbuffer_matches_jax(renderers, fuse):
+    """Every extension and the clear coat with a normal map: the fused
+    route now carries the node-transformed tangents the anisotropy reads
+    (and the two-pass route interpolates them), against the JAX
+    _shade_band on the same visibility."""
+    scene, info, jatlas = textured_ext_scene()
     pgb, jgb, fused = _gbuffer_vs_jax(renderers, scene, info, fuse, True,
                                       atlas=cv.atlas_from_jax(jatlas),
                                       jatlas=jatlas)
