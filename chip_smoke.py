@@ -11,7 +11,9 @@ point and sun shadows through the shadow atlas, textures at their native
 sizes in the texture heap) and the ext_skin frame of a third (the glTF
 material extensions, skinned figures and their animation) and that
 showroom's editor frame (selection, grid, bound box, vector field, depth
-bounds, the debug views), and checks them.
+bounds, the debug views) and a Hydra stage through the Hydrogent front end
+(the pxr adapter, the render delegate, AsyncFramePipeline), and checks
+them.
 
 Phases (any failure exits non-zero; no phase is skipped):
   1. build csrc/*.cu with nvcc (one process per source, all at once);
@@ -160,7 +162,30 @@ Phases (any failure exits non-zero; no phase is skipped):
  25. two 256x128 editor frames of the showroom without the atrium (the
      overlays, the IRIDESCENCE view; the first on the fused K1 route, the
      second on the two-pass K4 route) on the GPU against the port's CPU
-     path.
+     path;
+ 26. the Hydra stage through the Hydrogent front end: the full-chain
+     atrium's meshes and 24 Kitchen-shaped props (quads, pentagons, geom
+     subsets), 12 UsdPreviewSurface networks (8 textured at 512^2, normal
+     maps, UsdTransform2d), a distant and a sphere light and a camera,
+     authored in the fake pxr of tests/torch_pxr_shim.py, populated,
+     Synced and committed through the port's pxr adapter (timed; the
+     capitals, the shafts and the clutter spheres one pool entry each);
+     K1 against its plain version at the stage's G-buffer inputs and K4
+     bit for bit at its EDGES frame's; then the render task (HnRenderDelegate.execute -> HnTaskManager.execute)
+     at 1920x1080 with the bench renderer and task manager on the stage's
+     raster lists (hydra_raster_config); one warm-up frame, then --frames
+     timed frames with the counts zeroed just before and read just after
+     (K1 1, K2 20, K3 1, K4 0 a frame), the task manager alone beside
+     them; the probes: picking at six props' centroids against a host ray
+     cast, an EDGES frame (K4 1) and a POINTS frame (no kernel), a
+     transform-only edit of three props (no geometry byte uploaded, motion
+     on them and none elsewhere, none after the fold), a points edit (its
+     entry's bytes exactly), a material edit, a destroy_prim, a small
+     geometry budget (entries PENDING, rendered on later frames); and
+     AsyncFramePipeline in a child process with no kernel built (FALLBACK,
+     then OK; each kernel library built once);
+ 27. two 256x128 frames of the Hydra stage on the GPU against the port's
+     CPU path.
 
 Prints the median frame times, one JSON line with each kernel's launches,
 times and bound, the card's name and power limit, and last
@@ -175,12 +200,13 @@ Usage: python3 chip_smoke.py [--frames N] [--out-png PATH] [--profile PATH]
        python3 chip_smoke.py --only lights [--profile PATH] [--root DIR]
        python3 chip_smoke.py --only ext_skin [--profile PATH] [--root DIR]
        python3 chip_smoke.py --only editor [--profile PATH] [--root DIR]
+       python3 chip_smoke.py --only hydra [--profile PATH] [--root DIR]
 (the second runs phases 1, 3 and 13 alone, K6 on random taps; the third
 phases 1, 2, 8 without the csm frame, and 11 without the full-chain frame;
 the fourth phases 1 and 9; the fifth phase 1, one bench frame for its
 G-buffer, and phases 5 and 6; the sixth phases 1, 15 and 16; the seventh
 phases 1, 18 and 19; the eighth phases 1, 21 and 22; the ninth phases 1,
-24 and 25; each on the port of
+24 and 25; the tenth phases 1, 26 and 27; each on the port of
 the checkout DIR: run it in two checkouts in turn, A B B A, to compare
 them in one call)
 """
@@ -194,6 +220,7 @@ import time
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+ROOT = HERE                  # the checkout the port is imported from (--root)
 
 # H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -4195,6 +4222,732 @@ def editor_only(frames, profile):
     return dict(editor_frame=frame, editor_psnr=phase_editor_reference())
 
 
+# ---------------------------------------------------------------------------
+# the Hydra stage (phases 26-27): the Hydrogent front end of the port
+# ---------------------------------------------------------------------------
+
+HYDRA_TEX = 512                       # the textured materials' textures
+HYDRA_PROPS_AT = (0.0, 1.8, 5.5)      # the prop wall, before the atrium
+HYDRA_PROP_DENSITY = 4                # the corpus's grids, x4 on each axis
+
+
+def _prop(k):
+    return f"/Kitchen/Geom/prop{k:03d}"
+
+
+# six props of the wall's front row, picked at their centroids; three moved
+# by a transform-only edit; one edited point by point; one destroyed
+HYDRA_PICKS = tuple(_prop(k) for k in (0, 3, 9, 12, 18, 21))
+HYDRA_MOVED = tuple(_prop(k) for k in (1, 10, 20))
+HYDRA_EDITED, HYDRA_DESTROYED = _prop(2), _prop(15)
+HYDRA_CAM = "/Atrium/cam"
+HYDRA_LIGHTS = ("/Atrium/sun", "/Atrium/bulb")
+HYDRA_BUDGET = 64 << 10               # the geometry budget probe's bytes
+HYDRA_ASYNC_LIMIT_S = 300.0           # FALLBACK -> OK within this time
+# an EDGES frame launches K4 once (its two-pass raster), a POINTS frame none
+EDGES_LAUNCHES = {**{k: 0 for k in FRAME_LAUNCHES}, "raster_tiles": 1}
+POINTS_LAUNCHES = {k: 0 for k in FRAME_LAUNCHES}
+MODE_FRAMES = 3                # EDGES and POINTS frames timed after a warm-up
+
+
+def hydra_raster_config(small=False):
+    """The bench raster config's 32 x 128 tiles, 4 sub-bins and setup, with
+    the lists the Hydra stage needs: at 1920x1080 its longest sub-bin list
+    holds 510 candidates, where the bench config keeps 256 a sub-bin and
+    drops 4,145 (tile, triangle) pairs and 106 big triangles; at 256x128
+    (`small`) the longest holds 8,805."""
+    import dataclasses
+    return dataclasses.replace(
+        bench_raster_config(), bin_capacity=(1 << 16) if small else 2048,
+        big_tri_capacity=256, big_tile_capacity=64)
+
+
+def _pxr_shim():
+    from tests import torch_pxr_shim
+    return torch_pxr_shim
+
+
+def hydra_stage(n_columns=12, tex_size=HYDRA_TEX):
+    """The Hydra stage, authored into the fake pxr's scene delegate
+    (tests/torch_pxr_shim.py): the full-chain atrium's meshes
+    (full_chain_entries: the floor and the shafts as quads, the capitals
+    and the 40 clutter spheres as triangles, with their normals and uvs,
+    each at its node matrix) and the 24 Kitchen-shaped props of
+    tests/test_usd_kitchen_corpus.py at HYDRA_PROP_DENSITY x their grid
+    density (quads, triangles, pentagons, two geom subsets on every fourth)
+    as a wall before the atrium; 12 UsdPreviewSurface networks (8 textured
+    with seeded tex_size² textures, two of those with normal maps and two
+    through UsdTransform2d; the capitals', shafts', floor's and first clutter
+    sphere's colour, roughness and metallic on the other four); a distant
+    light along the full-chain sun, a sphere light, and a camera at
+    full_chain_info(0)'s eye and target.  Returns (scene delegate, mesh
+    ids, material ids, light ids, camera id)."""
+    shim = _pxr_shim()
+    sd = shim.FakeSceneDelegate()
+    entries = full_chain_entries(n_columns)
+
+    def look(k):
+        m = entries[k][2]
+        return (tuple(float(x) for x in m.base_color_factor[:3]),
+                float(m.roughness_factor), float(m.metallic_factor))
+    n = n_columns
+    mats = shim.kitchen_materials(sd, tex_size=tex_size, colors=[
+        look(0), look(1), look(2 * n), look(2 * n + 1)])
+    meshes = []
+
+    def post(pid, mesh, node, counts, faces, mat):
+        sd.data[pid] = {
+            "topology": shim.FakeMeshTopology(counts, faces),
+            "points": np.asarray(mesh.positions, np.float32),
+            "normals": np.asarray(mesh.normals, np.float32),
+            "st": np.asarray(mesh.uvs, np.float32),
+            "transform": np.asarray(node, np.float32), "materialId": mat}
+        meshes.append(pid)
+
+    def triangles(mesh):
+        t = mesh.indices.shape[0]
+        return [3] * t, mesh.indices.reshape(-1).tolist()
+
+    def quads(mesh):
+        """A mesh whose triangles pair up as (a, b, c), (a, c, d) or, for
+        the plane, (a, b, d), (d, b, c): its quads, in face order."""
+        tris = mesh.indices.reshape(-1, 2, 3)
+        same = tris[:, 0, 0] == tris[:, 1, 0]
+        q = np.where(same[:, None],
+                     np.stack([tris[:, 0, 0], tris[:, 0, 1], tris[:, 0, 2],
+                               tris[:, 1, 2]], -1),
+                     np.stack([tris[:, 0, 0], tris[:, 0, 1], tris[:, 1, 2],
+                               tris[:, 0, 2]], -1))
+        return [4] * q.shape[0], q.reshape(-1).tolist()
+    for i in range(n):
+        mesh, node, _ = entries[2 * i]
+        post(f"/Atrium/Geom/capital{i:02d}", mesh, node, *triangles(mesh),
+             mats[8])
+        mesh, node, _ = entries[2 * i + 1]
+        post(f"/Atrium/Geom/shaft{i:02d}", mesh, node, *quads(mesh), mats[9])
+    mesh, node, _ = entries[2 * n]
+    post("/Atrium/Geom/floor", mesh, node, *quads(mesh), mats[10])
+    for i, (mesh, node, _) in enumerate(entries[2 * n + 1:]):
+        post(f"/Atrium/Geom/clutter{i:02d}", mesh, node, *triangles(mesh),
+             mats[11] if i % 5 == 0 else mats[i % 8])
+    meshes += shim.kitchen_props(sd, mats, 24, density=HYDRA_PROP_DENSITY,
+                                 origin=HYDRA_PROPS_AT, spacing=(1.0, 0.85))
+    eye, target = [0.0, 2.0, 10.0], [0.0, 1.0, 0.0]    # full_chain_info(0)
+    sd.data[HYDRA_CAM] = {"transform": shim.look_transform(eye, target),
+                          "fov": float(np.degrees(0.8)),
+                          "clippingRange": (0.1, 100.0)}
+    sun = np.asarray(FULL_CHAIN_SUN, np.float64)
+    sd.data[HYDRA_LIGHTS[0]] = {
+        "transform": shim.look_transform(-10.0 * sun / np.linalg.norm(sun),
+                                         [0.0, 0.0, 0.0]),
+        "color": (1.0, 1.0, 1.0), "intensity": 4.0}
+    bulb = np.eye(4, dtype=np.float32)
+    bulb[3, :3] = (1.0, 3.0, 7.0)
+    sd.data[HYDRA_LIGHTS[1]] = {"transform": bulb, "color": (1.0, 0.8, 0.6),
+                                "intensity": 8.0, "range": 30.0}
+    return sd, meshes, mats, list(HYDRA_LIGHTS), HYDRA_CAM
+
+
+def hydra_delegate(stage, renderer, device, w, h, ci=None):
+    """The stage through the port's pxr adapter: a DfxHdRenderDelegate on
+    `device` with `renderer` and the bench task manager, every prim created,
+    Synced with every bit dirty and committed (shim.populate).  Returns
+    (render delegate, prims, render task, seconds of populate -> Sync ->
+    CommitResources, device synchronised)."""
+    import torch
+    from diligentfx_tpu_torch.hydrogent.render_delegate import \
+        HnRenderDelegateCreateInfo
+    from diligentfx_tpu_torch.hydrogent.usd_adapter import build_adapter
+    shim = _pxr_shim()
+    sd, meshes, mats, lights, cam = stage
+    classes = build_adapter(shim.make_fake_pxr())
+    t0 = time.perf_counter()
+    rd = classes["RenderDelegate"](ci or HnRenderDelegateCreateInfo(),
+                                   renderer=renderer,
+                                   task_manager_ci=bench_task_manager_ci(),
+                                   device=device)
+    prims = shim.populate(rd, sd, meshes, mats, lights, cam)
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    task = classes["RenderTask"](rd.inner, width=w, height=h, camera_id=cam)
+    return rd, prims, task, seconds
+
+
+def _frame_ok(out, label, w=None, h=None):
+    """A frame's colour: (h, w, 3) (W x H by default), finite, within
+    [0, 1]."""
+    import torch
+    w, h = w or W, h or H
+    c = out.color
+    check(tuple(c.shape) == (h, w, 3), f"{label}: colour shape {c.shape}")
+    check(bool(torch.isfinite(c).all()), f"{label}: colour not finite")
+    check(float(c.min()) >= 0.0 and float(c.max()) <= 1.0,
+          f"{label}: colour outside [0, 1]")
+
+
+def _world_triangles(d):
+    """Every visible mesh prim's triangles in world space (float64, host):
+    (T, 3, 3) and each triangle's prim id."""
+    tris, owners = [], []
+    for pid, m in d.meshes.items():
+        if not m.visible or m.points is None:
+            continue
+        p = np.asarray(m.points, np.float64)
+        xf = np.asarray(m.transform, np.float64)
+        world = p @ xf[:3, :3] + xf[3, :3]
+        tris.append(world[m.indices])
+        owners += [pid] * m.indices.shape[0]
+    return np.concatenate(tris), np.asarray(owners)
+
+
+def _ray_cast(tris, owners, origin, direction):
+    """The nearest prim a ray meets (Moller-Trumbore over every triangle,
+    both faces), or None."""
+    e1, e2 = tris[:, 1] - tris[:, 0], tris[:, 2] - tris[:, 0]
+    p = np.cross(direction, e2)
+    det = np.einsum("ij,ij->i", e1, p)
+    ok = np.abs(det) > 1e-12
+    inv = np.where(ok, 1.0 / np.where(ok, det, 1.0), 0.0)
+    s = origin - tris[:, 0]
+    u = np.einsum("ij,ij->i", s, p) * inv
+    q = np.cross(s, e1)
+    v = (q @ direction) * inv
+    t = np.einsum("ij,ij->i", e2, q) * inv
+    hit = ok & (u >= 0) & (v >= 0) & (u + v <= 1) & (t > 1e-6)
+    if not hit.any():
+        return None
+    return owners[np.where(hit, t, np.inf).argmin()]
+
+
+def hydra_centroid_pixel(d, pid):
+    """The pixel at prim `pid`'s centroid (its world-space vertices' mean,
+    projected by the stage camera) in a W x H frame."""
+    w, h = W, H
+    vp = d.frame_info(w, h).camera.view_proj.cpu().double().numpy()
+    m = d.meshes[pid]
+    xf = np.asarray(m.transform, np.float64)
+    c = np.asarray(m.points, np.float64).mean(0) @ xf[:3, :3] + xf[3, :3]
+    clip = np.append(c, 1.0) @ vp
+    return (int((clip[0] / clip[3] * 0.5 + 0.5) * w),
+            int((0.5 - clip[1] / clip[3] * 0.5) * h))
+
+
+def hydra_pick(d, x, y):
+    """At pixel (x, y) of a W x H frame: the prim a host ray cast through
+    the pixel's centre finds nearest, its slot (-1: none) and
+    read_rprim_id's."""
+    import torch
+    w, h = W, H
+    info = d.frame_info(w, h)
+    inv = torch.linalg.inv(info.camera.view_proj.cpu().double()).numpy()
+    far = np.array([(x + 0.5) / w * 2 - 1, 1 - (y + 0.5) / h * 2, 0.5,
+                    1.0]) @ inv
+    eye = np.asarray(d.cameras[HYDRA_CAM].eye, np.float64)
+    ray = far[:3] / far[3] - eye
+    owner = _ray_cast(*_world_triangles(d), eye, ray / np.linalg.norm(ray))
+    want = -1 if owner is None else d._mesh_slots[owner]
+    return owner, want, d.read_rprim_id(x, y)
+
+
+def _timed(fn, frames):
+    """`frames` calls of fn(), each timed on the host clock ending in a
+    synchronise and by CUDA events: (last output, host ms, events ms)."""
+    import torch
+    host, dev = [], []
+    out = None
+    for _ in range(frames):
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev0.record()
+        out = fn()
+        ev1.record()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+        dev.append(ev0.elapsed_time(ev1))
+    return out, host, dev
+
+
+def _motion_px(gb):
+    """Each pixel's motion in pixels (of a W x H frame), less the frame's
+    uniform TAA jitter step (the median motion of `gb`'s hit pixels, which
+    every still pixel carries)."""
+    import torch
+    w, h = W, H
+    scale = torch.tensor([w, h], dtype=torch.float32, device=gb.motion.device)
+    mot = gb.motion * scale
+    step = mot[gb.hit].median(dim=0).values
+    return torch.linalg.vector_norm(mot - step, dim=-1), step
+
+
+def hydra_probes(rd, prims, task, stage):
+    """Phase 26's probes, in order, each a failure when it fails: picking
+    (six props' centroids, against a host ray cast); an EDGES frame (K4 1
+    and nothing else) and a POINTS frame (no kernel); a transform-only edit
+    of three props (no geometry byte uploaded, the same device streams;
+    motion on the moved props' pixels and none on still pixels, none
+    anywhere after the fold); a points edit of one prop (exactly its new
+    entry's bytes uploaded); a material edit (the shafts' base colour, and
+    nothing else, changes); a destroy_prim (its slot gone, the ray cast's
+    next prim picked at its centroid)."""
+    import torch
+    from diligentfx_tpu_torch.hydrogent.render_delegate import HnGeometryMode
+    from diligentfx_tpu_torch.hydrogent.geometry_pool import (TRIANGLE_BYTES,
+                                                              VERTEX_BYTES)
+    shim = _pxr_shim()
+    sd, meshes, mats, _, _ = stage
+    d = rd.inner
+    pool = d.geometry_pool
+    res = {}
+    picks = {}
+    for pid in HYDRA_PICKS:
+        x, y = hydra_centroid_pixel(d, pid)
+        picks[pid] = (x, y, *hydra_pick(d, x, y)[1:])
+    print(f"hydra probe: picking at the props' centroids (x, y, ray cast's "
+          f"slot, read slot): {picks}", flush=True)
+    for pid, (x, y, want, got) in picks.items():
+        check(want == d._mesh_slots[pid], f"{pid}'s centroid pixel ({x}, "
+              f"{y}) shows another prim (the stage's layout)")
+        check(got == want, f"read_rprim_id({x}, {y}) = {got}, {pid} is slot "
+              f"{want}")
+    res["picks"] = picks
+
+    fg = torch.tensor([0.85, 0.9, 1.0], device=DEVICE)
+    for mode, want, label in ((HnGeometryMode.EDGES, EDGES_LAUNCHES, "edges"),
+                              (HnGeometryMode.POINTS, POINTS_LAUNCHES,
+                               "points")):
+        d.render_param.geometry_mode = mode
+        task.Execute()                       # warm-up
+        zero_launches()
+        out, host, dev = _timed(task.Execute, MODE_FRAMES)
+        got = read_launches()
+        _frame_ok(out, f"{label} frame")
+        share = float(((out.color - fg).abs().amax(-1) < 1e-6).float()
+                      .mean())
+        print(f"hydra probe: {label.upper()} frame {np.median(host):.3f} ms "
+              f"host, {np.median(dev):.3f} ms CUDA events; launches over "
+              f"{MODE_FRAMES} frames {got}; {share:.4f} of the pixels in the "
+              "line colour", flush=True)
+        check(all(got[k] == MODE_FRAMES * want[k] for k in want),
+              f"{MODE_FRAMES} {label} frames launched {got}, expected "
+              f"{MODE_FRAMES} x {want}")
+        check(share > 1e-3, f"{label} frame draws nothing")
+        res[f"{label}_launches"] = got
+        res[f"{label}_frame_ms"] = float(np.median(host))
+        res[f"{label}_share"] = share
+    d.render_param.geometry_mode = HnGeometryMode.SOLID
+    task.Execute()
+
+    total0, scene0 = pool.total_upload_bytes, d._scene
+    for pid in HYDRA_MOVED:
+        xf = np.array(sd.data[pid]["transform"])
+        xf[3, 0] += 0.12
+        sd.data[pid]["transform"] = xf
+        prims[meshes.index(pid)].Sync(sd, None,
+                                      shim._ChangeTracker.DirtyTransform)
+    out = task.Execute()
+    _frame_ok(out, "transform-edit frame")
+    check(pool.total_upload_bytes == total0, "a transform-only edit uploaded "
+          f"{pool.total_upload_bytes - total0} geometry bytes")
+    check(d._scene.positions is scene0.positions and
+          d._scene.indices is scene0.indices,
+          "a transform-only edit rebuilt the device streams")
+    mot, step = _motion_px(out.gbuffer)
+    moved = torch.zeros_like(out.gbuffer.hit)
+    for pid in HYDRA_MOVED:
+        moved |= out.gbuffer.mesh_id == d._mesh_slots[pid]
+    still = out.gbuffer.hit & ~moved
+    moving = float((mot[moved] > 0.1).float().mean())
+    still_share = float((mot[still] > 0.1).float().mean())
+    g2 = task.Execute().gbuffer
+    after = _motion_px(g2)[0][g2.hit]
+    after_share = float((after > 0.1).float().mean())
+    print(f"hydra probe: transform-only edit of {len(HYDRA_MOVED)} props: "
+          f"0 geometry bytes uploaded; motion less the jitter step "
+          f"{step.tolist()} px: {int(moved.sum())} moved pixels, share above "
+          f"0.1 px {moving:.4f} (median {float(mot[moved].median()):.2f} px);"
+          f" {int(still.sum())} still pixels, share above 0.1 px "
+          f"{still_share:.2e} (median {float(mot[still].median()):.2e}); the "
+          f"next frame (folded) share above 0.1 px {after_share:.2e}",
+          flush=True)
+    check(moving > 0.9 and float(mot[moved].median()) > 1.0,
+          f"the moved props carry no motion ({moving:.4f})")
+    check(float(mot[still].median()) < 0.01 and still_share < 1e-2,
+          f"{still_share:.3g} of the still pixels carry motion")
+    check(float(after.median()) < 0.01 and after_share < 1e-2,
+          f"{after_share:.3g} of the pixels carry motion after the fold")
+    res.update(moved_motion_share=moving, still_motion_share=still_share,
+               folded_motion_share=after_share)
+
+    pid = HYDRA_EDITED
+    pts = np.array(sd.data[pid]["points"])
+    pts[:, 2] += 0.05 * np.sin(7.0 * pts[:, 0])
+    sd.data[pid]["points"] = pts
+    prims[meshes.index(pid)].Sync(sd, None, shim._ChangeTracker.DirtyPoints)
+    total0 = pool.total_upload_bytes
+    _frame_ok(task.Execute(), "points-edit frame")
+    _, v_len, _, t_len = pool.range_of(d._mesh_geo[pid])
+    want = v_len * VERTEX_BYTES + t_len * TRIANGLE_BYTES
+    sent = pool.total_upload_bytes - total0
+    print(f"hydra probe: points edit of {pid}: {sent} bytes uploaded, its "
+          f"entry's v_len {v_len} x 48 + t_len {t_len} x 12 = {want}",
+          flush=True)
+    check(sent == want, f"a points edit uploaded {sent} bytes, not {want}")
+    res["points_edit_bytes"] = sent
+
+    def mean_base(gb, group):
+        on = torch.zeros_like(gb.hit)
+        for i in range(12):
+            on |= gb.mesh_id == d._mesh_slots[f"/Atrium/Geom/{group}{i:02d}"]
+        return gb.base_color[on].mean(0), int(on.sum())
+    gb0 = d.last_output.gbuffer
+    shafts0, caps0 = mean_base(gb0, "shaft")[0], mean_base(gb0, "capital")[0]
+    sd.data[mats[9]] = {"material": shim.preview_surface_network(
+        mats[9], diffuse=(0.9, 0.1, 0.1), rough=0.6, metallic=0.0)}
+    prims[len(meshes) + 9].Sync(sd, None, shim._ChangeTracker.AllDirty)
+    gb = task.Execute().gbuffer
+    (shafts, n_px), caps = mean_base(gb, "shaft"), mean_base(gb, "capital")[0]
+    want = torch.tensor([0.9, 0.1, 0.1], device=DEVICE)
+    print(f"hydra probe: material edit of the shafts' network: their "
+          f"{n_px} pixels' mean base colour {shafts0.tolist()} -> "
+          f"{shafts.tolist()}; the capitals' {caps0.tolist()} -> "
+          f"{caps.tolist()}", flush=True)
+    check(float((shafts - want).abs().max()) < 1e-4,
+          f"the shafts' base colour {shafts.tolist()} after the edit")
+    check(float((caps - caps0).abs().max()) < 1e-5,
+          "the material edit changed the capitals")
+    res["material_edit_base_color"] = shafts.tolist()
+
+    pid = HYDRA_DESTROYED
+    nodes0, inst0 = d._scene.node_matrices.shape[0], pool.stats()[
+        "instances"]
+    x, y = hydra_centroid_pixel(d, pid)
+    rd.DestroyRprim(prims[meshes.index(pid)])
+    _frame_ok(task.Execute(), "destroy frame")
+    owner, want, got = hydra_pick(d, x, y)
+    print(f"hydra probe: destroy_prim {pid}: {d._scene.node_matrices.shape[0]}"
+          f" nodes (were {nodes0}), {pool.stats()['instances']} pool "
+          f"instances (were {inst0}); at its centroid ({x}, {y}) the ray "
+          f"cast finds {owner} (slot {want}), read_rprim_id {got}",
+          flush=True)
+    check(pid not in d._mesh_slots and
+          d._scene.node_matrices.shape[0] == nodes0 - 1 and
+          pool.stats()["instances"] == inst0 - 1, "destroy_prim left the prim")
+    check(got == want, f"after destroy_prim, read_rprim_id({x}, {y}) = {got}"
+          f", the ray cast's prim is slot {want}")
+    res["destroyed_pick"] = (x, y, want, got)
+    return res
+
+
+def hydra_k4(d, cfg):
+    """K4 vs raster_tiles_plain at the Hydra stage's EDGES frame inputs
+    (rz.rasterize's: the whole index buffer, standard depth, the stage
+    camera without jitter, set up and binned at the padded 1088 x 1920),
+    bit for bit, timed and counted as phase 15 does."""
+    from diligentfx_tpu_torch import math3d as m3
+    from diligentfx_tpu_torch.ops import raster as rz
+    from diligentfx_tpu_torch.pbr.renderer import transform_vertices
+    scene = d._scene
+    pad_w, pad_h = rz.pad_viewport(W, H, cfg)
+    wp, _, _ = transform_vertices(scene)
+    clip = m3.transform_points(wp, d.frame_info(W, H).camera.view_proj)
+    setup, valid, bbox, _, clip_ovf = rz._triangle_setup(
+        clip, scene.indices, pad_w, pad_h, scene.tri_double_sided, True,
+        1e-3)
+    cand, counts, max_count, ovf, big_ovf = rz._bin_triangles(
+        valid, bbox, pad_w, pad_h, cfg)
+    rects = rz.candidate_rects(setup, pad_w, pad_h)
+    kw = dict(th=cfg.tile_h, tw=cfg.tile_w, tiles_x=pad_w // cfg.tile_w,
+              chunk=cfg.chunk)
+    stats = dict(valid=int(valid.sum()), max_count=int(counts.max()),
+                 max_bin_count=int(max_count),
+                 bin_overflow=int(ovf + clip_ovf), big_overflow=int(big_ovf))
+    print(f"hydra EDGES raster inputs: {stats}", flush=True)
+    check(stats["bin_overflow"] == 0 and stats["big_overflow"] == 0,
+          f"the EDGES raster overflows: {stats}")
+    return dict(k4_against_plain((setup, cand, counts, rects), kw,
+                                 "at the hydra EDGES inputs"),
+                raster_stats=stats)
+
+
+def hydra_budget_probe(stage, renderer):
+    """A second delegate on the stage with a geometry budget of
+    HYDRA_BUDGET bytes a commit: the first frame leaves entries PENDING and
+    renders what is resident; each later frame brings more in until none is
+    pending; every frame finite and within [0, 1]."""
+    from diligentfx_tpu_torch.hydrogent.render_delegate import \
+        HnRenderDelegateCreateInfo
+    rd, _, task, _ = hydra_delegate(
+        stage, renderer, DEVICE, W, H,
+        HnRenderDelegateCreateInfo(geometry_load_budget_bytes=HYDRA_BUDGET))
+    d = rd.inner
+    seen = []
+    for i in range(40):
+        _frame_ok(task.Execute(), f"budget frame {i}")
+        seen.append((d._scene.node_matrices.shape[0],
+                     d.geometry_pool.num_pending))
+        if not d.geometry_pool.num_pending:
+            break
+    print(f"hydra probe: geometry budget {HYDRA_BUDGET} bytes a commit: "
+          f"(nodes rendered, entries pending) a frame {seen}", flush=True)
+    check(seen[0][1] > 0, "the budget left no entry pending")
+    check(seen[-1][1] == 0 and seen[-1][0] == len(d.meshes),
+          "the pending entries never all rendered")
+    check(all(a[0] < b[0] for a, b in zip(seen, seen[1:])),
+          "a frame brought no pending entry in")
+    return seen
+
+
+def phase_hydra_frame(cfg, frames, out_png, ibl_source, profile=""):
+    """Phase 26, the main path of the Hydrogent front end: the Hydra stage
+    (hydra_stage) populated, Synced and committed through the pxr adapter
+    (timed); K1 against its plain version at the stage's G-buffer inputs
+    and K4 at its EDGES frame's (hydra_k4); then HnTaskManager.execute at 1920x1080 through the render
+    task with the bench renderer (on `cfg`, hydra_raster_config) and task
+    manager; one warm-up frame, then
+    `frames` timed frames with the counts zeroed just before and read just
+    after (K1 1, K2 20, K3 1, K4 0 a frame); the same frames of the task
+    manager alone on the committed scene (the delegate's own cost a frame);
+    the probes (hydra_probes, hydra_budget_probe); with `profile`, 3
+    profiled frames; and AsyncFramePipeline from no built kernel
+    (hydra_async_probe)."""
+    import torch
+    from diligentfx_tpu_torch.config import PBRRendererCreateInfo
+    from diligentfx_tpu_torch.hydrogent.task_manager import FrameSettings
+    from diligentfx_tpu_torch.pbr.deferred import fused_raster_inputs
+    from diligentfx_tpu_torch.pbr.renderer import PBRRenderer
+    renderer = PBRRenderer(PBRRendererCreateInfo(), raster_cfg=cfg,
+                           device=DEVICE, env_oct=ibl_source.env_oct,
+                           ibl_maps=ibl_source.ibl_maps)
+    t0 = time.perf_counter()
+    stage = hydra_stage()
+    author_s = time.perf_counter() - t0
+    rd, prims, task, commit_s = hydra_delegate(stage, renderer, DEVICE, W,
+                                               H)
+    d = rd.inner
+    sd, meshes = stage[:2]
+    pool = d.geometry_pool
+    st = pool.stats()
+    scene = d._scene
+    groups = {g: {d._mesh_geo[m] for m in meshes if m.startswith(g)}
+              for g in ("/Atrium/Geom/capital", "/Atrium/Geom/shaft",
+                        "/Atrium/Geom/clutter")}
+    print(f"hydra stage: {len(meshes)} mesh prims, {st['entries']} pool "
+          f"entries ({st['instances']} instances, {st['pooled_bytes']} "
+          f"bytes), {scene.num_triangles} triangles, {scene.num_vertices} "
+          f"vertices, {d.texture_registry.num_textures} textures; authored "
+          f"in {author_s:.2f} s, populate -> Sync -> CommitResources "
+          f"{commit_s * 1e3:.1f} ms", flush=True)
+    check(all(len(k) == 1 for k in groups.values()),
+          f"the capitals, shafts and clutter spheres do not share one pool "
+          f"entry each: {[len(k) for k in groups.values()]}")
+    check(st["entries"] == 28 and st["instances"] == len(meshes),
+          f"pool entries {st['entries']} of {st['instances']} instances, "
+          f"expected 28 of {len(meshes)}")
+    check(scene.num_triangles > 112592, "the stage's triangles")
+    pad_w, pad_h = (-(-W // cfg.tile_w) * cfg.tile_w,
+                    -(-H // cfg.tile_h) * cfg.tile_h)
+    stats = {}
+    for name, c in (("bench", bench_raster_config()), ("hydra", cfg)):
+        k = fused_raster_inputs(scene, d.frame_info(W, H), pad_w=pad_w,
+                                pad_h=pad_h, cfg=c, use_textures=True)
+        stats[name] = {f: int(getattr(k.stats, f)) for f in k.stats._fields}
+    print(f"hydra stage raster statistics, the bench config "
+          f"{stats['bench']}, the stage's (hydra_raster_config) "
+          f"{stats['hydra']}", flush=True)
+    check(stats["hydra"]["bin_overflow"] == 0 and
+          stats["hydra"]["big_overflow"] == 0,
+          f"the stage overflows its raster config: {stats['hydra']}")
+    k1 = phase_raster(scene, d.frame_info(W, H), cfg, use_textures=True,
+                      label="hydra")
+    k4 = hydra_k4(d, cfg)
+
+    _frame_ok(task.Execute(), "hydra warm-up frame")
+    check(d.texture_registry.num_pending == 0,
+          "textures still pending after the warm-up frame")
+    zero_launches()
+    out, host_ms, dev_ms = _timed(task.Execute, frames)
+    launches = read_launches()
+    _frame_ok(out, "hydra frame")
+    hit = float(out.gbuffer.hit.float().mean())
+    for name, per_frame in FRAME_LAUNCHES.items():
+        check(launches[name] == per_frame * frames,
+              f"hydra: {name} launched {launches[name]} times in {frames} "
+              f"frames, expected {per_frame} a frame")
+    tm, info, state = d._task_manager(), d.frame_info(W, H), d._state
+    _, tm_ms, tm_dev_ms = _timed(
+        lambda: tm.execute(d._scene, info, state, width=W, height=H), frames)
+    print(f"hydra frame {W}x{H}: median {np.median(host_ms):.3f} ms host "
+          f"clock, {np.median(dev_ms):.3f} ms CUDA events, min "
+          f"{min(host_ms):.3f}, max {max(host_ms):.3f} ({frames} frames); "
+          f"the task manager alone on the committed scene "
+          f"{np.median(tm_ms):.3f} ms host, {np.median(tm_dev_ms):.3f} ms "
+          f"events; hit {hit:.3f}, mean colour {float(out.color.mean()):.4f};"
+          f" launches {launches}", flush=True)
+    if out_png:
+        root, ext_ = os.path.splitext(out_png)
+        _write_png(f"{root}_hydra{ext_ or '.png'}", out.color)
+    probes = hydra_probes(rd, prims, task, stage)
+    probes["budget_frames"] = hydra_budget_probe(stage, renderer)
+    prof = None
+    if profile:
+        prof = phase_profile(tm, d._scene, lambda: d.frame_info(W, H), 3,
+                             profile, "hydra", ranges=("dfx.gbuffer",),
+                             settings_of=FrameSettings)
+    async_ = hydra_async_probe()
+    return dict(frame_ms_median=float(np.median(host_ms)),
+                frame_events_ms_median=float(np.median(dev_ms)),
+                task_manager_ms_median=float(np.median(tm_ms)),
+                task_manager_events_ms_median=float(np.median(tm_dev_ms)),
+                frames=frames, launches=launches, commit_ms=commit_s * 1e3,
+                pool=st, triangles=scene.num_triangles, raster_stats=stats,
+                probes=probes, profile=prof, async_pipeline=async_,
+                k1_inputs=k1, k4_edges_inputs=k4)
+
+
+def hydra_async_probe():
+    """AsyncFramePipeline from no built kernel: hydra_async_child in a
+    child process (a fresh process, so no kernel library is loaded), its
+    kernels built into an empty directory under build/.  Its frames are
+    FALLBACK first, then OK within HYDRA_ASYNC_LIMIT_S; each kernel library
+    its frames launch is built exactly once (nvcc starts counted)."""
+    import shutil
+    import tempfile
+    base = os.path.join(HERE, "build")
+    os.makedirs(base, exist_ok=True)
+    build_dir = tempfile.mkdtemp(prefix="async_kernels_", dir=base)
+    try:
+        r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--async-child", build_dir, "--root",
+                            ROOT], capture_output=True, text=True,
+                           timeout=HYDRA_ASYNC_LIMIT_S + 300)
+    finally:
+        shutil.rmtree(build_dir, ignore_errors=True)
+    check(r.returncode == 0, f"the AsyncFramePipeline child failed "
+          f"(rc {r.returncode}):\n{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+    res = json.loads(r.stdout.strip().splitlines()[-1])
+    fallback = res["results"].index(0) if 0 in res["results"] else -1
+    print(f"hydra probe: AsyncFramePipeline from no built kernel: "
+          f"{fallback} FALLBACK frames, then OK after "
+          f"{res['seconds_to_ok']:.2f} s (limit {HYDRA_ASYNC_LIMIT_S} s); "
+          f"nvcc starts {res['nvcc_starts']}; the background frame "
+          f"{res['background_s']:.2f} s; fallback frames "
+          f"{res['fallback_ms']} ms", flush=True)
+    check(res["results"][0] == 1 and fallback > 0,
+          f"the pipeline's frames: {res['results']}")
+    check(all(r_ == 0 for r_ in res["results"][fallback:]),
+          f"a FALLBACK frame after the first OK: {res['results']}")
+    check(res["nvcc_starts"] == {"raster_fused": 1, "warp": 1, "march": 1},
+          f"kernel builds {res['nvcc_starts']}: each library once, K1, K2 "
+          f"and K3 only")
+    return res
+
+
+def hydra_async_child(build_dir):
+    """The child of hydra_async_probe: the kernels build into `build_dir`
+    (empty); the stage through the delegate; AsyncFramePipeline with the
+    bench task manager at 1920x1080 until its first OK frame, then two
+    more; prints one JSON line."""
+    import pathlib
+    import torch
+    from diligentfx_tpu_torch.config import PBRRendererCreateInfo
+    from diligentfx_tpu_torch.hydrogent.async_compile import (
+        AsyncFramePipeline, ExecuteResult)
+    from diligentfx_tpu_torch.ops import cuda_build
+    from diligentfx_tpu_torch.pbr.renderer import PBRRenderer
+    cuda_build.BUILD_DIR = pathlib.Path(build_dir)
+    check(not list(cuda_build.BUILD_DIR.glob("*.so")) and
+          not cuda_build._loaded, "the child starts with kernels built")
+    renderer = PBRRenderer(PBRRendererCreateInfo(),
+                           raster_cfg=hydra_raster_config(), device=DEVICE)
+    rd, _, _, _ = hydra_delegate(hydra_stage(), renderer, DEVICE, W, H)
+    d = rd.inner
+    scene, atlas, info = d._scene, d._atlas, d.frame_info(W, H)
+    torch.cuda.synchronize()
+    pipe = AsyncFramePipeline(renderer, bench_task_manager_ci(), width=W,
+                              height=H, atlas=atlas)
+    results, fallback_ms, out, ok_at = [], [], None, None
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < HYDRA_ASYNC_LIMIT_S:
+        t1 = time.perf_counter()
+        out, res = pipe.execute(scene, info, out.state if out else None)
+        torch.cuda.synchronize()
+        _frame_ok(out, f"async frame {len(results)}")
+        results.append(int(res))
+        if res == ExecuteResult.OK:
+            ok_at = time.perf_counter() - t0
+            if results.count(0) == 3:
+                break
+        else:
+            fallback_ms.append(round((time.perf_counter() - t1) * 1e3, 3))
+    check(ok_at is not None, f"no OK frame within {HYDRA_ASYNC_LIMIT_S} s")
+    print(json.dumps(dict(results=results, seconds_to_ok=ok_at,
+                          nvcc_starts=cuda_build.nvcc_starts,
+                          fallback_ms=fallback_ms[:8],
+                          background_s=pipe.background_seconds)))
+    return 0
+
+
+def small_hydra_frames(device, frames=2):
+    """The Hydra stage at 256x128 (the small IBL, hydra_raster_config's
+    small lists) on the CPU path and on `device`, through the pxr adapter:
+    `frames` SOLID frames each, (cpu colour, colour, the device's
+    launches)."""
+    import torch
+    from diligentfx_tpu_torch.config import PBRRendererCreateInfo
+    from diligentfx_tpu_torch.pbr.renderer import PBRRenderer
+    ci = PBRRendererCreateInfo(brdf_lut_dim=32, num_brdf_samples=16,
+                               irradiance_cube_dim=16,
+                               prefiltered_env_map_dim=32,
+                               num_specular_env_samples=16)
+    cfg = hydra_raster_config(small=True)
+    ref = PBRRenderer(ci, raster_cfg=cfg, device="cpu")
+    stage = hydra_stage()
+    colors = []
+    for dev in ("cpu", device):
+        ren = (ref if dev == "cpu" else
+               PBRRenderer(ci, raster_cfg=cfg, device=dev,
+                           env_oct=ref.env_oct, ibl_maps=ref.ibl_maps.to(dev)))
+        _, _, task, _ = hydra_delegate(stage, ren, dev, SMALL_W, SMALL_H)
+        zero_launches()
+        for _ in range(frames):
+            out = task.Execute()
+        _frame_ok(out, f"256x128 hydra frame ({dev})", SMALL_W, SMALL_H)
+        colors.append(out.color.cpu().numpy())
+        if torch.device(dev).type == "cuda":
+            torch.cuda.synchronize()
+    return colors[0], colors[1], read_launches()
+
+
+def phase_hydra_reference():
+    """Phase 27: the Hydra stage at 256x128 on the GPU against the port's
+    CPU path, above 50 dB, K1 1, K2 20, K3 1 a frame."""
+    from diligentfx_tpu_torch.utils.image import psnr
+    cpu, gpu, launches = small_hydra_frames(DEVICE)
+    p = psnr(cpu, gpu)
+    print(f"256x128 hydra frame, GPU vs the port's CPU path: PSNR {p:.2f} "
+          f"dB, max abs diff {np.abs(cpu - gpu).max():.3g}; launches in 2 "
+          f"frames {launches}", flush=True)
+    check(p > 50.0, f"GPU hydra frame disagrees with the CPU path: "
+                    f"{p:.2f} dB")
+    check(all(launches[k] == 2 * v for k, v in FRAME_LAUNCHES.items()),
+          f"the 256x128 hydra frames launched {launches}")
+    return p
+
+
+def hydra_only(frames, profile):
+    """Phases 26 and 27 alone: the Hydra stage's 1080p frames, its probes,
+    AsyncFramePipeline and its 256x128 frames against the CPU path."""
+    from diligentfx_tpu_torch.config import PBRRendererCreateInfo
+    from diligentfx_tpu_torch.pbr.renderer import PBRRenderer
+    cfg = hydra_raster_config()
+    ibl = PBRRenderer(PBRRendererCreateInfo(), raster_cfg=cfg, device=DEVICE)
+    frame = phase_hydra_frame(cfg, frames, "", ibl, profile)
+    return dict(hydra_frame=frame, hydra_psnr=phase_hydra_reference())
+
+
 # goals of the tile rasters' redesign, device ms (torch.profiler kernel
 # rows): K4 over the four cascades, K1 at each of its three inputs
 RASTER_GOALS_MS = {"raster_tiles": 0.45, "bench": 0.15, "csm": 0.20,
@@ -4311,7 +5064,7 @@ def main() -> int:
                          "kernel); write the profiler's table to this path")
     ap.add_argument("--only", choices=("warp", "raster", "csm",
                                         "march_gtao", "oit", "lights",
-                                        "ext_skin", "editor"),
+                                        "ext_skin", "editor", "hydra"),
                     help="warp: run only phases 1, 3 and 13 (K6 on random "
                          "taps within the halo); raster: only phases 1, 2, "
                          "8 (without the csm frame) and 11; csm: only "
@@ -4322,14 +5075,20 @@ def main() -> int:
                          "path); lights: only phases 1, 18 and 19 (with "
                          "--profile, likewise); ext_skin: only phases 1, 21 "
                          "and 22 (likewise); editor: only phases 1, 24 and "
-                         "25 (likewise); and print their JSON line")
+                         "25 (likewise); hydra: only phases 1, 26 and 27 "
+                         "(likewise); and print their JSON line")
+    ap.add_argument("--async-child", metavar="BUILD_DIR", default="",
+                    help="phase 26's AsyncFramePipeline run alone, its "
+                         "kernels built into the empty BUILD_DIR (phase 26 "
+                         "starts it in a child process)")
     ap.add_argument("--root", default=HERE,
                     help="import the port from this checkout (with --only, "
                          "to A/B two checkouts' kernels in one call)")
     args = ap.parse_args()
-    global EARLIER_CHECKOUT_OK
+    global EARLIER_CHECKOUT_OK, ROOT
     EARLIER_CHECKOUT_OK = (args.only == "march_gtao" and
                            os.path.abspath(args.root) != HERE)
+    ROOT = os.path.abspath(args.root)
 
     if not os.path.isdir(os.path.join(args.root, "diligentfx_tpu_torch")):
         fail(f"the diligentfx_tpu_torch package is not in {args.root}")
@@ -4339,6 +5098,8 @@ def main() -> int:
     sys.path.insert(0, os.path.abspath(args.root))
     torch.backends.cuda.matmul.allow_tf32 = False
 
+    if args.async_child:
+        return hydra_async_child(args.async_child)
     card = card_line()
     t_start = time.perf_counter()
     phase_build()
@@ -4382,6 +5143,12 @@ def main() -> int:
     if args.only == "editor":
         print(json.dumps({"root": args.root,
                           **editor_only(args.frames, args.profile)},
+                         default=str))
+        print(card, flush=True)
+        return 0
+    if args.only == "hydra":
+        print(json.dumps({"root": args.root,
+                          **hydra_only(args.frames, args.profile)},
                          default=str))
         print(card, flush=True)
         return 0
@@ -4473,6 +5240,16 @@ def main() -> int:
     t_editor = time.perf_counter()
     editor_psnr = phase_editor_reference()
     editor_s.append(time.perf_counter() - t_editor)
+    t_hydra = time.perf_counter()
+    hydra_frame = phase_hydra_frame(
+        hydra_raster_config(), args.frames, args.out_png, tm.renderer,
+        f"{os.path.splitext(args.profile)[0]}_hydra.txt"
+        if args.profile else "")
+    merge_k1(k1, hydra_frame.pop("k1_inputs"), "hydra_inputs")
+    k4["edges_inputs"] = hydra_frame.pop("k4_edges_inputs")
+    hydra_s = [time.perf_counter() - t_hydra]
+    hydra_psnr = phase_hydra_reference()
+    hydra_s.append(time.perf_counter() - t_hydra - hydra_s[0])
     for k in (k1, k2, k3):
         k["launches"] = launches[k["name"]]
         k["frames"] = args.frames
@@ -4485,6 +5262,10 @@ def main() -> int:
         k["light_heap_frame_launches"] = light_frame["launches"][k["name"]]
         k["ext_skin_frame_launches"] = ext_frame["launches"][k["name"]]
         k["editor_frame_launches"] = editor_frame["launches"][k["name"]]
+        k["hydra_frame_launches"] = hydra_frame["launches"][k["name"]]
+        k["edges_frame_launches"] = hydra_frame["probes"]["edges_launches"][
+            k["name"]]
+        k["edges_frames"] = MODE_FRAMES
     k4["launches"] = csm_launches["raster_tiles"]
     k4["frames"] = args.frames
     k4["launches_per_frame"] = csm_launches["raster_tiles"] / args.frames
@@ -4497,7 +5278,9 @@ def main() -> int:
                   "slices, 9 a frame (light_heap_frame_launches); the "
                   "ext_skin frame's cascades, 4 a frame "
                   "(ext_skin_frame_launches); the editor frame's cascades, "
-                  "4 a frame (editor_frame_launches)")
+                  "4 a frame (editor_frame_launches); the Hydra stage's "
+                  "EDGES frame, one (edges_frame_launches, over "
+                  "edges_frames frames)")
     k5["frame_launches"] = launches["gtao_fused"]
     k5["launches_per_frame"] = 0.0
     k6["frame_launches"] = launches["warp_bilinear_multi"]
@@ -4556,6 +5339,19 @@ def main() -> int:
           f"{editor_frame['sweep_seconds']:.3f} s; 256x128 vs the CPU path "
           f"{editor_psnr:.2f} dB; phases 24 and 25 {editor_s[0]:.1f} and "
           f"{editor_s[1]:.1f} s on {card}; total run "
+          f"{time.perf_counter() - t_start:.1f} s")
+    hp = hydra_frame["probes"]
+    print(f"hydra_frame_ms_median {hydra_frame['frame_ms_median']:.3f} "
+          f"(CUDA events {hydra_frame['frame_events_ms_median']:.3f}; the "
+          f"task manager alone {hydra_frame['task_manager_ms_median']:.3f}) "
+          f"over {args.frames} frames at {W}x{H}, "
+          f"{hydra_frame['triangles']} triangles; populate -> Sync -> "
+          f"CommitResources {hydra_frame['commit_ms']:.1f} ms; EDGES "
+          f"{hp['edges_frame_ms']:.3f} ms, POINTS {hp['points_frame_ms']:.3f}"
+          f" ms; AsyncFramePipeline OK after "
+          f"{hydra_frame['async_pipeline']['seconds_to_ok']:.2f} s; 256x128 "
+          f"vs the CPU path {hydra_psnr:.2f} dB; phases 26 and 27 "
+          f"{hydra_s[0]:.1f} and {hydra_s[1]:.1f} s on {card}; total run "
           f"{time.perf_counter() - t_start:.1f} s")
     if DEVICE_MS_FROM_EVENTS:
         print(f"device_ms from CUDA events, the profiler showing no device "

@@ -6,6 +6,12 @@ library with a plain C interface, loaded with ctypes.  Libraries land in
 a hash of the source, the csrc headers and the flags, so an edited source
 or header rebuilds and an unchanged one loads at once.  Nothing here runs
 at import time.
+
+Building and loading are thread-safe (utils/shared_lib.py, which
+native/build.py shares): one lock is held around `build`, `load` and
+`bind`, so two threads that reach a kernel for the first time together
+start one nvcc, and every temporary and log file is named by the process
+and the thread that writes it.
 """
 from __future__ import annotations
 
@@ -13,9 +19,10 @@ import ctypes
 import hashlib
 import os
 import shutil
-import subprocess
 from pathlib import Path
 from typing import Callable, Dict, Iterable, Sequence, Tuple
+
+from diligentfx_tpu_torch.utils import shared_lib
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -28,6 +35,8 @@ KERNELS = ("raster_fused", "warp", "march", "gtao", "raster_tiles",
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 _bound: Dict[Tuple[str, str], Callable[..., int]] = {}
+# nvcc processes started, by kernel name (each library is built once)
+nvcc_starts: Dict[str, int] = {}
 
 
 def _nvcc() -> str:
@@ -50,58 +59,51 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:12]}.so"
 
 
-def _start_build(name: str):
-    out = library_path(name)
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    log = open(out.with_suffix(".log"), "w")
-    proc = subprocess.Popen(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
-        stdout=log, stderr=subprocess.STDOUT)
-    return proc, tmp, out, log
-
-
 def build(names: Iterable[str]) -> Dict[str, str]:
     """Build every named kernel library that is missing, one nvcc process
     per source, all started together.  Returns {name: compiler log}."""
-    jobs = [(n, *_start_build(n)) for n in names if not library_path(n).exists()]
-    failed = []
-    for name, proc, tmp, out, log in jobs:
-        rc = proc.wait()
-        log.close()
-        if rc == 0:
-            os.replace(tmp, out)
-        else:
-            failed.append(name)
-    if failed:
-        logs = "\n".join(library_path(n).with_suffix(".log").read_text()
-                         for n in failed)
-        raise RuntimeError(f"nvcc failed for {failed}:\n{logs}")
-    return {n: library_path(n).with_suffix(".log").read_text()
-            if library_path(n).with_suffix(".log").exists() else ""
-            for n in names}
+    names = list(names)
+    with shared_lib.lock:
+        jobs = {}
+        for n in names:
+            if not library_path(n).exists():
+                jobs[n] = shared_lib.Compile([_nvcc(), *NVCC_FLAGS],
+                                             CSRC / f"{n}.cu",
+                                             library_path(n))
+                nvcc_starts[n] = nvcc_starts.get(n, 0) + 1
+        failed = [n for n, job in jobs.items() if not job.wait()]
+        if failed:
+            logs = "\n".join(library_path(n).with_suffix(".log").read_text()
+                             for n in failed)
+            raise RuntimeError(f"nvcc failed for {failed}:\n{logs}")
+        return {n: library_path(n).with_suffix(".log").read_text()
+                if library_path(n).with_suffix(".log").exists() else ""
+                for n in names}
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for csrc/<name>.cu, built at first use."""
-    lib = _loaded.get(name)
-    if lib is None:
+    """The loaded library for csrc/<name>.cu, built at first use (once a
+    process, whichever threads ask)."""
+    def built() -> Path:
         build([name])
-        lib = ctypes.CDLL(str(library_path(name)))
-        _loaded[name] = lib
-    return lib
+        return library_path(name)
+    return shared_lib.load(_loaded, name, built)
 
 
 def bind(name: str, symbol: str, argtypes: Sequence) -> Callable[..., int]:
     """csrc/<name>.cu's launcher `symbol`, returning a cudaError_t: built
     and loaded at first use, prototyped once and cached."""
     fn = _bound.get((name, symbol))
-    if fn is None:
-        fn = getattr(load(name), symbol)
-        fn.restype = ctypes.c_int
-        fn.argtypes = list(argtypes)
-        _bound[(name, symbol)] = fn
-    return fn
+    if fn is not None:
+        return fn
+    with shared_lib.lock:
+        fn = _bound.get((name, symbol))
+        if fn is None:
+            fn = getattr(load(name), symbol)
+            fn.restype = ctypes.c_int
+            fn.argtypes = list(argtypes)
+            _bound[(name, symbol)] = fn
+        return fn
 
 
 def check(err: int, what: str) -> None:

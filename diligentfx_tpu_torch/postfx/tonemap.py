@@ -186,3 +186,25 @@ def average_log_luminance(color: Tensor, eps: float = 1e-4) -> Tensor:
     0-dim tensor on the colour's device (UpdateAverageLuminance)."""
     lum = torch.sum(color * _f32(RGB_TO_LUMINANCE, color.device), dim=-1)
     return torch.exp(torch.mean(torch.log(lum + eps)))
+
+
+def loading_animation(color: Tensor, factor, time: float, *,
+                      stripe_px: float = 32.0) -> Tensor:
+    """Streaming-asset loading overlay (JAX tonemap.py:181), the analogue
+    of RenderPBR.psh's GetLoadingAnimationColor (RenderPBR.psh:361-386,
+    applied :615-630): while assets stream in, geometry blends toward an
+    animated diagonal stripe pattern; factor (a scalar or an (H, W, 1)
+    tensor) 0 shows the scene, 1 the full pattern."""
+    h, w = color.shape[:2]
+    dev, dt = color.device, color.dtype
+    x = torch.arange(w, dtype=dt, device=dev)[None, :]
+    y = torch.arange(h, dtype=dt, device=dev)[:, None]
+    phase = (x + y) / stripe_px - time * 2.0
+    stripe = 0.5 + 0.5 * torch.sin(phase * 3.14159265)
+    base = torch.tensor([0.22, 0.24, 0.28], dtype=dt, device=dev)
+    hi = torch.tensor([0.36, 0.38, 0.42], dtype=dt, device=dev)
+    pattern = base + (hi - base) * stripe[..., None]
+    f = torch.as_tensor(factor, dtype=dt, device=dev)
+    if f.ndim == 0:
+        f = f.expand(h, w, 1)
+    return color + (pattern - color) * f

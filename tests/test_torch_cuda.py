@@ -1,8 +1,8 @@
 """The port's CUDA kernels on the card: each kernel (K1 fused raster, K2
 warp, K3 march, K4 two-pass raster, K5 fused GTAO, K6 multi-tap warp)
 against its plain PyTorch version, the wrappers' checks and launch counts,
-and small bench, csm and full-chain frames on the GPU against the port's
-CPU path.
+and small bench, csm, full-chain, editor and Hydra-stage frames on the GPU
+against the port's CPU path.
 
 These tests need an NVIDIA GPU (sm_90a) and nvcc; elsewhere they skip.  Run
 them on the card with
@@ -903,3 +903,77 @@ def test_vector_field_matches_sequential_on_card(cuda, seed, sigma):
     plain = cr.render_vector_field_plain(color.to(cuda), field.to(cuda))
     assert torch.equal(got, plain)
     assert bool((got != color.to(cuda)).any())
+
+
+def test_small_hydra_frame_matches_cpu_path(cuda):
+    """chip_smoke.py's 256 x 128 Hydra stage (phase 27: the atrium and the
+    Kitchen props through the pxr adapter and the render delegate) on the
+    card against the CPU path: above 50 dB, K1 1, K2 20, K3 1 and K4 0
+    launches a frame."""
+    import chip_smoke as cs
+    from diligentfx_tpu_torch.utils.image import psnr
+    cpu, gpu, launches = cs.small_hydra_frames(cuda)
+    assert np.isfinite(gpu).all() and gpu.min() >= 0.0 and gpu.max() <= 1.0
+    assert psnr(cpu, gpu) > 50.0
+    assert launches == {k: 2 * v for k, v in cs.FRAME_LAUNCHES.items()}
+
+
+def test_hydra_edges_frame_matches_cpu(cuda):
+    """The delegate's EDGES frame of the Hydra stage at 256 x 128 on the
+    card (K4, once) against the CPU path (K4's plain version): at most
+    0.1% of the pixels differ (knife edges of the barycentric test)."""
+    import chip_smoke as cs
+    from diligentfx_tpu_torch.config import PBRRendererCreateInfo
+    from diligentfx_tpu_torch.hydrogent.render_delegate import HnGeometryMode
+    from diligentfx_tpu_torch.pbr.renderer import PBRRenderer
+    ci = PBRRendererCreateInfo(brdf_lut_dim=16, num_brdf_samples=8,
+                               irradiance_cube_dim=16,
+                               prefiltered_env_map_dim=16,
+                               num_specular_env_samples=8)
+    cfg = cs.hydra_raster_config(small=True)
+    stage = cs.hydra_stage(tex_size=16)
+    colors = []
+    for dev in ("cpu", cuda):
+        ren = PBRRenderer(ci, raster_cfg=cfg, device=dev)
+        rd, _, task, _ = cs.hydra_delegate(stage, ren, dev, 256, 128)
+        rd.inner.render_param.geometry_mode = HnGeometryMode.EDGES
+        trt.raster_tiles.launches = 0
+        colors.append(task.Execute().color.cpu().numpy())
+        assert trt.raster_tiles.launches == (1 if dev == cuda else 0)
+    diff = np.abs(colors[0] - colors[1]).max(-1) > 0
+    assert diff.mean() <= 1e-3, diff.sum()
+    assert (colors[1] != colors[1][0, 0]).any()
+
+
+def test_hydra_entry_points_default_to_the_card(cuda):
+    """The delegate, its pool and registry, and the renderer it builds run
+    on the card unless the caller asks for the CPU."""
+    from diligentfx_tpu_torch.config import PBRRendererCreateInfo
+    from diligentfx_tpu_torch.hydrogent.geometry_pool import HnGeometryPool
+    from diligentfx_tpu_torch.hydrogent.render_delegate import \
+        HnRenderDelegate
+    from diligentfx_tpu_torch.hydrogent.texture_registry import \
+        HnTextureRegistry
+    from diligentfx_tpu_torch.pbr.renderer import PBRRenderer
+    d = HnRenderDelegate()
+    assert d.device.type == "cuda"
+    assert d.geometry_pool.device.type == "cuda"
+    assert d.texture_registry.device.type == "cuda"
+    m = d.create_rprim("mesh", "/tri")
+    m.set_points([[-1, -1, 0], [1, -1, 0], [0, 1, 0]])
+    m.set_triangles([[0, 1, 2]])
+    d.create_sprim("camera", "/cam").set_params(eye=(0, 0, 4),
+                                                target=(0, 0, 0))
+    out = d.execute(128, 128)
+    assert out.color.is_cuda and d._scene.positions.is_cuda
+    assert d._renderer.device.type == "cuda"
+    assert d.read_rprim_id(64, 64) == 0
+    assert HnRenderDelegate(device="cpu").device.type == "cpu"
+    assert HnGeometryPool().device.type == "cuda"
+    assert HnTextureRegistry().device.type == "cuda"
+    small = PBRRendererCreateInfo(brdf_lut_dim=16, num_brdf_samples=8,
+                                  irradiance_cube_dim=16,
+                                  prefiltered_env_map_dim=16,
+                                  num_specular_env_samples=8)
+    with pytest.raises(ValueError, match="renderer is on"):
+        HnRenderDelegate(renderer=PBRRenderer(small, device="cpu"))
