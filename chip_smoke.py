@@ -11,9 +11,10 @@ point and sun shadows through the shadow atlas, textures at their native
 sizes in the texture heap) and the ext_skin frame of a third (the glTF
 material extensions, skinned figures and their animation) and that
 showroom's editor frame (selection, grid, bound box, vector field, depth
-bounds, the debug views) and a Hydra stage through the Hydrogent front end
-(the pxr adapter, the render delegate, AsyncFramePipeline), and checks
-them.
+bounds, the debug views), a Hydra stage through the Hydrogent front end
+(the pxr adapter, the render delegate, AsyncFramePipeline) and an atrium
+through the Radient front end (engine, ECS scene, async assets, resolver,
+drawable cache, C API), and checks them.
 
 Phases (any failure exits non-zero; no phase is skipped):
   1. build csrc/*.cu with nvcc (one process per source, all at once);
@@ -185,7 +186,30 @@ Phases (any failure exits non-zero; no phase is skipped):
      AsyncFramePipeline in a child process with no kernel built (FALLBACK,
      then OK; each kernel library built once);
  27. two 256x128 frames of the Hydra stage on the GPU against the port's
-     CPU path.
+     CPU path;
+ 28. the Radient atrium through the Radient front end alone
+     (create_radient_engine on the card): the full-chain atrium's meshes
+     in a .glb with a spot, a point and a directional KHR light, imported
+     from mem:// through the resolver chain (the capitals, shafts and
+     clutter spheres deduplicated by the asset manager), four textures
+     through load_texture (two PNGs by a relative path and a file:// URI,
+     a numpy payload and its duplicate with a release callback) into the
+     atlas, and a carousel of 24 spheres (one asset) under a parent
+     entity; the renderer with the bench task manager and a view at
+     1920x1080 on the circling camera; one warm-up frame (the raster
+     statistics), K1 against its plain version at the frame's G-buffer
+     inputs, then --frames timed frames, the carousel turned each (a
+     transform-only change), with the counts zeroed just before and read
+     just after (K1 1, K2 20, K3 1, K4 0 a frame; no full rebuild, one
+     incremental sync a frame; update, render and the whole frame timed);
+     the probes: the carousel hidden (one full rebuild, its pixels
+     change), a fresh scene whose mesh is loading (PENDING), a budget
+     smaller than one mesh (NO_GPU_DATA, then OK), a headless engine (OK,
+     no kernel); the same meshes and hierarchy through the C API (dedups,
+     world matrices, renderables); PBRRenderer(ibl_cache_dir) cold then
+     warm (bit-equal maps); vertex packing on the card against the CPU;
+ 29. two 256x128 frames of the Radient atrium on the GPU against the
+     port's CPU path.
 
 Prints the median frame times, one JSON line with each kernel's launches,
 times and bound, the card's name and power limit, and last
@@ -201,12 +225,14 @@ Usage: python3 chip_smoke.py [--frames N] [--out-png PATH] [--profile PATH]
        python3 chip_smoke.py --only ext_skin [--profile PATH] [--root DIR]
        python3 chip_smoke.py --only editor [--profile PATH] [--root DIR]
        python3 chip_smoke.py --only hydra [--profile PATH] [--root DIR]
+       python3 chip_smoke.py --only radient [--profile PATH] [--root DIR]
 (the second runs phases 1, 3 and 13 alone, K6 on random taps; the third
 phases 1, 2, 8 without the csm frame, and 11 without the full-chain frame;
 the fourth phases 1 and 9; the fifth phase 1, one bench frame for its
 G-buffer, and phases 5 and 6; the sixth phases 1, 15 and 16; the seventh
 phases 1, 18 and 19; the eighth phases 1, 21 and 22; the ninth phases 1,
-24 and 25; the tenth phases 1, 26 and 27; each on the port of
+24 and 25; the tenth phases 1, 26 and 27; the eleventh phases 1, 28
+and 29; each on the port of
 the checkout DIR: run it in two checkouts in turn, A B B A, to compare
 them in one call)
 """
@@ -590,8 +616,11 @@ def phase_raster(scene, info, cfg, use_textures=False, label="bench",
         d_ref = outp[n_ch:n_ch + n_d][:, hit]
         d_err = float((out[n_ch:n_ch + n_d][:, hit] - d_ref).abs().max())
         d_tol = float(1e-5 * d_ref.abs().max())
+    # bit for bit: the ids everywhere, depth and channels where hit
+    bit_equal = id_mismatch == 0 and z_err == ch_err == d_err == 0.0
     print(f"{label} raster_fused vs plain: {out.shape[0]} channels ({n_d} "
-          f"derivatives), id mismatches {id_mismatch} of {tid.numel()}, hit "
+          f"derivatives), bit-equal {bit_equal}, id mismatches "
+          f"{id_mismatch} of {tid.numel()}, hit "
           f"px {int(hit.sum())}, z max err {z_err:.3g}, channel max err "
           f"{ch_err:.3g} (tol {ch_tol:.3g}), derivative max err {d_err:.3g} "
           f"(tol {d_tol:.3g})", flush=True)
@@ -631,7 +660,8 @@ def phase_raster(scene, info, cfg, use_textures=False, label="bench",
                 library_ms=None, device_ms=dev_ms,
                 candidate_pixel_tests=tests,
                 candidate_pixel_tests_unculled=unculled,
-                bound_ms_unculled=old_ms, raster_stats=st)
+                bound_ms_unculled=old_ms, raster_stats=st,
+                bit_equal=bit_equal)
 
 
 def _warp_case(h, w, c, halo, gen):
@@ -2790,27 +2820,40 @@ def light_heap_glb(path, n_columns=12):
     texture 3) and two KHR_lights_punctual lights: a spot lamp 3.5 m above
     the floor aimed at the clutter spheres in front of it (its shadows fall
     toward the camera) and a point light between the columns."""
-    items = textured_atrium_items(n_columns)
-    aim = np.asarray(SPOT_AT, np.float32) - np.asarray(SPOT_POS, np.float32)
-    z = -aim / np.linalg.norm(aim)             # the light shines down local -Z
-    x = np.cross([0.0, 1.0, 0.0], z)
-    x /= np.linalg.norm(x)
-    spot = np.eye(4, dtype=np.float32)
-    spot[0, :3], spot[1, :3], spot[2, :3] = x, np.cross(z, x), z
-    spot[3, :3] = SPOT_POS
-    point = np.eye(4, dtype=np.float32)
-    point[3, :3] = POINT_POS
-    lights = [({"type": "spot", "color": [1.0, 0.9, 0.75], "intensity": 60.0,
-                "range": 20.0, "spot": {"innerConeAngle": 0.4,
-                                        "outerConeAngle": SPOT_OUTER}},
-               spot),
-              ({"type": "point", "color": [0.7, 0.8, 1.0], "intensity": 25.0,
-                "range": 20.0}, point)]
-    return write_glb(path, items,
+    return write_glb(path, textured_atrium_items(n_columns),
                      [(lattice_texture(), (REPEAT, REPEAT)),
                       (floor_texture(), (REPEAT, REPEAT)),
                       (wall_texture(), (MIRROR, MIRROR)),
-                      (normal_texture(), (REPEAT, REPEAT))], lights)
+                      (normal_texture(), (REPEAT, REPEAT))],
+                     spot_point_lights())
+
+
+def light_node(position, aim):
+    """A light node's row-vector matrix at `position` whose local -Z (the
+    way a glTF spot or directional light shines) points along `aim`."""
+    z = -np.asarray(aim, np.float32)
+    z /= np.linalg.norm(z)
+    x = np.cross([0.0, 1.0, 0.0], z)
+    x /= np.linalg.norm(x)
+    m = np.eye(4, dtype=np.float32)
+    m[0, :3], m[1, :3], m[2, :3] = x, np.cross(z, x), z
+    m[3, :3] = position
+    return m
+
+
+def spot_point_lights():
+    """The light / heap atrium's KHR_lights_punctual lights for write_glb:
+    a spot lamp 3.5 m above the floor aimed at the clutter spheres in front
+    of it and a point light between the columns."""
+    point = np.eye(4, dtype=np.float32)
+    point[3, :3] = POINT_POS
+    return [({"type": "spot", "color": [1.0, 0.9, 0.75], "intensity": 60.0,
+              "range": 20.0, "spot": {"innerConeAngle": 0.4,
+                                      "outerConeAngle": SPOT_OUTER}},
+             light_node(SPOT_POS, np.asarray(SPOT_AT, np.float32)
+                        - np.asarray(SPOT_POS, np.float32))),
+            ({"type": "point", "color": [0.7, 0.8, 1.0], "intensity": 25.0,
+              "range": 20.0}, point)]
 
 
 def light_heap_render_scene(device, n_columns=12, binding="array"):
@@ -4377,9 +4420,13 @@ def hydra_delegate(stage, renderer, device, w, h, ci=None):
 def _frame_ok(out, label, w=None, h=None):
     """A frame's colour: (h, w, 3) (W x H by default), finite, within
     [0, 1]."""
+    _color_ok(out.color, label, w, h)
+
+
+def _color_ok(c, label, w=None, h=None):
+    """_frame_ok of a colour tensor."""
     import torch
     w, h = w or W, h or H
-    c = out.color
     check(tuple(c.shape) == (h, w, 3), f"{label}: colour shape {c.shape}")
     check(bool(torch.isfinite(c).all()), f"{label}: colour not finite")
     check(float(c.min()) >= 0.0 and float(c.max()) <= 1.0,
@@ -4948,6 +4995,664 @@ def hydra_only(frames, profile):
     return dict(hydra_frame=frame, hydra_psnr=phase_hydra_reference())
 
 
+# ---------------------------------------------------------------------------
+# the Radient atrium (phases 28 and 29)
+# ---------------------------------------------------------------------------
+
+RADIENT_CAROUSEL = 24              # the carousel parent's children
+RADIENT_RING = (2.5, 3.2)          # their ring's radius and height, m
+RADIENT_SPIN = 0.05                # the carousel's turn a frame, rad
+RADIENT_SUN = {"type": "directional", "color": [1.0, 0.95, 0.9],
+               "intensity": 3.0}
+RADIENT_BUDGET = 1 << 10           # the budget probe's bytes: < one mesh
+RADIENT_PIXEL_CHANGE = 0.05        # a pixel changed: a channel moved this far
+
+
+def radient_lights():
+    """The Radient atrium's KHR_lights_punctual lights: the light / heap
+    atrium's spot and point light, and a directional sun along
+    FULL_CHAIN_SUN."""
+    return spot_point_lights() + [
+        (RADIENT_SUN, light_node([0.0, 10.0, 0.0], FULL_CHAIN_SUN))]
+
+
+def radient_glb(entries, lights):
+    """The bytes of a .glb (write_glb) of `entries` ((MeshData, node
+    matrix, PBRMaterialBasicAttribs) each, opaque) and `lights`."""
+    import tempfile
+    items = [(mesh, node, _gltf_material(mat)) for mesh, node, mat in entries]
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(write_glb(os.path.join(tmp, "scene.glb"), items, (),
+                            lights), "rb") as f:
+            return f.read()
+
+
+def radient_dedup_hits(n_columns, carousel):
+    """The asset manager's dedup hits for radient_scene: create_mesh hashes
+    each imported primitive's payload, and the atrium's capitals, shafts
+    (each n_columns of one MeshData) and its 40 clutter spheres (distinct
+    MeshData of equal payloads) are one asset each; the carousel's spheres
+    are one; load_texture dedups the numpy payload's duplicate."""
+    return 2 * (n_columns - 1) + (40 - 1) + (carousel - 1) + 1
+
+
+def carousel_matrix(i):
+    """The carousel parent's matrix at frame i: turned RADIENT_SPIN * i
+    about +Y at the ring's height."""
+    a = RADIENT_SPIN * i
+    m = np.eye(4, dtype=np.float32)
+    m[0, 0], m[0, 2], m[2, 0], m[2, 2] = np.cos(a), -np.sin(a), np.sin(a), \
+        np.cos(a)
+    m[3, 1] = RADIENT_RING[1]
+    return m
+
+
+def radient_camera(view, i):
+    """full_chain_info(i)'s circling camera on a RadientView."""
+    a = i * 0.02
+    view.set_camera([10.0 * np.sin(a), 2.0, 10.0 * np.cos(a)],
+                    [0.0, 1.0, 0.0], fov_y=0.8, near_z=0.1, far_z=100.0)
+
+
+def radient_textures(eng, root):
+    """Four load_texture calls: two PNGs written into `root` and resolved
+    by a FilesystemAssetResolver pushed to the front of the chain (one by
+    a path relative to `root`, one by its file:// URI), a numpy payload,
+    and its duplicate with a release callback.  (handles, release calls)."""
+    from diligentfx_tpu_torch.radient.resolver import FilesystemAssetResolver
+    from diligentfx_tpu_torch.utils.image import write_png
+    am = eng.asset_manager
+    am.resolver.push_front(FilesystemAssetResolver([root]))
+    write_png(os.path.join(root, "lattice.png"), lattice_texture(128))
+    os.makedirs(os.path.join(root, "maps"), exist_ok=True)
+    normal = os.path.join(root, "maps", "normal.png")
+    write_png(normal, normal_texture(256))
+    payload = np.random.default_rng(13).random((64, 64, 4)).astype(np.float32)
+    released = []
+    handles = [am.load_texture("lattice.png"),
+               am.load_texture("file://" + normal),
+               am.load_texture(payload),
+               am.load_texture(payload.copy(),
+                               release_callback=lambda: released.append(1))]
+    return handles, released
+
+
+def radient_carousel(eng, state, n=RADIENT_CAROUSEL, textures=()):
+    """The carousel through the engine's API: a parent entity and n
+    children, each create_mesh of an identical uv_sphere(0.3, 24, 32)
+    payload (one asset, n - 1 dedup hits) with a material of its own (a
+    texture handle stored on some, which nothing binds to the frame, as in
+    the reference), on a ring of RADIENT_RING parented with set_parent.
+    (parent, children)."""
+    from diligentfx_tpu_torch.attribs import PBRMaterialBasicAttribs
+    from diligentfx_tpu_torch.gltf.primitives import uv_sphere
+    am = eng.asset_manager
+    w = eng.create_scene_writer(state)
+    parent = w.create_entity()
+    w.set_transform(parent, carousel_matrix(0))
+    children = []
+    for k in range(n):
+        s = uv_sphere(0.3, 24, 32)
+        mesh = am.create_mesh(s.positions, s.indices, s.normals, s.uvs,
+                              s.tangents)
+        hue = 2 * np.pi * k / n
+        mat = am.create_material(PBRMaterialBasicAttribs.create(
+            base_color_factor=(0.55 + 0.4 * np.cos(hue),
+                               0.55 + 0.4 * np.cos(hue - 2.1),
+                               0.55 + 0.4 * np.cos(hue + 2.1), 1.0),
+            metallic_factor=(k % 4) / 3, roughness_factor=0.2 + (k % 3) * 0.3),
+            texture_handles=({"base_color": textures[k % len(textures)]}
+                             if textures and k % 2 else {}))
+        e = w.create_entity()
+        w.set_mesh(e, mesh, mat)
+        local = np.eye(4, dtype=np.float32)
+        local[3, :3] = (RADIENT_RING[0] * np.cos(hue), 0.0,
+                        RADIENT_RING[0] * np.sin(hue))
+        w.set_transform(e, local)
+        w.set_parent(e, parent)
+        children.append(e)
+    return parent, children
+
+
+def radient_wait(am):
+    """Wait for every queued mesh and texture load of `am`."""
+    for h in list(am.meshes) + list(am.textures):
+        am.wait_for_asset_load(h)
+
+
+def radient_scene(eng, n_columns=12, carousel=RADIENT_CAROUSEL):
+    """The Radient atrium through the port's Radient API on `eng`: the
+    bytes of radient_glb (full_chain_entries(n_columns), no screens or
+    panes, and radient_lights) in a MemoryAssetResolver pushed to the front
+    of the chain and imported with import_gltf("mem://atrium.glb"); the
+    four textures (radient_textures, written into a temporary root); the
+    carousel; every load waited for.  A dict: state, scene, parent,
+    children, textures, released, import status, seconds."""
+    import tempfile
+    from diligentfx_tpu_torch.radient.resolver import MemoryAssetResolver
+    t0 = time.perf_counter()
+    am = eng.asset_manager
+    glb = radient_glb(full_chain_entries(n_columns), radient_lights())
+    am.resolver.push_front(MemoryAssetResolver({"atrium.glb": glb}))
+    scene, state = eng.create_scene()
+    status = eng.create_scene_importer(state).import_gltf("mem://atrium.glb")
+    with tempfile.TemporaryDirectory() as root:
+        textures, released = radient_textures(eng, root)
+        parent, children = radient_carousel(eng, state, carousel, textures)
+        radient_wait(am)
+    return dict(state=state, scene=scene, parent=parent, children=children,
+                textures=textures, released=released, import_status=status,
+                glb_bytes=len(glb), seconds=time.perf_counter() - t0)
+
+
+def radient_raster_config(small=False):
+    """The bench raster config's 32 x 128 tiles, 4 sub-bins and setup, with
+    lists that hold the Radient atrium (the warm-up frame prints its longest
+    sub-bin list): 1,024 a sub-bin at 1920x1080, 16,384 at 256x128
+    (`small`)."""
+    import dataclasses
+    return dataclasses.replace(
+        bench_raster_config(), bin_capacity=(1 << 16) if small else 4096,
+        big_tri_capacity=256, big_tile_capacity=64)
+
+
+def radient_step(renderer, state, view, writer, parent, i):
+    """Frame i: the carousel turned (a transform-only change), the circling
+    camera, update, render; (update status, render status, update ms,
+    render ms), each time on the host clock ending in a synchronise."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    writer.set_transform(parent, carousel_matrix(i))
+    radient_camera(view, i)
+    st_u = renderer.update(state)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    st_r = renderer.render(state, view)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return st_u, st_r, (t1 - t0) * 1e3, (t2 - t1) * 1e3
+
+
+def _pixel(view_proj, p, w, h):
+    """The pixel (x, y) of world point p under a row-vector view-proj."""
+    c = np.append(np.asarray(p, np.float64), 1.0) @ view_proj
+    return (int((c[0] / c[3] * 0.5 + 0.5) * w),
+            int((0.5 - c[1] / c[3] * 0.5) * h))
+
+
+def radient_probes(eng, renderer, sc, view, frames):
+    """Phase 28's probes: set_visible(False) on the carousel (one full
+    rebuild; the carousel's centre pixels change), a fresh scene whose mesh
+    is still loading (PENDING, then OK), a budget smaller than one mesh
+    (NO_GPU_DATA, then OK on the next frame) and a headless engine (OK,
+    no kernel launched)."""
+    import threading
+    import torch
+    from diligentfx_tpu_torch.attribs import PBRMaterialBasicAttribs
+    from diligentfx_tpu_torch.gltf.primitives import uv_sphere
+    from diligentfx_tpu_torch.radient.engine import (RadientEngineCreateInfo,
+                                                     create_radient_engine)
+    from diligentfx_tpu_torch.radient.types import LoadStatus, RadientStatus
+    state, parent = sc["state"], sc["parent"]
+    writer = eng.create_scene_writer(state)
+    cache = renderer._cache_for(state)
+    am = eng.asset_manager
+    res = {}
+
+    # the carousel hidden, then shown: one full rebuild each
+    before = view.last_frame.clone()
+    rebuilds = cache.full_rebuilds
+    tris = cache.scene_primitives.num_triangles
+    writer.set_visible(parent, False)
+    st = radient_step(renderer, state, view, writer, parent, frames)[:2]
+    hidden = view.last_frame
+    vp = renderer.frame_info(state, view).camera.view_proj.cpu().numpy()
+    moved = (hidden - before).abs().amax(dim=-1).cpu().numpy()
+    centres = [_pixel(vp, state.world_transform(e)[3, :3], W, H)
+               for e in sc["children"]]
+    changed = sum(1 for x, y in centres if 0 <= x < W and 0 <= y < H
+                  and moved[y, x] > RADIENT_PIXEL_CHANGE)
+    res.update(hidden_rebuilds=cache.full_rebuilds - rebuilds,
+               hidden_triangles=cache.scene_primitives.num_triangles,
+               hidden_pixels=int((moved > RADIENT_PIXEL_CHANGE).sum()),
+               hidden_centres_changed=changed)
+    writer.set_visible(parent, True)
+    st2 = radient_step(renderer, state, view, writer, parent, frames)[:2]
+    res["shown_rebuilds"] = cache.full_rebuilds - rebuilds
+    print(f"radient probe: set_visible(False) on the carousel: {st}, full "
+          f"rebuilds +{res['hidden_rebuilds']}, triangles {tris} -> "
+          f"{res['hidden_triangles']}, {res['hidden_pixels']} pixels "
+          f"changed, {changed} of {len(centres)} sphere centres changed; "
+          f"shown again: {st2}, rebuilds +{res['shown_rebuilds']}",
+          flush=True)
+    check(st == st2 == (RadientStatus.OK, RadientStatus.OK),
+          f"the visibility frames: {st}, {st2}")
+    check(res["hidden_rebuilds"] == 1 and res["shown_rebuilds"] == 2,
+          "set_visible is a structural change: one full rebuild each")
+    mesh_tris = sum(int(am.meshes[state.meshes[e].mesh_asset]
+                        .device["indices"].shape[0]) for e in sc["children"])
+    check(res["hidden_triangles"] == tris - mesh_tris,
+          f"the hidden carousel left {tris - res['hidden_triangles']} "
+          f"triangles, not its {mesh_tris}")
+    check(changed >= 0.75 * len(centres),
+          f"only {changed} of {len(centres)} carousel centres changed")
+
+    # a fresh scene whose mesh is still loading: PENDING, then OK
+    gate = threading.Event()
+    for _ in range(eng.ci.num_loading_threads):
+        am._pool.submit(gate.wait, 60.0)
+    _, fresh = eng.create_scene()
+    fw = eng.create_scene_writer(fresh)
+    s = uv_sphere(0.2, 10, 14)
+    mesh = am.create_mesh(s.positions, s.indices, s.normals, s.uvs)
+    e = fw.create_entity()
+    fw.set_mesh(e, mesh, am.create_material(
+        PBRMaterialBasicAttribs.create()))
+    queued = am.get_status(mesh)
+    pending = (renderer.update(fresh), renderer.render(fresh, view))
+    gate.set()
+    am.wait_for_asset_load(mesh)
+    after = renderer.update(fresh)
+    res.update(pending=[int(x) for x in pending], pending_after=int(after))
+    print(f"radient probe: a fresh scene, its mesh {queued.name}: update "
+          f"and render {[x.name for x in pending]}; once loaded, update "
+          f"{after.name}", flush=True)
+    check(queued == LoadStatus.QUEUED and pending == (
+        RadientStatus.PENDING, RadientStatus.PENDING)
+        and after == RadientStatus.OK, "the loading mesh's statuses")
+
+    # a budget smaller than one mesh: NO_GPU_DATA, then OK
+    small = create_radient_engine(RadientEngineCreateInfo(
+        upload_budget_bytes=RADIENT_BUDGET, headless=True), device=DEVICE)
+    _, bst = small.create_scene()
+    bw = small.create_scene_writer(bst)
+    sizes = []
+    for k, res_ in enumerate(((12, 16), (14, 18))):
+        s = uv_sphere(0.25, *res_)
+        sizes.append(s.positions.nbytes + s.indices.nbytes)
+        e = bw.create_entity()
+        bw.set_mesh(e, small.asset_manager.create_mesh(
+            s.positions, s.indices), -1)
+    radient_wait(small.asset_manager)
+    br = small.create_renderer()
+    budget = []
+    for _ in range(3):
+        budget.append((br.update(bst), br.render(bst, small.create_view(
+            SMALL_W, SMALL_H))))
+    res["budget"] = [[int(a), int(b)] for a, b in budget]
+    print(f"radient probe: a {RADIENT_BUDGET}-byte budget, meshes of "
+          f"{sizes} bytes: update, render {[(a.name, b.name) for a, b in budget]}",
+          flush=True)
+    check(budget[0][0] == RadientStatus.NO_GPU_DATA and
+          budget[1] == (RadientStatus.OK, RadientStatus.OK),
+          f"the budget frames: {budget}")
+    small.shutdown()
+
+    # a headless engine: OK and no kernel launched
+    head = create_radient_engine(RadientEngineCreateInfo(headless=True),
+                                 device=DEVICE)
+    _, hst = head.create_scene()
+    hw = head.create_scene_writer(hst)
+    s = uv_sphere(0.3, 24, 32)
+    e = hw.create_entity()
+    hw.set_mesh(e, head.asset_manager.create_mesh(s.positions, s.indices),
+                -1)
+    radient_wait(head.asset_manager)
+    hr = head.create_renderer(task_manager_ci=bench_task_manager_ci())
+    torch.cuda.synchronize()
+    zero_launches()
+    hstat = (hr.update(hst), hr.render(hst, head.create_view(W, H)))
+    torch.cuda.synchronize()
+    res["headless_launches"] = read_launches()
+    print(f"radient probe: headless engine: {[x.name for x in hstat]}, "
+          f"launches {res['headless_launches']}", flush=True)
+    check(hstat == (RadientStatus.OK, RadientStatus.OK) and
+          not any(res["headless_launches"].values()),
+          "the headless engine's frame launched a kernel or failed")
+    head.shutdown()
+    return res
+
+
+def radient_c_api_probe(eng, state):
+    """The Radient atrium's meshes and hierarchy through the C API
+    (NativeEngine, NativeScene): a node for each entity (its parent's node
+    as parent, its local matrix, its visibility), a native mesh for each
+    mesh entity from its asset's host payload, a native material for each
+    material asset.  Its dedup count, its world matrices and its
+    renderables must equal the Python SceneState's: the dedups and the
+    renderables exactly; the world matrices within float32 rounding of the
+    4x4 products (the C layer sums each product's terms in order, numpy's
+    matmul does not): 4 ulp of the matrix's largest entry."""
+    from diligentfx_tpu_torch.radient.c_api import NativeEngine
+    from diligentfx_tpu_torch.radient.scene_state import INVALID_ENTITY
+    am = eng.asset_manager
+    ne = NativeEngine()
+    ns = ne.create_scene()
+    node, natmesh, natmat = {}, {}, {}
+    deduped = 0
+    todo = sorted(state._alive)
+    while todo:
+        e = todo.pop(0)
+        p = state.parents[e]
+        if p != INVALID_ENTITY and p not in node:
+            todo.append(e)
+            continue
+        node[e] = ns.create_node(node[p] if p != INVALID_ENTITY else -1)
+        ns.set_transform(node[e], state.transforms[e].local)
+        ns.set_visible(node[e], state.visibility[e])
+        mc = state.meshes.get(e)
+        if mc is None or mc.mesh_asset < 0:
+            continue
+        a = am.meshes[mc.mesh_asset]
+        m = ne.create_mesh(a.positions, a.indices, a.normals, a.uvs)
+        deduped += m.deduped
+        natmesh.setdefault(mc.mesh_asset, set()).add(m.handle)
+        if mc.material_asset not in natmat:
+            attribs = am.materials[mc.material_asset].attribs
+            natmat[mc.material_asset] = ne.create_material(np.concatenate([
+                attribs.base_color_factor.numpy(),
+                [float(attribs.metallic_factor),
+                 float(attribs.roughness_factor)]]))
+        ns.set_mesh(node[e], m, natmat[mc.material_asset])
+    py_mesh_entities = [e for e, mc in state.meshes.items()
+                        if mc.mesh_asset >= 0]
+    py_dedups = len(py_mesh_entities) - len({state.meshes[e].mesh_asset
+                                             for e in py_mesh_entities})
+    worlds = ns.world_matrices()
+    err, exact = 0.0, 0
+    for e, n in node.items():
+        want = state.world_transform(e)
+        d = np.abs(worlds[n] - want)
+        tol = 4 * np.spacing(np.float32(max(1.0, np.abs(want).max())))
+        err = max(err, float((d / tol).max()))
+        exact += bool((d == 0).all())
+    nodes, meshes, _ = ns.renderables()
+    entity_of = {n: e for e, n in node.items()}
+    native = sorted((entity_of[int(n)], int(h)) for n, h in zip(nodes,
+                                                                 meshes))
+    python = sorted((e, mc.mesh_asset) for e, mc, _ in
+                    state.renderable_meshes())
+    same_nodes = [e for e, _ in native] == [e for e, _ in python]
+    same_meshes = same_nodes and all(
+        h in natmesh[a] for (_, h), (_, a) in zip(native, python))
+    print(f"radient C API: {len(node)} nodes, {len(py_mesh_entities)} mesh "
+          f"nodes, dedups native {deduped} / Python {py_dedups}; world "
+          f"matrices {exact} of {len(node)} bit-equal, the largest "
+          f"difference {err:.3f} of the 4-ulp tolerance; renderables "
+          f"{len(native)} native / {len(python)} Python, the same nodes "
+          f"{same_nodes}, the same meshes {same_meshes}", flush=True)
+    check(all(len(v) == 1 for v in natmesh.values()),
+          "one Python mesh asset became several native meshes")
+    check(deduped == py_dedups, f"native dedups {deduped}, Python "
+          f"{py_dedups}")
+    check(err <= 1.0, "native world matrices differ from SceneState's")
+    check(same_nodes and same_meshes, "native renderables differ")
+    ns.release()
+    ne.release()
+    return dict(nodes=len(node), dedups=deduped, world_bit_equal=exact,
+                world_err_of_tol=err, renderables=len(native))
+
+
+def radient_ibl_cache_probe():
+    """PBRRenderer(ibl_cache_dir=...) at the default precompute sizes on
+    the card, cold (precompute and save) then warm (load): the maps
+    bit-equal; both times."""
+    import tempfile
+    import torch
+    from diligentfx_tpu_torch.config import PBRRendererCreateInfo
+    from diligentfx_tpu_torch.pbr.renderer import PBRRenderer
+    times = []
+    with tempfile.TemporaryDirectory() as tmp:
+        maps = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            maps.append(PBRRenderer(PBRRendererCreateInfo(), device=DEVICE,
+                                    ibl_cache_dir=tmp).ibl_maps)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        files = os.listdir(tmp)
+    cold, warm = maps
+
+    def flat(m):
+        return [t for x in m for t in (x if isinstance(x, tuple) else (x,))]
+    same = all(torch.equal(a, b) and b.device == a.device
+               for a, b in zip(flat(cold), flat(warm)))
+    print(f"radient IBL cache: cold {times[0]:.1f} ms (precompute and save),"
+          f" warm {times[1]:.1f} ms (load); {files}; the maps bit-equal "
+          f"{same}", flush=True)
+    check(same and len(files) == 1, "the cached IBL maps differ")
+    return dict(cold_ms=times[0], warm_ms=times[1])
+
+
+def radient_packing_probe(mesh):
+    """ops/packing.py on the card and on the CPU on the carousel sphere's
+    normals, positions and UVs: the packed words and the unpacked values
+    bit-equal."""
+    import torch
+    from diligentfx_tpu_torch.ops import packing as pk
+    out = {}
+    for dev in ("cpu", DEVICE):
+        n = torch.tensor(mesh.normals, device=dev)
+        p = torch.tensor(mesh.positions, device=dev)
+        uv = torch.tensor(mesh.uvs, device=dev)
+        pn, pp, pu = pk.pack_normal(n), pk.pack_positions(p), pk.pack_uv(uv)
+        out[dev] = [t.cpu() for t in (
+            pn, pp.lo, pp.hi, pu, pk.unpack_normal(pn),
+            pk.unpack_positions(pp), pk.unpack_uv(pu))]
+    names = ("pack_normal", "pack_positions lo", "pack_positions hi",
+             "pack_uv", "unpack_normal", "unpack_positions", "unpack_uv")
+    differ = {name: int((a != b).sum()) for name, a, b in
+              zip(names, out["cpu"], out[DEVICE]) if not torch.equal(a, b)}
+    same = not differ
+    err = float((out["cpu"][5] - torch.tensor(mesh.positions)).abs().max())
+    print(f"radient packing: {mesh.positions.shape[0]} vertices on the card "
+          f"and the CPU bit-equal {same} (values that differ: {differ}); "
+          f"position round trip max error {err:.3g} m", flush=True)
+    check(same, "packing differs between the card and the CPU")
+    return dict(vertices=int(mesh.positions.shape[0]), bit_equal=same)
+
+
+def phase_radient_frame(cfg, frames, out_png, profile=""):
+    """Phase 28, the main path of the Radient front end: the Radient atrium
+    (radient_scene) through create_radient_engine on the card; its dedup
+    hits, the textures' release callback and atlas; the renderer
+    (create_renderer with the bench task manager and `cfg`) and a
+    create_view(1920, 1080) on the circling camera; one warm-up frame
+    (update, render; the raster statistics on the bench config and on
+    `cfg`); K1 against its plain version at the frame's G-buffer inputs;
+    `frames` timed frames, the carousel turned each (a transform-only
+    change), with the counts zeroed just before and read just after (K1 1,
+    K2 20, K3 1, K4 0 a frame) and the drawable cache's counters; the
+    probes (radient_probes), the C API (radient_c_api_probe), the IBL cache
+    and packing; with `profile`, 3 profiled frames of the renderer's task
+    manager on the committed scene."""
+    import torch
+    from diligentfx_tpu_torch.gltf.primitives import uv_sphere
+    from diligentfx_tpu_torch.ops import raster as rz
+    from diligentfx_tpu_torch.pbr.deferred import fused_raster_inputs
+    from diligentfx_tpu_torch.radient.engine import create_radient_engine
+    from diligentfx_tpu_torch.radient.types import LoadStatus, RadientStatus
+    eng = create_radient_engine(device=DEVICE)
+    sc = radient_scene(eng)
+    state, am = sc["state"], eng.asset_manager
+    want_dedup = radient_dedup_hits(12, RADIENT_CAROUSEL)
+    print(f"radient scene: import {sc['import_status'].name} of a "
+          f"{sc['glb_bytes']}-byte glb, {state.entity_count} entities "
+          f"({len(state.meshes)} meshes, {len(state.lights)} lights), "
+          f"{am.stats.meshes} mesh assets, {am.stats.materials} materials, "
+          f"{am.stats.textures} textures, dedup hits {am.stats.dedup_hits} "
+          f"(expected {want_dedup}), release callbacks {sc['released']}; "
+          f"built in {sc['seconds']:.2f} s", flush=True)
+    check(sc["import_status"] == RadientStatus.OK, "import_gltf failed")
+    check(am.stats.dedup_hits == want_dedup, "the dedup hits")
+    check(sc["released"] == [1], "the duplicate texture's release callback")
+    check(len(state.lights) == 3 and len(state.meshes) == 65 +
+          RADIENT_CAROUSEL, "the scene's lights and meshes")
+
+    renderer = eng.create_renderer(task_manager_ci=bench_task_manager_ci(),
+                                   raster_cfg=cfg)
+    view = eng.create_view(W, H)
+    writer = eng.create_scene_writer(state)
+    warm = radient_step(renderer, state, view, writer, sc["parent"], 0)
+    check(warm[:2] == (RadientStatus.OK, RadientStatus.OK),
+          f"the warm-up frame: {warm[:2]}")
+    _color_ok(view.last_frame, "radient warm-up frame")
+    tex_ok = all(am.get_status(h) == LoadStatus.COMMITTED
+                 for h in sc["textures"])
+    check(tex_ok and am.get_atlas() is not None and
+          renderer.task_manager().atlas is None,
+          "the textures: committed to the atlas, not bound to the frame")
+    cache = renderer._cache_for(state)
+    scene = cache.scene_primitives
+    info = renderer.frame_info(state, view)
+    pad_w, pad_h = rz.pad_viewport(W, H, cfg)
+    stats = {}
+    for name, c in (("bench", bench_raster_config()), ("radient", cfg)):
+        k = fused_raster_inputs(scene, info, pad_w=pad_w, pad_h=pad_h, cfg=c)
+        stats[name] = {f: int(getattr(k.stats, f)) for f in k.stats._fields}
+    print(f"radient atrium: {scene.num_triangles} triangles, "
+          f"{scene.num_vertices} vertices, {scene.node_matrices.shape[0]} "
+          f"nodes; raster statistics at {pad_w}x{pad_h}, the bench config "
+          f"{stats['bench']}, radient_raster_config {stats['radient']} "
+          f"(longest sub-bin list {stats['radient']['max_bin_count']} of "
+          f"{cfg.bin_capacity // cfg.sub_bins})", flush=True)
+    check(stats["radient"]["bin_overflow"] == 0 and
+          stats["radient"]["big_overflow"] == 0,
+          f"the atrium overflows its raster config: {stats['radient']}")
+    k1 = phase_raster(scene, info, cfg, label="radient")
+    check(k1["bit_equal"], "K1 at the Radient inputs is not bit-equal to "
+          "its plain version")
+
+    rebuilds, syncs = cache.full_rebuilds, cache.incremental_syncs
+    upd, ren, whole, ev = [], [], [], []
+    zero_launches()
+    for i in range(1, frames + 1):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        st_u, st_r, u_ms, r_ms = radient_step(renderer, state, view, writer,
+                                               sc["parent"], i)
+        e1.record()
+        torch.cuda.synchronize()
+        check((st_u, st_r) == (RadientStatus.OK, RadientStatus.OK),
+              f"radient frame {i}: {st_u.name}, {st_r.name}")
+        upd.append(u_ms)
+        ren.append(r_ms)
+        whole.append(u_ms + r_ms)
+        ev.append(e0.elapsed_time(e1))
+    launches = read_launches()
+    _color_ok(view.last_frame, "radient frame")
+    # the bench effects on the fused K1 route, no shadow pass: a bench
+    # frame's launches
+    for name, per_frame in FRAME_LAUNCHES.items():
+        check(launches[name] == per_frame * frames,
+              f"radient: {name} launched {launches[name]} times in {frames} "
+              f"frames, expected {per_frame} a frame")
+    counters = dict(full_rebuilds=cache.full_rebuilds - rebuilds,
+                    incremental_syncs=cache.incremental_syncs - syncs)
+    check(counters == dict(full_rebuilds=0, incremental_syncs=frames),
+          f"the drawable cache over the timed frames: {counters}")
+    print(f"radient frame {W}x{H}: median {np.median(whole):.3f} ms host "
+          f"clock (update {np.median(upd):.3f} ms, render "
+          f"{np.median(ren):.3f} ms), {np.median(ev):.3f} ms CUDA events, "
+          f"min {min(whole):.3f}, max {max(whole):.3f} ({frames} frames); "
+          f"the cache {counters}; mean colour "
+          f"{float(view.last_frame.mean()):.4f}; launches {launches}",
+          flush=True)
+    if out_png:
+        root, ext_ = os.path.splitext(out_png)
+        _write_png(f"{root}_radient{ext_ or '.png'}", view.last_frame)
+    prof = None
+    if profile:
+        from diligentfx_tpu_torch.hydrogent.task_manager import FrameSettings
+        prof = phase_profile(renderer.task_manager(),
+                             cache.scene_primitives,
+                             lambda: renderer.frame_info(state, view), 3,
+                             profile, "radient", ranges=("dfx.gbuffer",),
+                             settings_of=FrameSettings)
+    probes = radient_probes(eng, renderer, sc, view, frames + 1)
+    probes["c_api"] = radient_c_api_probe(eng, state)
+    probes["ibl_cache"] = radient_ibl_cache_probe()
+    probes["packing"] = radient_packing_probe(uv_sphere(0.3, 24, 32))
+    eng.shutdown()
+    return dict(frame_ms_median=float(np.median(whole)),
+                update_ms_median=float(np.median(upd)),
+                render_ms_median=float(np.median(ren)),
+                frame_events_ms_median=float(np.median(ev)), frames=frames,
+                launches=launches, triangles=scene.num_triangles,
+                raster_stats=stats, dedup_hits=am.stats.dedup_hits,
+                scene_seconds=sc["seconds"], cache=counters, probes=probes,
+                profile=prof, k1_inputs=k1)
+
+
+def small_radient_frames(device, frames=2):
+    """The Radient atrium at 256x128 (the small IBL, the small raster
+    lists) through the Radient API on the CPU path and on `device`:
+    `frames` frames each, the carousel turned between them; (cpu colour,
+    colour, the device's launches)."""
+    import torch
+    from diligentfx_tpu_torch.config import PBRRendererCreateInfo
+    from diligentfx_tpu_torch.radient.engine import create_radient_engine
+    from diligentfx_tpu_torch.radient.types import RadientStatus
+    ci = PBRRendererCreateInfo(brdf_lut_dim=32, num_brdf_samples=16,
+                               irradiance_cube_dim=16,
+                               prefiltered_env_map_dim=32,
+                               num_specular_env_samples=16)
+    colors = []
+    for dev in ("cpu", device):
+        eng = create_radient_engine(device=dev)
+        sc = radient_scene(eng)
+        r = eng.create_renderer(task_manager_ci=bench_task_manager_ci(),
+                                renderer_ci=ci,
+                                raster_cfg=radient_raster_config(small=True))
+        view = eng.create_view(SMALL_W, SMALL_H)
+        writer = eng.create_scene_writer(sc["state"])
+        if torch.device(dev).type == "cuda":
+            r.task_manager()                 # its IBL precompute uncounted
+            torch.cuda.synchronize()
+        zero_launches()
+        for i in range(frames):
+            writer.set_transform(sc["parent"], carousel_matrix(i))
+            radient_camera(view, i)
+            st = (r.update(sc["state"]), r.render(sc["state"], view))
+            check(st == (RadientStatus.OK, RadientStatus.OK),
+                  f"256x128 radient frame ({dev}): {st}")
+        _color_ok(view.last_frame, f"256x128 radient frame ({dev})",
+                  SMALL_W, SMALL_H)
+        colors.append(view.last_frame.cpu().numpy())
+        eng.shutdown()
+    return colors[0], colors[1], read_launches()
+
+
+def phase_radient_reference():
+    """Phase 29: two 256x128 frames of the Radient atrium on the GPU
+    against the port's CPU path, above 50 dB; K1 1, K2 20, K3 1 a frame."""
+    from diligentfx_tpu_torch.utils.image import psnr
+    cpu, gpu, launches = small_radient_frames(DEVICE)
+    p = psnr(cpu, gpu)
+    print(f"256x128 radient frame, GPU vs the port's CPU path: PSNR {p:.2f} "
+          f"dB, max abs diff {np.abs(cpu - gpu).max():.3g}; launches in 2 "
+          f"frames {launches}", flush=True)
+    check(p > 50.0, f"GPU radient frame disagrees with the CPU path: "
+                    f"{p:.2f} dB")
+    check(all(launches[k] == 2 * v for k, v in FRAME_LAUNCHES.items()),
+          f"the 256x128 radient frames launched {launches}")
+    return p
+
+
+def radient_only(frames, profile):
+    """Phases 28 and 29 alone: the Radient atrium's 1080p frames, its
+    probes and its 256x128 frames against the CPU path."""
+    t0 = time.perf_counter()
+    frame = phase_radient_frame(radient_raster_config(), frames, "", profile)
+    t1 = time.perf_counter()
+    p = phase_radient_reference()
+    return dict(radient_frame=frame, radient_psnr=p,
+                phase_seconds=[t1 - t0, time.perf_counter() - t1])
+
+
 # goals of the tile rasters' redesign, device ms (torch.profiler kernel
 # rows): K4 over the four cascades, K1 at each of its three inputs
 RASTER_GOALS_MS = {"raster_tiles": 0.45, "bench": 0.15, "csm": 0.20,
@@ -5064,7 +5769,8 @@ def main() -> int:
                          "kernel); write the profiler's table to this path")
     ap.add_argument("--only", choices=("warp", "raster", "csm",
                                         "march_gtao", "oit", "lights",
-                                        "ext_skin", "editor", "hydra"),
+                                        "ext_skin", "editor", "hydra",
+                                        "radient"),
                     help="warp: run only phases 1, 3 and 13 (K6 on random "
                          "taps within the halo); raster: only phases 1, 2, "
                          "8 (without the csm frame) and 11; csm: only "
@@ -5076,6 +5782,7 @@ def main() -> int:
                          "--profile, likewise); ext_skin: only phases 1, 21 "
                          "and 22 (likewise); editor: only phases 1, 24 and "
                          "25 (likewise); hydra: only phases 1, 26 and 27 "
+                         "(likewise); radient: only phases 1, 28 and 29 "
                          "(likewise); and print their JSON line")
     ap.add_argument("--async-child", metavar="BUILD_DIR", default="",
                     help="phase 26's AsyncFramePipeline run alone, its "
@@ -5149,6 +5856,12 @@ def main() -> int:
     if args.only == "hydra":
         print(json.dumps({"root": args.root,
                           **hydra_only(args.frames, args.profile)},
+                         default=str))
+        print(card, flush=True)
+        return 0
+    if args.only == "radient":
+        print(json.dumps({"root": args.root,
+                          **radient_only(args.frames, args.profile)},
                          default=str))
         print(card, flush=True)
         return 0
@@ -5250,6 +5963,15 @@ def main() -> int:
     hydra_s = [time.perf_counter() - t_hydra]
     hydra_psnr = phase_hydra_reference()
     hydra_s.append(time.perf_counter() - t_hydra - hydra_s[0])
+    t_radient = time.perf_counter()
+    radient_frame = phase_radient_frame(
+        radient_raster_config(), args.frames, args.out_png,
+        f"{os.path.splitext(args.profile)[0]}_radient.txt"
+        if args.profile else "")
+    merge_k1(k1, radient_frame.pop("k1_inputs"), "radient_inputs")
+    radient_s = [time.perf_counter() - t_radient]
+    radient_psnr = phase_radient_reference()
+    radient_s.append(time.perf_counter() - t_radient - radient_s[0])
     for k in (k1, k2, k3):
         k["launches"] = launches[k["name"]]
         k["frames"] = args.frames
@@ -5266,6 +5988,7 @@ def main() -> int:
         k["edges_frame_launches"] = hydra_frame["probes"]["edges_launches"][
             k["name"]]
         k["edges_frames"] = MODE_FRAMES
+        k["radient_frame_launches"] = radient_frame["launches"][k["name"]]
     k4["launches"] = csm_launches["raster_tiles"]
     k4["frames"] = args.frames
     k4["launches_per_frame"] = csm_launches["raster_tiles"] / args.frames
@@ -5280,7 +6003,8 @@ def main() -> int:
                   "(ext_skin_frame_launches); the editor frame's cascades, "
                   "4 a frame (editor_frame_launches); the Hydra stage's "
                   "EDGES frame, one (edges_frame_launches, over "
-                  "edges_frames frames)")
+                  "edges_frames frames); the Radient atrium frame none "
+                  "(radient_frame_launches)")
     k5["frame_launches"] = launches["gtao_fused"]
     k5["launches_per_frame"] = 0.0
     k6["frame_launches"] = launches["warp_bilinear_multi"]
@@ -5352,6 +6076,18 @@ def main() -> int:
           f"{hydra_frame['async_pipeline']['seconds_to_ok']:.2f} s; 256x128 "
           f"vs the CPU path {hydra_psnr:.2f} dB; phases 26 and 27 "
           f"{hydra_s[0]:.1f} and {hydra_s[1]:.1f} s on {card}; total run "
+          f"{time.perf_counter() - t_start:.1f} s")
+    rp = radient_frame["probes"]
+    print(f"radient_frame_ms_median {radient_frame['frame_ms_median']:.3f} "
+          f"(update {radient_frame['update_ms_median']:.3f}, render "
+          f"{radient_frame['render_ms_median']:.3f}; CUDA events "
+          f"{radient_frame['frame_events_ms_median']:.3f}) over {args.frames} "
+          f"frames at {W}x{H}, {radient_frame['triangles']} triangles; scene "
+          f"built in {radient_frame['scene_seconds']:.2f} s; IBL cache cold "
+          f"{rp['ibl_cache']['cold_ms']:.1f} ms, warm "
+          f"{rp['ibl_cache']['warm_ms']:.1f} ms; 256x128 vs the CPU path "
+          f"{radient_psnr:.2f} dB; phases 28 and 29 {radient_s[0]:.1f} and "
+          f"{radient_s[1]:.1f} s on {card}; total run "
           f"{time.perf_counter() - t_start:.1f} s")
     if DEVICE_MS_FROM_EVENTS:
         print(f"device_ms from CUDA events, the profiler showing no device "

@@ -23,6 +23,10 @@ def _f32(x, device=None) -> Tensor:
     return torch.as_tensor(x, dtype=torch.float32, device=device)
 
 
+def identity44(dtype=torch.float32, device=None) -> Tensor:
+    return torch.eye(4, dtype=dtype, device=device)
+
+
 def vec_mat4(p4: Tensor, m: Tensor) -> Tensor:
     """(..., 4) row vectors @ (4, 4) matrix, exact fp32 (k = 0..3 in order)."""
     return (p4[..., 0:1] * m[0] + p4[..., 1:2] * m[1]
@@ -45,6 +49,66 @@ def translation(t, device=None) -> Tensor:
     m = torch.eye(4, dtype=torch.float32, device=device)
     m[3, :3] = _f32(t, device)
     return m
+
+
+def scale(s, device=None) -> Tensor:
+    """Row-vector scale matrix (a scalar or three factors)."""
+    s = torch.broadcast_to(_f32(s, device), (3,))
+    return torch.diag(torch.cat([s, torch.ones(1, dtype=torch.float32,
+                                                device=s.device)]))
+
+
+def _cos_sin(angle, device=None):
+    """cos and sin of the float32 `angle`, in float32 rounded from float64:
+    the same bits on every device.  (The JAX package's float32 cos and sin,
+    XLA's on the CPU, are within one ulp of these.)"""
+    a = _f32(angle, device).double()
+    return torch.cos(a).float(), torch.sin(a).float()
+
+
+def _rotation(i: int, j: int, angle, device=None) -> Tensor:
+    """The rotation of the (i, j) plane: m[i, i] = m[j, j] = cos,
+    m[i, j] = sin, m[j, i] = -sin."""
+    c, s = _cos_sin(angle, device)
+    m = torch.eye(4, dtype=torch.float32, device=c.device)
+    m[i, i], m[i, j], m[j, i], m[j, j] = c, s, -s, c
+    return m
+
+
+def rotation_x(angle, device=None) -> Tensor:
+    return _rotation(1, 2, angle, device)
+
+
+def rotation_y(angle, device=None) -> Tensor:
+    return _rotation(2, 0, angle, device)
+
+
+def rotation_z(angle, device=None) -> Tensor:
+    return _rotation(0, 1, angle, device)
+
+
+def quat_to_matrix(q, device=None) -> Tensor:
+    """Unit quaternion (x, y, z, w) -> 4x4 row-vector rotation matrix (the
+    rows are the images of the basis vectors)."""
+    x, y, z, w = _f32(q, device)
+    zero, one = torch.zeros_like(x), torch.ones_like(x)
+    return torch.stack([
+        torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y + z * w),
+                     2 * (x * z - y * w), zero]),
+        torch.stack([2 * (x * y - z * w), 1 - 2 * (x * x + z * z),
+                     2 * (y * z + x * w), zero]),
+        torch.stack([2 * (x * z + y * w), 2 * (y * z - x * w),
+                     1 - 2 * (x * x + y * y), zero]),
+        torch.stack([zero, zero, zero, one]),
+    ])
+
+
+def compose_trs(translation_v, rotation_q, scale_v, device=None) -> Tensor:
+    """glTF node TRS -> row-vector world matrix (scale, then rotate, then
+    translate)."""
+    return mul44(mul44(scale(scale_v, device),
+                       quat_to_matrix(rotation_q, device)),
+                 translation(translation_v, device))
 
 
 def look_at(eye, target, up=(0.0, 1.0, 0.0), device=None) -> Tensor:
@@ -85,6 +149,22 @@ def perspective(fov_y: float, aspect: float, near: float, far: float,
                  [0.0, 0.0, b, 0.0]], device)
 
 
+def orthographic(width: float, height: float, near: float, far: float,
+                 reversed_z: bool = False, device=None) -> Tensor:
+    """Row-vector orthographic projection (right-handed, -Z forward,
+    z in [0, 1])."""
+    if reversed_z:
+        a = 1.0 / (near - far)
+        b = -far / (near - far)
+    else:
+        a = -1.0 / (far - near)
+        b = -near / (far - near)
+    return _f32([[2.0 / width, 0.0, 0.0, 0.0],
+                 [0.0, 2.0 / height, 0.0, 0.0],
+                 [0.0, 0.0, a, 0.0],
+                 [0.0, 0.0, b, 1.0]], device)
+
+
 def inverse(m: Tensor) -> Tensor:
     """4x4 inverse.  inv_ex skips the singularity check, which on CUDA would
     synchronise the host with the device."""
@@ -123,6 +203,10 @@ def saturate(x: Tensor) -> Tensor:
     return torch.clamp(x, 0.0, 1.0)
 
 
+def lerp(a, b, t):
+    return a + (b - a) * t
+
+
 def transform_points(points: Tensor, m: Tensor) -> Tensor:
     """(..., 3) points @ 4x4 row-vector matrix -> (..., 4) homogeneous."""
     return (points[..., 0:1] * m[0] + points[..., 1:2] * m[1]
@@ -132,6 +216,14 @@ def transform_points(points: Tensor, m: Tensor) -> Tensor:
 def transform_directions(dirs: Tensor, m: Tensor) -> Tensor:
     """(..., 3) directions through the upper 3x3 of a row-vector matrix."""
     return vec_mat3(dirs, m)
+
+
+def project_to_ndc(clip: Tensor, eps: float = 1e-9) -> Tensor:
+    """Homogeneous clip (..., 4) -> NDC (..., 3) by perspective divide."""
+    w = clip[..., 3:4]
+    safe_w = torch.where(torch.abs(w) < eps,
+                         torch.where(w < 0, -eps, eps).to(w.dtype), w)
+    return clip[..., :3] / safe_w
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,11 @@
-"""Build and load the port's native host runtime (src/dfx_native.cpp).
+"""Build and load the port's native host runtime: src/dfx_native.cpp (the
+content hash, the pool suballocator, the triangulation) and
+src/radient_c.cpp (Radient's public C API, which calls dfx_content_hash),
+compiled together into one library.
 
-g++ compiles the source at first use into ``build/native/`` at the
+g++ compiles the sources at first use into ``build/native/`` at the
 repository root (listed in .gitignore), as a library named by a hash of the
-source, the flags and the toolchain (g++'s version, the machine and its C
+sources, the flags and the toolchain (g++'s version, the machine and its C
 library): an edited source, or a checkout copied to another machine,
 rebuilds; an unchanged one loads at once.  A failed build raises; nothing
 falls back.  Nothing here runs at import time.  Building and loading are
@@ -20,6 +23,7 @@ from typing import Dict
 from diligentfx_tpu_torch.utils import shared_lib
 
 SRC = Path(__file__).resolve().parent / "src" / "dfx_native.cpp"
+RADIENT_SRC = SRC.with_name("radient_c.cpp")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
 CXX_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC")
 
@@ -37,7 +41,9 @@ def _toolchain() -> str:
 
 
 def library_path() -> Path:
-    h = hashlib.sha256(SRC.read_bytes())
+    h = hashlib.sha256()
+    for src in (SRC, RADIENT_SRC):
+        h.update(hashlib.sha256(src.read_bytes()).digest())
     h.update(" ".join(CXX_FLAGS).encode())
     h.update(_toolchain().encode())
     return BUILD_DIR / f"libdfx_native_{h.hexdigest()[:12]}.so"
@@ -51,9 +57,11 @@ def build() -> Path:
         return out
     with shared_lib.lock:
         if not out.exists():
-            job = shared_lib.Compile(["g++", *CXX_FLAGS], SRC, out)
+            job = shared_lib.Compile(["g++", *CXX_FLAGS],
+                                     (SRC, RADIENT_SRC), out)
             if not job.wait():
-                raise RuntimeError(f"g++ failed building {SRC.name}:\n"
+                raise RuntimeError(f"g++ failed building {SRC.name} and "
+                                   f"{RADIENT_SRC.name}:\n"
                                    f"{job.log.read_text()}")
     return out
 

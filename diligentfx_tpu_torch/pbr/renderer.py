@@ -10,6 +10,7 @@ cascaded shadow factor -> background -> tone map -> sRGB.
 """
 from __future__ import annotations
 
+import os
 from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -32,6 +33,8 @@ from diligentfx_tpu_torch.ops.sampling import oct_pixel_dirs, sample_env_oct
 from diligentfx_tpu_torch.pbr import shading as sh
 from diligentfx_tpu_torch.pbr.ibl import precompute_ibl_maps
 from diligentfx_tpu_torch.postfx.tonemap import ToneMappingAttribs, tone_map
+from diligentfx_tpu_torch.utils.cache import (ibl_cache_key, load_ibl_maps,
+                                              save_ibl_maps)
 
 Tensor = torch.Tensor
 
@@ -240,7 +243,12 @@ class PBRRenderer:
     def __init__(self, ci: PBRRendererCreateInfo = PBRRendererCreateInfo(),
                  env_oct: Optional[Tensor] = None,
                  raster_cfg: RasterizerConfig = RasterizerConfig(),
-                 device=None, ibl_maps=None):
+                 device=None, ibl_maps=None,
+                 ibl_cache_dir: Optional[str] = None):
+        """`ibl_maps`, when given, are used as they are; else, with
+        `ibl_cache_dir`, the maps of this env map and precompute size are
+        read from that directory (utils/cache.py) or precomputed and saved
+        there."""
         self.device = resolve_device(device)
         self.ci = ci
         self.raster_cfg = raster_cfg
@@ -249,12 +257,22 @@ class PBRRenderer:
         if ibl_maps is not None:
             self.ibl_maps = ibl_maps
         elif ci.enable_ibl:
+            cache_path = None
+            if ibl_cache_dir:
+                cache_path = os.path.join(
+                    ibl_cache_dir, f"ibl_{ibl_cache_key(self.env_oct, ci)}.npz")
+                cached = load_ibl_maps(cache_path, self.device)
+                if cached is not None:
+                    self.ibl_maps = cached
+                    return
             self.ibl_maps = precompute_ibl_maps(
                 self.env_oct, brdf_lut_dim=ci.brdf_lut_dim,
                 num_brdf_samples=ci.num_brdf_samples,
                 irradiance_dim=ci.irradiance_cube_dim,
                 prefiltered_dim=ci.prefiltered_env_map_dim,
                 num_spec_samples=ci.num_specular_env_samples)
+            if cache_path:
+                save_ibl_maps(cache_path, self.ibl_maps)
         else:
             self.ibl_maps = None
 

@@ -35,9 +35,16 @@ def read_png(path: str) -> np.ndarray:
     """Minimal PNG reader (8-bit gray / RGB / RGBA, no interlace) for files
     such as write_png's; returns (H, W, C) uint8."""
     with open(path, "rb") as f:
-        data = f.read()
+        return decode_png(f.read(), path)
+
+
+def decode_png(data: bytes, name: str = "the data") -> np.ndarray:
+    """Decode an in-memory PNG (8-bit gray / RGB / RGBA, no interlace) to
+    (H, W, C) uint8: the resolver-chain path, where assets arrive as bytes
+    with a canonical location (radient/resolver.py).  Raises ValueError on
+    anything else."""
     if data[:8] != b"\x89PNG\r\n\x1a\n":
-        raise ValueError(f"{path} is not a PNG file")
+        raise ValueError(f"{name} is not a PNG file")
     pos = 8
     idat = b""
     w = h = c = None
@@ -48,7 +55,7 @@ def read_png(path: str) -> np.ndarray:
         if tag == b"IHDR":
             w, h, depth, color_type = struct.unpack(">IIBB", body[:10])
             if depth != 8 or color_type not in (0, 2, 6):
-                raise ValueError(f"{path}: only 8-bit gray, RGB or RGBA")
+                raise ValueError(f"{name}: only 8-bit gray, RGB or RGBA")
             c = {0: 1, 2: 3, 6: 4}[color_type]
         elif tag == b"IDAT":
             idat += body
@@ -64,13 +71,14 @@ def read_png(path: str) -> np.ndarray:
             pass
         elif ft == 1:  # sub
             for i in range(c, stride):
-                line[i] = (line[i] + line[i - c]) & 0xFF
+                line[i] = (int(line[i]) + int(line[i - c])) & 0xFF
         elif ft == 2:  # up
             line = (line + prev) & 0xFF
         elif ft == 3:  # average
             for i in range(stride):
                 a = line[i - c] if i >= c else 0
-                line[i] = (line[i] + ((int(a) + int(prev[i])) >> 1)) & 0xFF
+                line[i] = (int(line[i])
+                           + ((int(a) + int(prev[i])) >> 1)) & 0xFF
         elif ft == 4:  # paeth
             for i in range(stride):
                 a = int(line[i - c]) if i >= c else 0
@@ -79,7 +87,7 @@ def read_png(path: str) -> np.ndarray:
                 p = a + b - cc
                 pa, pb, pc = abs(p - a), abs(p - b), abs(p - cc)
                 pr = a if (pa <= pb and pa <= pc) else (b if pb <= pc else cc)
-                line[i] = (line[i] + pr) & 0xFF
+                line[i] = (int(line[i]) + pr) & 0xFF
         out[y] = line.reshape(w, c)
         prev = line
     return out

@@ -17,17 +17,20 @@ import os
 import subprocess
 import threading
 from pathlib import Path
-from typing import Callable, Dict, Hashable, Sequence
+from typing import Callable, Dict, Hashable, Sequence, Union
 
 # reentrant: a loader's build step may take it again
 lock = threading.RLock()
 
 
 class Compile:
-    """One compiler process, `cmd -o <temporary> src`, building the library
-    `out`; its output goes to a log of its own until `wait`."""
+    """One compiler process, `cmd -o <temporary> srcs...`, building the
+    library `out` from one source or several; its output goes to a log of
+    its own until `wait`."""
 
-    def __init__(self, cmd: Sequence[str], src: Path, out: Path):
+    def __init__(self, cmd: Sequence[str], srcs: Union[Path, Sequence[Path]],
+                 out: Path):
+        srcs = [srcs] if isinstance(srcs, Path) else list(srcs)
         out.parent.mkdir(parents=True, exist_ok=True)
         tag = f"{os.getpid()}.{threading.get_ident()}"
         self.out = out
@@ -37,7 +40,7 @@ class Compile:
         self._log_file = open(self._tmp_log, "w")
         try:
             self._proc = subprocess.Popen(
-                [*cmd, "-o", str(self._tmp), str(src)],
+                [*cmd, "-o", str(self._tmp), *map(str, srcs)],
                 stdout=self._log_file, stderr=subprocess.STDOUT)
         except BaseException:
             self._log_file.close()
