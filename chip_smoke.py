@@ -14,7 +14,9 @@ showroom's editor frame (selection, grid, bound box, vector field, depth
 bounds, the debug views), a Hydra stage through the Hydrogent front end
 (the pxr adapter, the render delegate, AsyncFramePipeline) and an atrium
 through the Radient front end (engine, ECS scene, async assets, resolver,
-drawable cache, C API), and checks them.
+drawable cache, C API), the 4K cfg5 frame through execute_split with the
+G-buffer in row bands, and the row-banded frame of parallel/tiling.py,
+and checks them.
 
 Phases (any failure exits non-zero; no phase is skipped):
   1. build csrc/*.cu with nvcc (one process per source, all at once);
@@ -209,7 +211,35 @@ Phases (any failure exits non-zero; no phase is skipped):
      world matrices, renderables); PBRRenderer(ibl_cache_dir) cold then
      warm (bit-equal maps); vertex packing on the card against the CPU;
  29. two 256x128 frames of the Radient atrium on the GPU against the
-     port's CPU path.
+     port's CPU path;
+ 30. K1 against its plain version at the 4K cfg5 G-buffer inputs
+     (examples/benchmark_suite.py config_5_4k: the atrium with 24 columns,
+     32 x 128 tiles, lists of 1,024, padded to 2176 x 3840), its events
+     and device ms, bound and candidate-pixel tests, and the raster
+     statistics (cfg5's lists may drop pairs at 4K; reported as they are);
+ 31. the 4K cfg5 frame: HnTaskManager.execute_split(gbuffer_bands=4) at
+     3840 x 2160 (SSAO on the per-tap warp route, SSR at half resolution,
+     TAA with the warp history, bloom); one warm-up frame whose launches
+     are printed (K1 1, K3 0, K4 0), then --frames timed frames with the
+     counts zeroed just before and read just after, held to the warm-up
+     frame's; from one copied state one frame each of execute_split with
+     4 bands and with 1 and of execute, their colour and G-buffer
+     differences (within 1e-5) and each call's peak device memory;
+ 32. the row-banded frame of parallel/tiling.py at 1920 x 1088 over four
+     bands on the one card (tests/test_multichip.py:125-199's scene: a red
+     and a blue BLEND sphere over a plane, 8 x 128 tiles): K1 at each
+     band's render_gbuffer_band_sp inputs (screen_offset 0 / 272 / 544 /
+     816) against its plain version and the unbanded K1 output's rows; K4
+     at each band of render_forward_banded against its plain version;
+     render_forward_banded with four bands bit-equal to one (K4 4
+     launches); K3 at the gathered SSR inputs; two render_frame_banded
+     frames with four bands against execute (4e-3) and against one band
+     (2e-3); --frames timed banded frames with the counts zeroed just
+     before and read just after (K1 4, K2 1, K3 1 a frame) beside --frames
+     execute frames;
+ 33. the 256x128 cfg5 frame through execute_split with 4 bands and the
+     256x128 banded frame with 2 bands on the GPU against the port's CPU
+     path.
 
 Prints the median frame times, one JSON line with each kernel's launches,
 times and bound, the card's name and power limit, and last
@@ -226,13 +256,16 @@ Usage: python3 chip_smoke.py [--frames N] [--out-png PATH] [--profile PATH]
        python3 chip_smoke.py --only editor [--profile PATH] [--root DIR]
        python3 chip_smoke.py --only hydra [--profile PATH] [--root DIR]
        python3 chip_smoke.py --only radient [--profile PATH] [--root DIR]
+       python3 chip_smoke.py --only split4k [--frames N] [--out-png PATH]
+       python3 chip_smoke.py --only banded [--frames N]
 (the second runs phases 1, 3 and 13 alone, K6 on random taps; the third
 phases 1, 2, 8 without the csm frame, and 11 without the full-chain frame;
 the fourth phases 1 and 9; the fifth phase 1, one bench frame for its
 G-buffer, and phases 5 and 6; the sixth phases 1, 15 and 16; the seventh
 phases 1, 18 and 19; the eighth phases 1, 21 and 22; the ninth phases 1,
 24 and 25; the tenth phases 1, 26 and 27; the eleventh phases 1, 28
-and 29; each on the port of
+and 29; the twelfth phases 1, 30 and 31; the last phases 1, 32 and 33;
+each on the port of
 the checkout DIR: run it in two checkouts in turn, A B B A, to compare
 them in one call)
 """
@@ -579,20 +612,28 @@ def _raster_work(k, rects, z, tid, out):
 
 
 def phase_raster(scene, info, cfg, use_textures=False, label="bench",
-                 legacy=False):
+                 legacy=False, width=W, height=H, band=None,
+                 outputs=None):
     """K1 vs its plain version at the main path's shapes: the bench frame's
     inputs, the csm frame's (use_textures: UV-derivative channels) or the
-    full-chain frame's (the unsegmented route).  `legacy` (--only raster
-    on a checkout from before the candidate rectangles): the kernel takes
-    none, and the tests inside them are not counted."""
+    full-chain frame's (the unsegmented route), at width x height.
+    `band` = (y0, band_h): the inputs of a row band's viewport window,
+    rows [y0, y0 + band_h) of the padded frame (render_gbuffer_band_sp).
+    `legacy` (--only raster on a checkout from before the candidate
+    rectangles): the kernel takes none, and the tests inside them are not
+    counted.  `outputs`, a list, receives the kernel's (z, tid, out)."""
     import torch
     from diligentfx_tpu_torch.ops import raster as rz
     from diligentfx_tpu_torch.ops.raster_kernel import (
         raster_tiles_fused, raster_tiles_fused_plain)
     from diligentfx_tpu_torch.pbr.deferred import fused_raster_inputs
-    pad_w, pad_h = rz.pad_viewport(W, H, cfg)
+    pad_w, pad_h = rz.pad_viewport(width, height, cfg)
+    window = {}
+    if band is not None:
+        window = dict(screen_size=(pad_w, pad_h), screen_offset=(0, band[0]))
+        pad_h = band[1]
     k = fused_raster_inputs(scene, info, pad_w=pad_w, pad_h=pad_h, cfg=cfg,
-                            use_textures=use_textures)
+                            use_textures=use_textures, **window)
     st = {f: int(v) for f, v in zip(k.stats._fields, k.stats)}
     print(f"{label} raster stats at {pad_w}x{pad_h}: {st}", flush=True)
     rects = None if legacy else k.rects
@@ -605,14 +646,18 @@ def phase_raster(scene, info, cfg, use_textures=False, label="bench",
           f"raster shapes {tuple(z.shape)} {tuple(out.shape)}")
     id_mismatch = int((tid != tidp).sum())
     hit = (tid >= 0) & (tid == tidp)
-    z_err = float((z - zp).abs()[hit].max()) if bool(hit.any()) else 0.0
-    ch_err = float((out - outp).abs()[:, hit].max())
-    ch_tol = float(1e-5 * torch.clamp(outp[:, hit].abs().max(), min=1.0))
+    # a band may cover nothing (the sky above a horizon): then only the
+    # ids are compared
+    any_hit = bool(hit.any())
+    z_err = float((z - zp).abs()[hit].max()) if any_hit else 0.0
+    ch_err = float((out - outp).abs()[:, hit].max()) if any_hit else 0.0
+    ch_tol = float(1e-5 * torch.clamp(outp[:, hit].abs().max(), min=1.0)) \
+        if any_hit else 0.0
     # the derivative channels (after the n_ch values) are small, so they are
     # also held to 1e-5 of their own largest magnitude
     n_ch, n_d = k.kernel_kw["n_ch"], 2 * len(k.kernel_kw["deriv_channels"])
     d_err = d_tol = 0.0
-    if n_d:
+    if n_d and any_hit:
         d_ref = outp[n_ch:n_ch + n_d][:, hit]
         d_err = float((out[n_ch:n_ch + n_d][:, hit] - d_ref).abs().max())
         d_tol = float(1e-5 * d_ref.abs().max())
@@ -629,7 +674,9 @@ def phase_raster(scene, info, cfg, use_textures=False, label="bench",
     check(z_err <= 1e-6, f"raster kernel depth error {z_err}")
     check(ch_err <= ch_tol, f"raster kernel channel error {ch_err}")
     check(d_err <= d_tol, f"raster kernel derivative error {d_err}")
-    check(bool(hit.any()), "raster kernel covered no pixel")
+    check(any_hit or band is not None, "raster kernel covered no pixel")
+    if outputs is not None:
+        outputs.append((z, tid, out))
 
     def k1():
         return raster_tiles_fused(*args, **k.kernel_kw)
@@ -1113,16 +1160,9 @@ def phase_march(gb, info):
     from diligentfx_tpu_torch.ops import march
     from diligentfx_tpu_torch.ops.march import (march_dda_plain,
                                                 march_small_table)
-    from diligentfx_tpu_torch.postfx import ssr
-    st = bench_settings().ssr
-    depth_r = gb.depth[::2, ::2]
-    *_, origin, direction = ssr._ray_setup(
-        depth_r, gb.normal_view[::2, ::2], gb.material_data[::2, ::2, 1:2],
-        info.camera, 1, st)
-    coarse = ssr._coarse_table(ssr.build_min_depth_pyramid(depth_r, 4), 2,
-                               True)
-    args = ssr._kernel_march_args(coarse, origin, direction)
-    thick = ssr._thickness_ndc(st, info.camera)
+    coarse, origin, direction, args, thick = march_inputs(
+        gb.depth, gb.normal_view, gb.material_data[..., 1:2], info.camera, 1,
+        bench_settings().ssr)
     print(f"march: table {tuple(coarse.shape)}, rays {tuple(args[1].shape)}",
           flush=True)
     # the walk-down to <= 128 columns lands on mip 3: 67 x 120 at 1080p
@@ -1198,6 +1238,24 @@ def phase_march(gb, info):
                 shapes=f"table {tuple(coarse.shape)}, rays "
                        f"{tuple(origin.shape)} padded to "
                        f"{tuple(args[1].shape)}")
+
+
+def march_inputs(depth, normal_view, roughness, camera, frame_index, st,
+                 divisor=2):
+    """K3's inputs as compute_ssr builds them on the kernel route at
+    resolution divisor `divisor`: (the table, the rays' origins and
+    directions, the kernel's padded arguments, the thickness)."""
+    from diligentfx_tpu_torch.postfx import ssr
+    d = divisor
+    depth_r = depth[::d, ::d]
+    *_, origin, direction = ssr._ray_setup(
+        depth_r, normal_view[::d, ::d], roughness[::d, ::d], camera,
+        frame_index, st)
+    coarse = ssr._coarse_table(ssr.build_min_depth_pyramid(depth_r, 4), 2,
+                               True)
+    return (coarse, origin, direction,
+            ssr._kernel_march_args(coarse, origin, direction),
+            ssr._thickness_ndc(st, camera))
 
 
 def _gtao_ops(px: int, slices: int, steps: int) -> int:
@@ -2470,11 +2528,12 @@ def oit_gbuffer_raster_inputs(rs, cfg):
     return setup, cand, counts, rects, kw, stats
 
 
-def k4_against_plain(args, kw, label):
+def k4_against_plain(args, kw, label, may_be_empty=False):
     """K4 vs raster_tiles_plain on one input set `args` = (setup,
     candidates, counts, rects), bit for bit (z, id, b0, b1); timed by CUDA
     events and device time, with its candidate-pixel tests and bound
-    counted as phase 8 counts them.  Returns its numbers."""
+    counted as phase 8 counts them; `may_be_empty`: a band that may cover
+    no pixel.  Returns its numbers."""
     import torch
     from diligentfx_tpu_torch.ops.raster_tiles import (raster_tiles,
                                                        raster_tiles_plain)
@@ -2489,7 +2548,7 @@ def k4_against_plain(args, kw, label):
           f"{diff}, covered {float(hit.float().mean()):.4f}", flush=True)
     check(all(v == 0 for v in diff.values()),
           f"K4 differs from its plain version {label}: {diff}")
-    check(bool(hit.any()), f"K4 covered no pixel {label}")
+    check(may_be_empty or bool(hit.any()), f"K4 covered no pixel {label}")
 
     def k4():
         return raster_tiles(*args, **kw)
@@ -5653,6 +5712,640 @@ def radient_only(frames, profile):
                 phase_seconds=[t1 - t0, time.perf_counter() - t1])
 
 
+# ---------------------------------------------------------------------------
+# the 4K cfg5 frame (examples/benchmark_suite.py config_5_4k) through
+# execute_split, and the row-banded frame of parallel/tiling.py
+# ---------------------------------------------------------------------------
+
+W4K, H4K = 3840, 2160
+SPLIT_BANDS = 4                # benchmark_suite.py:268 gbuffer_bands
+CFG5_COLUMNS = 24              # sponza_like_scene's default
+# a cfg5 frame launches K1 once and no K3 (its SSR stays off the kernel
+# route), K4, K5 or K6; its K2 count is the warm-up frame's, printed
+SPLIT4K_FIXED = {"raster_tiles_fused": 1, "march_small_table": 0,
+                 "gtao_fused": 0, "raster_tiles": 0, "warp_bilinear_multi": 0}
+# execute_split against execute at 4K: the banded G-buffer shades the
+# frame's rows pixel by pixel (cfg5 keeps fast_env_taps off), so equal
+SPLIT_EQUAL_BOUND = 1e-5
+BANDED_W, BANDED_H, BANDED_N = 1920, 1088, 4    # tests/test_multichip.py:145
+# a banded frame: K1 once a band; K3 and K2 (its history) once, SSR on
+# the gathered inputs with ssr_use_pallas; the other effects take no
+# kernel route there
+BANDED_LAUNCHES = {"raster_tiles_fused": BANDED_N, "warp_bilinear": 1,
+                   "march_small_table": 1, "gtao_fused": 0,
+                   "raster_tiles": 0, "warp_bilinear_multi": 0}
+
+
+def cfg5_raster_config():
+    """benchmark_suite.py:249-250."""
+    from diligentfx_tpu_torch.config import RasterizerConfig
+    return RasterizerConfig(tile_h=32, tile_w=128, bin_capacity=1024,
+                            max_tiles_per_tri=16, big_tri_capacity=64,
+                            chunk=8)
+
+
+def cfg5_task_manager_ci():
+    """benchmark_suite.py:252-258: SSAO on the per-tap warp route, SSR at
+    half resolution off the kernel route, TAA with the warp history,
+    YCoCg and Gaussian weighting, bloom."""
+    from diligentfx_tpu_torch.hydrogent.task_manager import \
+        TaskManagerCreateInfo
+    from diligentfx_tpu_torch.postfx.taa import TAAFeatureFlags
+    return TaskManagerCreateInfo(
+        enable_ssao=True, ssao_half_resolution=True, ssao_use_pallas=True,
+        ssao_num_slices=2, ssao_num_steps=4,
+        enable_ssr=True, ssr_half_resolution=True,
+        enable_taa=True, enable_bloom=True,
+        taa_feature_flags=(TAAFeatureFlags.YCOCG_COLOR_SPACE
+                           | TAAFeatureFlags.GAUSSIAN_WEIGHTING
+                           | TAAFeatureFlags.PALLAS_WARP))
+
+
+def cfg5_info(w, h, device):
+    """benchmark_suite.py:259-262: the camera at (0, 2, 10) looking at
+    (0, 1, 0), the sun at 4: config 4's frame 0."""
+    return full_chain_info(0, w, h, device)
+
+
+def _clone(obj):
+    """A deep copy of the tensors of a frame state."""
+    import torch
+    if isinstance(obj, torch.Tensor):
+        return obj.clone()
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        return type(obj)(*(_clone(x) for x in obj))
+    return obj
+
+
+def phase_split4k_raster(scene, cfg):
+    """Phase 30: K1 at the 4K cfg5 G-buffer inputs (2176 x 3840 padded)
+    against its plain version, with the raster statistics (cfg5's lists
+    may drop pairs at 4K: its configuration, reported as it is)."""
+    k1 = phase_raster(scene, cfg5_info(W4K, H4K, DEVICE), cfg,
+                      label="4K cfg5", width=W4K, height=H4K)
+    st = k1["raster_stats"]
+    print(f"4K cfg5 raster: {scene.num_triangles} triangles; bin overflow "
+          f"{st['bin_overflow']}, big-triangle overflow {st['big_overflow']},"
+          f" longest list {st['max_bin_count']} of 1024", flush=True)
+    return k1
+
+
+def _frame_diffs(a, b):
+    """Largest |a - b| of the colour and of each G-buffer field, and the
+    mesh ids that differ."""
+    diffs = {"color": float((a.color - b.color).abs().max())}
+    for f in ("depth", "normal_view", "direct", "ambient_diffuse",
+              "ambient_specular", "background", "motion"):
+        diffs[f] = float((getattr(a.gbuffer, f)
+                          - getattr(b.gbuffer, f)).abs().max())
+    diffs["mesh_id_differs"] = int((a.gbuffer.mesh_id
+                                    != b.gbuffer.mesh_id).sum())
+    return diffs
+
+
+def phase_split4k_frame(cfg, scene, frames, out_png, ibl_source):
+    """Phase 31, the main path: the 4K cfg5 frame through
+    HnTaskManager.execute_split(gbuffer_bands=4): one warm-up frame (its
+    launches printed), `frames` timed frames held to them; then from one
+    copied state one frame each of execute_split with 4 bands and with 1
+    and of execute, their colour and G-buffer differences and each call's
+    peak device memory."""
+    import torch
+    from diligentfx_tpu_torch.config import PBRRendererCreateInfo
+    from diligentfx_tpu_torch.hydrogent.task_manager import HnTaskManager
+    from diligentfx_tpu_torch.pbr.renderer import PBRRenderer
+    renderer = PBRRenderer(PBRRendererCreateInfo(), raster_cfg=cfg,
+                           device=DEVICE, env_oct=ibl_source.env_oct,
+                           ibl_maps=ibl_source.ibl_maps)
+    tm = HnTaskManager(renderer, cfg5_task_manager_ci())
+    info = cfg5_info(W4K, H4K, DEVICE)
+    settings = bench_settings()        # benchmark_suite.py:263: SSR 24
+
+    def split(state, bands=SPLIT_BANDS):
+        return tm.execute_split(scene, info, state, width=W4K, height=H4K,
+                                settings=settings, gbuffer_bands=bands)
+    state = tm.initial_state(W4K, H4K)
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    out = split(state)
+    torch.cuda.synchronize()
+    warm = read_launches()
+    print(f"4K cfg5 warm-up frame: {time.perf_counter() - t0:.2f} s, "
+          f"launches {warm}", flush=True)
+    for name, n in SPLIT4K_FIXED.items():
+        check(warm[name] == n, f"4K cfg5 warm-up: {name} launched "
+                               f"{warm[name]} times, expected {n}")
+    check(warm["warp_bilinear"] > 0, "4K cfg5 warm-up launched no K2")
+    state = out.state
+    zero_launches()
+    host_ms, dev_ms = [], []
+    for _ in range(frames):
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev0.record()
+        out = split(state)
+        state = out.state
+        ev1.record()
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        dev_ms.append(ev0.elapsed_time(ev1))
+    launches = read_launches()
+    for name, n in warm.items():
+        check(launches[name] == n * frames,
+              f"4K cfg5: {name} launched {launches[name]} times in {frames} "
+              f"frames, the warm-up frame {n}")
+    _color_ok(out.color, "4K cfg5 frame", W4K, H4K)
+    hit = float(out.gbuffer.hit.float().mean())
+    check(0.2 < hit < 1.0, f"4K cfg5 hit fraction {hit}")
+    print(f"4K cfg5 frame {W4K}x{H4K} (execute_split, {SPLIT_BANDS} bands):"
+          f" median {np.median(host_ms):.3f} ms host clock, "
+          f"{np.median(dev_ms):.3f} ms CUDA events, min {min(host_ms):.3f},"
+          f" max {max(host_ms):.3f} ({frames} frames), hit {hit:.3f}, mean "
+          f"color {float(out.color.mean()):.4f}; launches a frame "
+          f"{ {k: v // frames for k, v in launches.items()} }", flush=True)
+    if out_png:
+        root, ext = os.path.splitext(out_png)
+        _write_png(f"{root}_4k{ext or '.png'}", out.color)
+    # the same frame three ways from one copied state
+    calls = (("execute_split(4)", lambda s: split(s, SPLIT_BANDS)),
+             ("execute_split(1)", lambda s: split(s, 1)),
+             ("execute", lambda s: tm.execute(scene, info, s, width=W4K,
+                                              height=H4K, settings=settings)))
+    outs, peaks = {}, {}
+    for name, fn in calls:
+        st = _clone(state)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        outs[name] = fn(st)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        peaks[name] = dict(peak_mb=peak / 2 ** 20,
+                           above_inputs_mb=(peak - base) / 2 ** 20)
+        del st
+    diffs = {name: _frame_diffs(outs[name], outs["execute"])
+             for name in ("execute_split(4)", "execute_split(1)")}
+    for name, d in diffs.items():
+        print(f"4K {name} against execute: {d}; peak "
+              f"{peaks[name]['peak_mb']:.1f} MB ({peaks[name]['above_inputs_mb']:.1f}"
+              f" MB above what was allocated before the call)", flush=True)
+        check(d["mesh_id_differs"] == 0 and
+              max(v for k, v in d.items() if k != "mesh_id_differs")
+              <= SPLIT_EQUAL_BOUND,
+              f"4K {name} differs from execute beyond {SPLIT_EQUAL_BOUND}:"
+              f" {d}")
+    print(f"4K execute: peak {peaks['execute']['peak_mb']:.1f} MB "
+          f"({peaks['execute']['above_inputs_mb']:.1f} MB above the inputs);"
+          f" total on the card "
+          f"{torch.cuda.get_device_properties(0).total_memory / 2 ** 20:.0f}"
+          f" MB", flush=True)
+    return dict(frame_ms_median=float(np.median(host_ms)),
+                frame_events_ms_median=float(np.median(dev_ms)),
+                launches=launches, warmup_launches=warm, frames=frames,
+                diffs=diffs, peaks=peaks, triangles=scene.num_triangles)
+
+
+def banded_raster_config():
+    """tests/test_multichip.py:19-20: 8 x 128 tiles (1088 rows split into
+    four bands of 272), the big-triangle list at 64: at 16, the unbanded
+    1920 x 1088 frame drops 15 of its 31 big triangles (the plane's) where
+    no band drops any, and the comparisons with it would compare
+    different scenes."""
+    from diligentfx_tpu_torch.config import RasterizerConfig
+    return RasterizerConfig(tile_h=8, tile_w=128, bin_capacity=512,
+                            max_tiles_per_tri=16, big_tri_capacity=64,
+                            chunk=8)
+
+
+def banded_scene(device):
+    """tests/test_multichip.py:147-163: a red sphere, a blue BLEND sphere
+    beside it (the banded OIT) and a 20 m plane."""
+    from diligentfx_tpu_torch.attribs import PBRMaterialBasicAttribs
+    from diligentfx_tpu_torch.gltf.primitives import plane, uv_sphere
+    from diligentfx_tpu_torch.pbr.renderer import build_scene
+    sphere = uv_sphere(0.8, 8, 10)
+    gn = np.eye(4, dtype=np.float32)
+    gn[3, 1] = -1.0
+    tn = np.eye(4, dtype=np.float32)
+    tn[3, 0] = 1.2
+    return build_scene([
+        (sphere, np.eye(4, dtype=np.float32),
+         PBRMaterialBasicAttribs.create(base_color_factor=(0.8, 0.2, 0.2, 1),
+                                        metallic_factor=0.4,
+                                        roughness_factor=0.3)),
+        (sphere, tn,
+         PBRMaterialBasicAttribs.create(base_color_factor=(0.2, 0.5, 0.9, 0.5),
+                                        alpha_mode=2, roughness_factor=0.2)),
+        (plane(20.0), gn, PBRMaterialBasicAttribs.create(
+            base_color_factor=(0.4, 0.4, 0.45, 1), roughness_factor=0.7)),
+    ], device=device)
+
+
+def banded_info(w, h, device):
+    """tests/test_multichip.py:24-47,164-167: the camera at (0, 1.5, 5)
+    looking at the origin, one directional light."""
+    from diligentfx_tpu_torch import math3d as m3
+    from diligentfx_tpu_torch.attribs import (CameraAttribs, PBRLightAttribs,
+                                              PBRRendererShaderParameters)
+    from diligentfx_tpu_torch.pbr.renderer import RenderInfo
+    eye = [0.0, 1.5, 5.0]
+    cam = CameraAttribs.create(
+        m3.look_at(eye, [0, 0, 0], device=device),
+        m3.perspective(0.9, w / h, 0.1, 50.0, device=device), eye, 0.1, 50.0,
+        w, h, device=device)
+    return RenderInfo(camera=cam, lights=PBRLightAttribs.directional(
+        [-0.4, -1.0, -0.3], [3, 3, 3], device=device),
+        renderer_params=PBRRendererShaderParameters.create(device=device))
+
+
+def banded_task_manager_ci(ssr_use_pallas=True):
+    """tests/test_multichip.py:170-177's execute frame, SSR on the kernel
+    route as the banded frame takes it on the card."""
+    from diligentfx_tpu_torch.config import ToneMappingMode
+    from diligentfx_tpu_torch.hydrogent.task_manager import \
+        TaskManagerCreateInfo
+    return TaskManagerCreateInfo(
+        enable_ssao=True, ssao_half_resolution=True, ssao_num_slices=2,
+        ssao_num_steps=3, enable_ssr=True, ssr_resolution_divisor=2,
+        ssr_use_pallas=ssr_use_pallas, enable_taa=True, enable_bloom=True,
+        enable_dof=False, oit_layer_count=4,
+        tone_mapping_mode=ToneMappingMode.UNCHARTED2,
+        convert_output_to_srgb=True)
+
+
+def banded_kw(cfg, jitter_seq, ssr_use_pallas=True):
+    """render_frame_banded's arguments of tests/test_multichip.py:186-193
+    (SSAO 2 x 3, SSR divisor 2 with 12 steps, TAA with the jitter, bloom,
+    Uncharted2, sRGB)."""
+    from diligentfx_tpu_torch.config import ToneMappingMode
+    return dict(cfg=cfg, use_ibl=True, enable_ssao=True, ssao_num_slices=2,
+                ssao_num_steps=3, enable_ssr=True, ssr_divisor=2, ssr_steps=12,
+                ssr_use_pallas=ssr_use_pallas, enable_taa=True,
+                enable_bloom=True, oit_layer_count=4,
+                tone_mapping_mode=ToneMappingMode.UNCHARTED2,
+                convert_output_to_srgb=True, jitter_seq=jitter_seq)
+
+
+def _card_mesh(n):
+    import torch
+    from diligentfx_tpu_torch.parallel.mesh import make_render_mesh
+    return make_render_mesh(devices=[torch.device(DEVICE, 0)] * n, dp=1,
+                            sp=n)
+
+
+def forward_band_inputs(scene, info, cfg, y0, band_h):
+    """K4's inputs in render_forward_banded's band at row y0: the frame's
+    setup at the band's viewport offset, binned over the band; (setup,
+    compact, counts, rects, kernel keywords)."""
+    from diligentfx_tpu_torch import math3d as m3
+    from diligentfx_tpu_torch.ops import raster as rz
+    from diligentfx_tpu_torch.pbr.renderer import transform_vertices
+    world_pos, _, _ = transform_vertices(scene, info.model_transform)
+    clip = m3.transform_points(world_pos, info.camera.view_proj)
+    window = dict(screen_size=(BANDED_W, BANDED_H), screen_offset=(0, y0))
+    setup, valid, bbox, _, _ = rz._triangle_setup(
+        clip, scene.indices, BANDED_W, band_h, scene.tri_double_sided, True,
+        1e-3, **window)
+    cand, counts, _, _, _ = rz._bin_triangles(valid, bbox, BANDED_W, band_h,
+                                              cfg)
+    rects = rz.candidate_rects(setup, BANDED_W, band_h, (0, y0))
+    kw = dict(th=cfg.tile_h, tw=cfg.tile_w, tiles_x=BANDED_W // cfg.tile_w,
+              chunk=cfg.chunk, screen_offset=(0, y0))
+    return (setup, cand, counts, rects), kw
+
+
+def k3_against_plain(coarse, origin, direction, args, thick, label):
+    """K3 vs march_dda_plain on one input set (no hit mismatch, t exact),
+    timed by CUDA events and device time, its bound as phase 5 counts it."""
+    import torch
+    from diligentfx_tpu_torch.ops.march import (march_dda_plain,
+                                                march_small_table)
+    a = march_small_table(*args, thick)
+    torch.cuda.synchronize()
+    b = march_dda_plain(*args, thick)
+    flips = int((a[2] != b[2]).sum())
+    err = max(float((a[0] - b[0]).abs().max()),
+              float((a[1] - b[1]).abs().max()))
+    check(flips == 0, f"K3 hits differ from the plain version {label}: "
+                      f"{flips}")
+    check(err == 0.0, f"K3 t error {err} {label}")
+
+    def run():
+        return march_small_table(*args, thick)
+    ms = cuda_ms(run, 20, 2)
+    dev_ms = kernel_device_ms(run, "march_kernel", 20)
+    plain_ms = cuda_ms(lambda: march_dda_plain(*args, thick), 3, 1)
+    crossed = _march_rows_crossed(coarse, origin, direction)
+    px = origin.shape[0] * origin.shape[1]
+    b_ms, b_by = bound_ms(4 * coarse.numel() + px * (24 + 9),
+                          MARCH_OPS_PER_ROW * crossed)
+    print(f"march {label}: table {tuple(coarse.shape)}, rays "
+          f"{tuple(origin.shape)}, hit {float(b[2].float().mean()):.4f}, "
+          f"hit mismatches {flips}, t max err {err:.3g}; {ms:.4f} ms events,"
+          f" device {dev_ms:.4f}, plain {plain_ms:.2f}; bound {b_ms:.4f} "
+          f"({b_by})", flush=True)
+    return dict(max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by,
+                shapes=f"table {tuple(coarse.shape)}, rays "
+                       f"{tuple(origin.shape)}")
+
+
+def phase_banded(frames, ibl_source):
+    """Phase 32: the row-banded frame of parallel/tiling.py at 1920 x 1088
+    over four bands on the one card (tests/test_multichip.py:125-199's
+    configuration): K1 at each band's render_gbuffer_band_sp inputs
+    against its plain version and against the same rows of the unbanded
+    K1 output; K4 at each band of render_forward_banded against its plain
+    version; render_forward_banded with four bands bit-equal to one (K4 4
+    launches); K3 at the gathered SSR inputs; two frames of
+    render_frame_banded with four bands against execute (4e-3) and
+    against one band (2e-3); then `frames` timed banded frames with the
+    counts zeroed just before and read just after (K1 4, K3 1 a frame)
+    and `frames` timed execute frames."""
+    import torch
+    from diligentfx_tpu_torch.config import PBRRendererCreateInfo
+    from diligentfx_tpu_torch.hydrogent.task_manager import (FrameSettings,
+                                                             HnTaskManager)
+    from diligentfx_tpu_torch.parallel import tiling
+    from diligentfx_tpu_torch.parallel.mesh import band_sharding
+    from diligentfx_tpu_torch.pbr.deferred import render_gbuffer_band_sp
+    from diligentfx_tpu_torch.pbr.renderer import PBRRenderer
+    from diligentfx_tpu_torch.postfx.ssr import SSRSettings
+    cfg = banded_raster_config()
+    w, h, n = BANDED_W, BANDED_H, BANDED_N
+    band_h = h // n
+    scene = banded_scene(DEVICE)
+    info = banded_info(w, h, DEVICE)
+    renderer = PBRRenderer(PBRRendererCreateInfo(), raster_cfg=cfg,
+                           device=DEVICE, env_oct=ibl_source.env_oct,
+                           ibl_maps=ibl_source.ibl_maps)
+    ibl, env = renderer.ibl_maps, renderer.env_oct
+    # K1: the unbanded frame's inputs, then each band's window
+    whole = []
+    k1 = phase_raster(scene, info, cfg, label="banded frame, unbanded",
+                      width=w, height=h, outputs=whole)
+    st = k1["raster_stats"]
+    check(st["bin_overflow"] == 0 and st["big_overflow"] == 0,
+          f"the unbanded banded-frame raster overflows: {st}")
+    k1_bands = []
+    for b in range(n):
+        y0 = b * band_h
+        outs = []
+        r = phase_raster(scene, info, cfg, label=f"banded frame, band {b}",
+                         width=w, height=h, band=(y0, band_h), outputs=outs)
+        (z, tid, out), (zw, tidw, outw) = outs[0], whole[0]
+        rows = slice(y0, y0 + band_h)
+        ids = int((tid != tidw[rows]).sum())
+        hit = (tid >= 0) & (tid == tidw[rows])
+        z_err = float((z - zw[rows]).abs()[hit].max()) if bool(hit.any()) \
+            else 0.0
+        ch_err = float((out - outw[:, rows]).abs()[:, hit].max()) \
+            if bool(hit.any()) else 0.0
+        print(f"banded frame, band {b} (screen_offset (0, {y0})) against "
+              f"the unbanded rows: id mismatches {ids}, z max err "
+              f"{z_err:.3g}, channel max err {ch_err:.3g}", flush=True)
+        check(ids == 0, f"band {b}'s K1 ids differ from the unbanded rows")
+        check(z_err <= 1e-6 and ch_err <= 1e-5 * max(
+            1.0, float(outw.abs().max())),
+            f"band {b}'s K1 differs from the unbanded rows: {z_err} "
+            f"{ch_err}")
+        k1_bands.append({key: r[key] for key in (
+            "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+            "bound_by", "candidate_pixel_tests", "raster_stats")}
+            | dict(screen_offset=[0, y0], rows_max_abs_err=max(z_err,
+                                                                ch_err)))
+    k1["band_inputs"] = k1_bands
+    # K4 at the forward-banded inputs, and the forward frame
+    k4_bands = []
+    for b in range(n):
+        args, kw = forward_band_inputs(scene, info, cfg, b * band_h, band_h)
+        k4_bands.append(dict(k4_against_plain(
+            args, kw, f"at forward band {b} (screen_offset (0, "
+                      f"{b * band_h}))", may_be_empty=True),
+            screen_offset=[0, b * band_h]))
+    torch.cuda.synchronize()
+    zero_launches()
+    _, fwd4 = tiling.render_forward_banded(scene, info, ibl, env,
+                                           _card_mesh(n), width=w, height=h,
+                                           cfg=cfg)
+    torch.cuda.synchronize()
+    fwd_launches = read_launches()
+    _, fwd1 = tiling.render_forward_banded(scene, info, ibl, env,
+                                           _card_mesh(1), width=w, height=h,
+                                           cfg=cfg)
+    same = bool(torch.equal(fwd4, fwd1))
+    print(f"render_forward_banded {n} bands against 1: bit-equal {same}; "
+          f"launches {fwd_launches}", flush=True)
+    check(same, "render_forward_banded: four bands differ from one")
+    check(fwd_launches["raster_tiles"] == n and
+          fwd_launches["raster_tiles_fused"] == 0,
+          f"render_forward_banded launched {fwd_launches}")
+    # K3 at the gathered SSR inputs of the bands' G-buffers (frame 0)
+    gbs = [render_gbuffer_band_sp(scene, info, ibl, env, width=w,
+                                  band_h=band_h, full_height=h,
+                                  band_y0=b * band_h, cfg=cfg)
+           for b in range(n)]
+    k3 = k3_against_plain(*march_inputs(
+        torch.cat([g.depth for g in gbs]),
+        torch.cat([g.normal_view for g in gbs]),
+        torch.cat([g.material_data[..., 1:2] for g in gbs]), info.camera, 0,
+        SSRSettings(max_traversal_intersections=12)),
+        label="at the banded frame's gathered inputs")
+    del gbs
+    # the banded frame against execute and against one band
+    tm = HnTaskManager(renderer, banded_task_manager_ci())
+    settings = FrameSettings(ssr=SSRSettings(max_traversal_intersections=12))
+    kw = banded_kw(cfg, tm.jitter_seq)
+    m4, m1 = _card_mesh(n), _card_mesh(1)
+    s4 = tiling.initial_banded_state(w, h, m4)
+    s1 = tiling.initial_banded_state(w, h, m1)
+    est = tm.initial_state(w, h)
+    errs = []
+    for i in range(2):
+        _, s4, c4 = tiling.render_frame_banded(scene, info, ibl, env, s4, m4,
+                                               width=w, height=h, **kw)
+        _, s1, c1 = tiling.render_frame_banded(scene, info, ibl, env, s1, m1,
+                                               width=w, height=h, **kw)
+        out = tm.execute(scene, info, est, width=w, height=h,
+                         settings=settings)
+        est = out.state
+        _color_ok(c4, f"banded frame {i}", w, h)
+        e_exec = float(((c4 - out.color).abs()
+                        / (4e-3 + 4e-3 * out.color.abs())).max())
+        e_one = float(((c4 - c1).abs() / (2e-3 + 2e-3 * c1.abs())).max())
+        d_exec = float((c4 - out.color).abs().max())
+        d_one = float((c4 - c1).abs().max())
+        errs.append(dict(vs_execute_max_abs=d_exec, vs_one_band_max_abs=d_one))
+        print(f"banded frame {i}: {n} bands against execute max abs diff "
+              f"{d_exec:.3g} ({e_exec:.3f} of the 4e-3 bound), against one "
+              f"band {d_one:.3g} ({e_one:.3f} of the 2e-3 bound)", flush=True)
+        check(e_exec <= 1.0, f"banded frame {i} against execute: {d_exec}")
+        check(e_one <= 1.0, f"banded frame {i}, 4 bands against 1: {d_one}")
+    check([t.device for t in s4.taa_color] == band_sharding(m4),
+          "the banded state is not on its bands' devices")
+
+    def timed(fn):
+        host, dev = [], []
+        for _ in range(frames):
+            ev0 = torch.cuda.Event(enable_timing=True)
+            ev1 = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ev0.record()
+            fn()
+            ev1.record()
+            torch.cuda.synchronize()
+            host.append((time.perf_counter() - t0) * 1e3)
+            dev.append(ev0.elapsed_time(ev1))
+        return float(np.median(host)), float(np.median(dev))
+    st = [s4]
+
+    def banded_frame():
+        _, st[0], _ = tiling.render_frame_banded(scene, info, ibl, env, st[0],
+                                                 m4, width=w, height=h, **kw)
+    zero_launches()
+    banded_ms = timed(banded_frame)
+    launches = read_launches()
+    for name, per in BANDED_LAUNCHES.items():
+        check(launches[name] == per * frames,
+              f"banded frame: {name} launched {launches[name]} times in "
+              f"{frames} frames, expected {per} a frame")
+    est_box = [est]
+
+    def execute_frame():
+        est_box[0] = tm.execute(scene, info, est_box[0], width=w, height=h,
+                                settings=settings).state
+    execute_ms = timed(execute_frame)
+    print(f"banded_frame_ms_median {banded_ms[0]:.3f} (CUDA events "
+          f"{banded_ms[1]:.3f}), execute on the same scene {execute_ms[0]:.3f}"
+          f" ({execute_ms[1]:.3f}) over {frames} frames at {w}x{h}, {n} bands "
+          f"on one card; launches {launches}", flush=True)
+    return dict(k1=k1, k4_bands=k4_bands, k3=k3, launches=launches,
+                forward_launches=fwd_launches, frame_errors=errs,
+                frame_ms_median=banded_ms[0],
+                frame_events_ms_median=banded_ms[1],
+                execute_ms_median=execute_ms[0],
+                execute_events_ms_median=execute_ms[1], frames=frames)
+
+
+def small_split_frames(device):
+    """Two 256x128 cfg5 frames of the atrium with 4 columns through
+    execute_split with 4 bands, on the CPU path and on `device`:
+    (cpu colour, colour)."""
+    from diligentfx_tpu_torch.config import PBRRendererCreateInfo
+    from diligentfx_tpu_torch.hydrogent.task_manager import HnTaskManager
+    from diligentfx_tpu_torch.pbr.renderer import PBRRenderer
+    ci = PBRRendererCreateInfo(brdf_lut_dim=32, num_brdf_samples=16,
+                               irradiance_cube_dim=16,
+                               prefiltered_env_map_dim=32,
+                               num_specular_env_samples=16)
+    cfg = cfg5_raster_config()
+    ref = PBRRenderer(ci, raster_cfg=cfg, device="cpu")
+    colors = []
+    for dev in ("cpu", device):
+        ren = (ref if dev == "cpu" else
+               PBRRenderer(ci, raster_cfg=cfg, device=dev,
+                           env_oct=ref.env_oct, ibl_maps=ref.ibl_maps.to(dev)))
+        tm = HnTaskManager(ren, cfg5_task_manager_ci())
+        scene = full_chain_scene(4, device=dev)
+        info = cfg5_info(SMALL_W, SMALL_H, dev)
+        state = tm.initial_state(SMALL_W, SMALL_H)
+        for _ in range(2):
+            out = tm.execute_split(scene, info, state, width=SMALL_W,
+                                   height=SMALL_H, settings=bench_settings(),
+                                   gbuffer_bands=SPLIT_BANDS)
+            state = out.state
+        colors.append(out.color.cpu().numpy())
+    return colors[0], colors[1]
+
+
+def small_banded_frames(device, n_bands=2):
+    """Two 256x128 banded frames of phase 32's scene over `n_bands` bands,
+    on the CPU path (a mesh of the CPU repeated) and on `device`:
+    (cpu colour, colour)."""
+    import torch
+    from diligentfx_tpu_torch.config import PBRRendererCreateInfo
+    from diligentfx_tpu_torch.parallel import mesh as pmesh
+    from diligentfx_tpu_torch.parallel import tiling
+    from diligentfx_tpu_torch.pbr.renderer import PBRRenderer
+    from diligentfx_tpu_torch.postfx.context import taa_jitter_sequence
+    ci = PBRRendererCreateInfo(brdf_lut_dim=32, num_brdf_samples=16,
+                               irradiance_cube_dim=16,
+                               prefiltered_env_map_dim=32,
+                               num_specular_env_samples=16)
+    cfg = banded_raster_config()
+    ref = PBRRenderer(ci, raster_cfg=cfg, device="cpu")
+    colors = []
+    for dev in ("cpu", device):
+        ren = (ref if dev == "cpu" else
+               PBRRenderer(ci, raster_cfg=cfg, device=dev,
+                           env_oct=ref.env_oct, ibl_maps=ref.ibl_maps.to(dev)))
+        d = torch.device("cpu") if dev == "cpu" else torch.device(dev, 0)
+        mesh = pmesh.make_render_mesh(devices=[d] * n_bands, dp=1,
+                                      sp=n_bands)
+        scene = banded_scene(dev)
+        info = banded_info(SMALL_W, SMALL_H, dev)
+        state = tiling.initial_banded_state(SMALL_W, SMALL_H, mesh)
+        kw = banded_kw(cfg, taa_jitter_sequence(16, dev))
+        for _ in range(2):
+            _, state, color = tiling.render_frame_banded(
+                scene, info, ren.ibl_maps, ren.env_oct, state, mesh,
+                width=SMALL_W, height=SMALL_H, **kw)
+        colors.append(color.cpu().numpy())
+    return colors[0], colors[1]
+
+
+def phase_split_banded_reference():
+    """Phase 33: the 256x128 execute_split (4 bands) and banded (2 bands)
+    frames on the GPU against the port's CPU path, above 50 dB."""
+    from diligentfx_tpu_torch.utils.image import psnr
+    out = {}
+    for name, fn in (("execute_split (4 bands)", small_split_frames),
+                     ("render_frame_banded (2 bands)", small_banded_frames)):
+        cpu, gpu = fn(DEVICE)
+        p = psnr(cpu, gpu)
+        print(f"256x128 {name}, GPU vs the port's CPU path: PSNR {p:.2f} dB,"
+              f" max abs diff {np.abs(cpu - gpu).max():.3g}", flush=True)
+        check(np.isfinite(gpu).all(), f"small {name} frame not finite")
+        check(p > 50.0, f"GPU {name} frame disagrees with the CPU path: "
+                        f"{p:.2f} dB")
+        out[name] = p
+    return out
+
+
+def split4k_only(frames, out_png):
+    """Phases 30 and 31 alone: K1 at the 4K cfg5 inputs and the 4K frame
+    through execute_split."""
+    from diligentfx_tpu_torch.config import PBRRendererCreateInfo
+    from diligentfx_tpu_torch.pbr.renderer import PBRRenderer
+    cfg = cfg5_raster_config()
+    scene = full_chain_scene(CFG5_COLUMNS)
+    t0 = time.perf_counter()
+    k1 = phase_split4k_raster(scene, cfg)
+    ibl = PBRRenderer(PBRRendererCreateInfo(), raster_cfg=cfg, device=DEVICE)
+    frame = phase_split4k_frame(cfg, scene, frames, out_png, ibl)
+    return dict(k1_4k_inputs=k1, split4k_frame=frame,
+                seconds=time.perf_counter() - t0)
+
+
+def banded_only(frames):
+    """Phases 32 and 33 alone: the banded frame's kernels and frames, and
+    the 256x128 frames against the CPU path."""
+    from diligentfx_tpu_torch.config import PBRRendererCreateInfo
+    from diligentfx_tpu_torch.pbr.renderer import PBRRenderer
+    t0 = time.perf_counter()
+    ibl = PBRRenderer(PBRRendererCreateInfo(),
+                      raster_cfg=banded_raster_config(), device=DEVICE)
+    banded = phase_banded(frames, ibl)
+    t1 = time.perf_counter()
+    p = phase_split_banded_reference()
+    return dict(banded=banded, psnr=p,
+                phase_seconds=[t1 - t0, time.perf_counter() - t1])
+
+
 # goals of the tile rasters' redesign, device ms (torch.profiler kernel
 # rows): K4 over the four cascades, K1 at each of its three inputs
 RASTER_GOALS_MS = {"raster_tiles": 0.45, "bench": 0.15, "csm": 0.20,
@@ -5770,7 +6463,7 @@ def main() -> int:
     ap.add_argument("--only", choices=("warp", "raster", "csm",
                                         "march_gtao", "oit", "lights",
                                         "ext_skin", "editor", "hydra",
-                                        "radient"),
+                                        "radient", "split4k", "banded"),
                     help="warp: run only phases 1, 3 and 13 (K6 on random "
                          "taps within the halo); raster: only phases 1, 2, "
                          "8 (without the csm frame) and 11; csm: only "
@@ -5783,7 +6476,9 @@ def main() -> int:
                          "and 22 (likewise); editor: only phases 1, 24 and "
                          "25 (likewise); hydra: only phases 1, 26 and 27 "
                          "(likewise); radient: only phases 1, 28 and 29 "
-                         "(likewise); and print their JSON line")
+                         "(likewise); split4k: only phases 1, 30 and 31; "
+                         "banded: only phases 1, 32 and 33; and print "
+                         "their JSON line")
     ap.add_argument("--async-child", metavar="BUILD_DIR", default="",
                     help="phase 26's AsyncFramePipeline run alone, its "
                          "kernels built into the empty BUILD_DIR (phase 26 "
@@ -5862,6 +6557,17 @@ def main() -> int:
     if args.only == "radient":
         print(json.dumps({"root": args.root,
                           **radient_only(args.frames, args.profile)},
+                         default=str))
+        print(card, flush=True)
+        return 0
+    if args.only == "split4k":
+        print(json.dumps({"root": args.root,
+                          **split4k_only(args.frames, args.out_png)},
+                         default=str))
+        print(card, flush=True)
+        return 0
+    if args.only == "banded":
+        print(json.dumps({"root": args.root, **banded_only(args.frames)},
                          default=str))
         print(card, flush=True)
         return 0
@@ -5972,6 +6678,30 @@ def main() -> int:
     radient_s = [time.perf_counter() - t_radient]
     radient_psnr = phase_radient_reference()
     radient_s.append(time.perf_counter() - t_radient - radient_s[0])
+    t_split = time.perf_counter()
+    cfg5 = cfg5_raster_config()
+    scene_4k = full_chain_scene(CFG5_COLUMNS)
+    print(f"4K cfg5 scene: {scene_4k.num_triangles} triangles", flush=True)
+    merge_k1(k1, phase_split4k_raster(scene_4k, cfg5), "split4k_inputs")
+    split_frame = phase_split4k_frame(cfg5, scene_4k, args.frames,
+                                      args.out_png, tm.renderer)
+    del scene_4k
+    t_banded = time.perf_counter()
+    banded = phase_banded(args.frames, tm.renderer)
+    t_ref = time.perf_counter()
+    split_banded_psnr = phase_split_banded_reference()
+    split_s = [t_banded - t_split, t_ref - t_banded,
+               time.perf_counter() - t_ref]
+    k1["banded_inputs"] = {key: banded["k1"][key] for key in (
+        "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+        "candidate_pixel_tests", "raster_stats")}
+    k1["banded_inputs"]["bands"] = banded["k1"]["band_inputs"]
+    k1["max_abs_err"] = max(k1["max_abs_err"], banded["k1"]["max_abs_err"],
+                            *(b["max_abs_err"]
+                              for b in banded["k1"]["band_inputs"]))
+    k4["forward_banded_inputs"] = banded["k4_bands"]
+    k4["forward_banded_launches"] = banded["forward_launches"]["raster_tiles"]
+    k3["gathered_inputs"] = banded["k3"]
     for k in (k1, k2, k3):
         k["launches"] = launches[k["name"]]
         k["frames"] = args.frames
@@ -5989,6 +6719,10 @@ def main() -> int:
             k["name"]]
         k["edges_frames"] = MODE_FRAMES
         k["radient_frame_launches"] = radient_frame["launches"][k["name"]]
+        k["split4k_frame_launches"] = split_frame["launches"][k["name"]]
+        k["split4k_frames"] = args.frames
+        k["banded_frame_launches"] = banded["launches"][k["name"]]
+        k["banded_frames"] = args.frames
     k4["launches"] = csm_launches["raster_tiles"]
     k4["frames"] = args.frames
     k4["launches_per_frame"] = csm_launches["raster_tiles"] / args.frames
@@ -6004,7 +6738,8 @@ def main() -> int:
                   "4 a frame (editor_frame_launches); the Hydra stage's "
                   "EDGES frame, one (edges_frame_launches, over "
                   "edges_frames frames); the Radient atrium frame none "
-                  "(radient_frame_launches)")
+                  "(radient_frame_launches); render_forward_banded, one a "
+                  "band (forward_banded_launches)")
     k5["frame_launches"] = launches["gtao_fused"]
     k5["launches_per_frame"] = 0.0
     k6["frame_launches"] = launches["warp_bilinear_multi"]
@@ -6089,6 +6824,18 @@ def main() -> int:
           f"{radient_psnr:.2f} dB; phases 28 and 29 {radient_s[0]:.1f} and "
           f"{radient_s[1]:.1f} s on {card}; total run "
           f"{time.perf_counter() - t_start:.1f} s")
+    print(f"split4k_frame_ms_median {split_frame['frame_ms_median']:.3f} "
+          f"(CUDA events {split_frame['frame_events_ms_median']:.3f}) over "
+          f"{args.frames} frames at {W4K}x{H4K}, execute_split with "
+          f"{SPLIT_BANDS} bands, {split_frame['triangles']} triangles; peak "
+          f"MB {json.dumps(split_frame['peaks'])}; banded_frame_ms_median "
+          f"{banded['frame_ms_median']:.3f} (CUDA events "
+          f"{banded['frame_events_ms_median']:.3f}), execute "
+          f"{banded['execute_ms_median']:.3f} ({banded['execute_events_ms_median']:.3f})"
+          f" at {BANDED_W}x{BANDED_H}, {BANDED_N} bands; 256x128 vs the CPU "
+          f"path {json.dumps(split_banded_psnr)}; phases 30-31, 32 and 33 "
+          f"{split_s[0]:.1f}, {split_s[1]:.1f} and {split_s[2]:.1f} s on "
+          f"{card}; total run {time.perf_counter() - t_start:.1f} s")
     if DEVICE_MS_FROM_EVENTS:
         print(f"device_ms from CUDA events, the profiler showing no device "
               f"time, for kernels named {DEVICE_MS_FROM_EVENTS}")

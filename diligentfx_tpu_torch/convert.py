@@ -248,3 +248,41 @@ def task_manager_ci_from_jax(ci) -> TaskManagerCreateInfo:
         kw[f.name] = type(default)(int(v)) if isinstance(
             default, (int,)) and not isinstance(default, bool) else v
     return TaskManagerCreateInfo(**kw)
+
+
+def mesh_from_jax(mesh, device="cpu"):
+    """A RenderMesh of the JAX mesh's shape and axis names, every device
+    mapped to `device` (the JAX tests' virtual host devices: the CPU, or
+    one card, repeated)."""
+    from diligentfx_tpu_torch.parallel.mesh import RenderMesh
+    grid = np.empty(np.shape(mesh.devices), dtype=object)
+    grid[...] = torch.device(device)
+    return RenderMesh(grid, tuple(mesh.axis_names))
+
+
+def banded_state_from_jax(state, mesh):
+    """BandedFrameState of the port on `mesh` (a RenderMesh) from the JAX
+    package's (parallel/tiling.py): the band-sharded entries split into
+    the mesh's bands, each on its device, the replicated ones copied to
+    each distinct device."""
+    from diligentfx_tpu_torch.parallel.mesh import band_sharding, replicated
+    from diligentfx_tpu_torch.parallel.tiling import BandedFrameState
+    devices = band_sharding(mesh)
+    repl = replicated(mesh)
+
+    def bands(x):
+        if x is None:
+            return None
+        parts = np.split(np.asarray(x), len(devices), axis=0)
+        return [tensor(p, d) for p, d in zip(parts, devices)]
+
+    def copies(x):
+        return None if x is None else [tensor(x, d) for d in repl]
+    return BandedFrameState(
+        frame_index=int(np.asarray(state.frame_index)),
+        prev_view_proj=copies(state.prev_view_proj),
+        taa_color=bands(state.taa_color), taa_count=bands(state.taa_count),
+        ssao_history=bands(state.ssao_history),
+        ssao_depth_history=bands(state.ssao_depth_history),
+        ssr_radiance=copies(state.ssr_radiance),
+        dof_coc=copies(state.dof_coc), prev_depth=bands(state.prev_depth))

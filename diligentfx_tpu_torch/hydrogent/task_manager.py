@@ -8,6 +8,10 @@ grid, bound box, selection desaturation and outline, depth bounds) ->
 epipolar light scattering -> auto exposure -> TAA -> DoF -> bloom -> [a
 debug view] -> tone map -> sRGB -> [the motion-vector field].
 
+`execute_split` renders the same frame through the same three stages,
+with the G-buffer optionally shaded in row bands (`gbuffer_bands`; the
+JAX package's 4K form).
+
 `FrameState` carries the temporal history between frames.  The SSR
 profiling knobs raise NotImplementedError when the task manager is built;
 no switch is silently ignored.
@@ -30,7 +34,8 @@ from diligentfx_tpu_torch.config import (DebugViewType, ShadowMode,
                                          ToneMappingMode)
 from diligentfx_tpu_torch.ops.raster import pad_viewport
 from diligentfx_tpu_torch.pbr import oit
-from diligentfx_tpu_torch.pbr.deferred import GBufferData, render_gbuffer
+from diligentfx_tpu_torch.pbr.deferred import (GBufferData, render_gbuffer,
+                                               render_gbuffer_banded)
 from diligentfx_tpu_torch.pbr.renderer import (PBRRenderer, RenderInfo,
                                                ScenePrimitives,
                                                transform_vertices)
@@ -285,6 +290,52 @@ class HnTaskManager:
             begin = _frame_begin(scene, info, state, self.renderer,
                                  self.jitter_seq, self.ci, width, height,
                                  self.atlas, light_shadow_kinds, fuse=fuse)
+        return self._effects(begin, scene, state, settings)
+
+    def execute_split(self, scene: ScenePrimitives, info: RenderInfo,
+                      state: FrameState, *, width: int, height: int,
+                      settings: FrameSettings = FrameSettings(),
+                      light_shadow_kinds: tuple = (),
+                      gbuffer_bands: int = 1,
+                      fuse: str = "auto") -> FrameOutput:
+        """The frame of `execute` as its three stages, the G-buffer, the
+        screen-space effects and the temporal + tone-map stage (JAX
+        task_manager.py:285, where each stage is a program of its own).
+        gbuffer_bands > 1 shades the G-buffer in row bands after one raster
+        (pbr/deferred.py render_gbuffer_banded); a debug view and vis_only
+        need the whole G-buffer and refuse the bands.  The same FrameOutput
+        as `execute`."""
+        if gbuffer_bands <= 1:
+            return self.execute(scene, info, state, width=width,
+                                height=height, settings=settings,
+                                light_shadow_kinds=light_shadow_kinds,
+                                fuse=fuse)
+        if self.ci.view_mode != DebugViewType.NONE or self.ci.vis_only:
+            raise ValueError("the banded G-buffer has no debug payload and "
+                             "no vis_only form: a debug view or vis_only "
+                             "takes gbuffer_bands=1")
+        with torch.profiler.record_function("dfx.gbuffer"):
+            info2, first_frame, shadow_mode = _begin_camera(
+                info, state, self.jitter_seq, self.ci, width, height)
+            ren = self.renderer
+            gb = render_gbuffer_banded(
+                scene, info2, ren.ibl_maps, ren.env_oct, width=width,
+                height=height, cfg=ren.raster_cfg, bands=gbuffer_bands,
+                use_ibl=ren.ci.enable_ibl, use_lights=self.ci.use_lights,
+                shadow_mode=shadow_mode,
+                pcf_kernel_size=ren.ci.pcf_kernel_size, atlas=self.atlas,
+                use_textures=self.atlas is not None,
+                enable_clearcoat=ren.ci.enable_clear_coat,
+                fast_env=self.ci.fast_env_taps,
+                light_shadow_kinds=light_shadow_kinds, fuse=fuse)
+            begin = FrameBegin(gb=gb, info=info2, first_frame=first_frame)
+        return self._effects(begin, scene, state, settings)
+
+    def _effects(self, begin: FrameBegin, scene: ScenePrimitives,
+                 state: FrameState, settings: FrameSettings) -> FrameOutput:
+        """The stages after the G-buffer: context, SSAO, SSR, composite,
+        OIT, components, scattering, exposure, then TAA, DoF, bloom, the
+        debug view, tone map and sRGB."""
         with torch.profiler.record_function("dfx.context_composite"):
             fx = _frame_fx(begin, state, settings, self.ci,
                            self.atmosphere_lut, scene=scene,

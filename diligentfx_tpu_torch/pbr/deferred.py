@@ -22,8 +22,14 @@
      slices, + emissive), ambient diffuse, ambient specular and the
      split-sum environment factor.
 
-The port reads no environment: `render_gbuffer`'s `fuse` argument stands
-for the JAX package's DFX_FUSE.
+Shading is pixel-local, so it can run in row bands: `render_gbuffer_banded`
+rasterizes the frame once and shades it band by band (the JAX package's
+4K form, whose shading graph overwhelmed its compiler), and
+`render_gbuffer_band_sp` rasterizes and shades one band's viewport window
+alone (the building block of parallel/tiling.py).
+
+The port reads no environment: the `fuse` arguments stand for the JAX
+package's DFX_FUSE.
 """
 from __future__ import annotations
 
@@ -135,11 +141,14 @@ UV0 = 6     # channel of u in the packed attributes (after normal, prev clip)
 
 def fused_raster_inputs(scene: ScenePrimitives, info: RenderInfo, *,
                         pad_w: int, pad_h: int, cfg: RasterizerConfig,
-                        use_textures: bool = False) -> rz.FusedKernelInputs:
+                        use_textures: bool = False, screen_size=None,
+                        screen_offset=(0, 0)) -> rz.FusedKernelInputs:
     """Vertex stage + triangle setup + binning: the fused tile kernel's
     inputs for this scene and camera (per-triangle consts = material id,
     node id; the material table rides transposed; textured scenes add the
-    UV derivative channels)."""
+    UV derivative channels).  screen_size / screen_offset: the pad_w x
+    pad_h framebuffer is the window at screen_offset of a screen_size
+    frame (a row band)."""
     clip, winv, packed, n_ch = _vertex_inputs(scene, info, use_textures)
     # the opaque prefix: a mask tail, forced through the fused path, is
     # dropped as in the JAX package
@@ -154,16 +163,25 @@ def fused_raster_inputs(scene: ScenePrimitives, info: RenderInfo, *,
                             n_ch=n_ch,
                             deriv_channels=((UV0, UV0 + 1) if use_textures
                                             else ()),
-                            double_sided=scene.tri_double_sided[:n_op])
+                            double_sided=scene.tri_double_sided[:n_op],
+                            screen_size=screen_size,
+                            screen_offset=screen_offset)
 
 
 def _fused_raster(scene: ScenePrimitives, info: RenderInfo, *, pad_w: int,
-                  pad_h: int, cfg: RasterizerConfig, use_textures: bool):
+                  pad_h: int, cfg: RasterizerConfig, use_textures: bool,
+                  screen_size=None, screen_offset=(0, 0)):
     """Raster + in-kernel interpolation + material fetch.  Returns (vb,
     fused channels (C, H, W), stats)."""
+    if scene.materials_anisotropy is not None and not use_textures:
+        raise ValueError("anisotropy without textures needs the two-pass "
+                         "route (fuse 'auto' or 'off'): the fused raster "
+                         "carries no tangents")
     with torch.profiler.record_function("dfx.raster_inputs"):
         k = fused_raster_inputs(scene, info, pad_w=pad_w, pad_h=pad_h,
-                                cfg=cfg, use_textures=use_textures)
+                                cfg=cfg, use_textures=use_textures,
+                                screen_size=screen_size,
+                                screen_offset=screen_offset)
     z, tid, out = raster_tiles_fused(k.setup, k.planes, k.candidates,
                                      k.counts, k.mat_table, k.rects,
                                      **k.kernel_kw)
@@ -242,13 +260,26 @@ def _shade_band(scene: ScenePrimitives, info: RenderInfo, ibl_maps, env_oct,
                 atlas=None, use_textures: bool = False, shadow_mode=None,
                 pcf_kernel_size: int = 3, light_shadow_kinds: tuple = (),
                 two_pass=None, enable_clearcoat: bool = False,
-                emit_debug: bool = False) -> GBufferData:
-    """Deferred shading of the whole padded frame (JAX deferred.py:224),
+                emit_debug: bool = False, row0: int = 0,
+                band_h: Optional[int] = None,
+                vb_local: bool = False) -> GBufferData:
+    """Deferred shading of rows [row0, row0 + band_h) of the padded
+    pad_h-row frame (JAX deferred.py:224; band_h None: the whole frame),
     from the fused kernel's channel-first output `fused_px`, or, when it
     is None, from the two-pass visibility `vb` (with barycentrics) and
-    `two_pass` = (clip, winv, packed attrs with world position).  With
+    `two_pass` = (clip, winv, packed attrs with world position).  `vb` and
+    `fused_px` cover the whole frame and the band's rows are sliced out,
+    or with `vb_local` they hold the band's rows alone.  With
     `emit_debug`, `debug` carries the per-pixel products of the debug
-    views (debug_payload).  Returns the PADDED G-buffer."""
+    views (debug_payload).  Returns the PADDED band."""
+    band_h = pad_h if band_h is None else band_h
+    if band_h != pad_h and not vb_local:
+        rows = slice(row0, row0 + band_h)
+        vb = rz.VisibilityBuffer(
+            depth=vb.depth[rows], tri_id=vb.tri_id[rows],
+            bary=None if vb.bary is None else vb.bary[rows])
+        if fused_px is not None:
+            fused_px = fused_px[:, rows]
     dev = vb.depth.device
     hit = vb.tri_id >= 0
     hit_m = hit[..., None]
@@ -276,7 +307,8 @@ def _shade_band(scene: ScenePrimitives, info: RenderInfo, ibl_maps, env_oct,
         def mgrp(a, b):
             return grp(m0 + a, m0 + b)
 
-        pos_px = reconstruct_world_pos(vb.depth, info.camera, full_h=pad_h)
+        pos_px = reconstruct_world_pos(vb.depth, info.camera, row0=row0,
+                                       full_h=pad_h)
         pos_px = torch.where(hit_m, pos_px, zero)
         ao = 0                              # channel of the normal
     else:
@@ -313,9 +345,10 @@ def _shade_band(scene: ScenePrimitives, info: RenderInfo, ibl_maps, env_oct,
     prev_uv = torch.stack([prev_ndc[..., 0] * 0.5 + 0.5,
                            0.5 - prev_ndc[..., 1] * 0.5], dim=-1)
     xg = (torch.arange(pad_w, dtype=torch.float32, device=dev) + 0.5) / pad_w
-    yg = (torch.arange(pad_h, dtype=torch.float32, device=dev) + 0.5) / pad_h
-    cur_uv = torch.stack([xg[None, :].expand(pad_h, pad_w),
-                          yg[:, None].expand(pad_h, pad_w)], dim=-1)
+    yg = (torch.arange(band_h, dtype=torch.float32, device=dev) + float(row0)
+          + 0.5) / pad_h
+    cur_uv = torch.stack([xg[None, :].expand(band_h, pad_w),
+                          yg[:, None].expand(band_h, pad_w)], dim=-1)
     motion = torch.where(hit_m, cur_uv - prev_uv, zero)
 
     base_color = mgrp(0, 3)
@@ -509,11 +542,11 @@ def _shade_band(scene: ScenePrimitives, info: RenderInfo, ibl_maps, env_oct,
         amb_s = (amb_s * atten
                  + lighting.clearcoat.specular_ibl * scale * clearcoat.factor)
 
-    ray = _camera_rays(info.camera, pad_w, pad_h)
+    ray = _camera_rays(info.camera, pad_w, pad_h, row0=row0, band_h=band_h)
     if fast_env:
         # half-res point taps + bilinear phase upsample of the background
         bg2 = point_sample(env_oct, dir_to_oct_uv(ray[::2, ::2]))
-        bg = upsample_bilinear(bg2, 2, 2)[:pad_h, :pad_w]
+        bg = upsample_bilinear(bg2, 2, 2)[:band_h, :pad_w]
     else:
         bg = sample_env_oct([env_oct], ray,
                             torch.zeros(ray.shape[:-1], device=dev))
@@ -622,20 +655,10 @@ def render_gbuffer(scene: ScenePrimitives, info: RenderInfo, ibl_maps,
     if shadow_mode is not None and info.shadow_attribs is None:
         raise ValueError("shadow_mode needs info.shadow_attribs and maps")
     pad_w, pad_h = rz.pad_viewport(width, height, cfg)
-    two_pass = None
-    if _fuse_ok(scene, fuse, use_textures):
-        if scene.materials_anisotropy is not None and not use_textures:
-            raise ValueError("anisotropy without textures needs the two-pass "
-                             "route (fuse 'auto' or 'off'): the fused raster "
-                             "carries no tangents")
-        vb, fused_px, _stats = _fused_raster(
-            scene, info, pad_w=pad_w, pad_h=pad_h, cfg=cfg,
-            use_textures=use_textures)
-    else:
-        vb, *two_pass = _two_pass_raster(scene, info, pad_w=pad_w,
-                                         pad_h=pad_h, cfg=cfg, atlas=atlas,
-                                         use_textures=use_textures)
-        fused_px = None
+    vb, fused_px, two_pass = _raster_stage(scene, info, atlas, pad_w=pad_w,
+                                           pad_h=pad_h, cfg=cfg,
+                                           use_textures=use_textures,
+                                           fuse=fuse)
     if vis_only:
         return _crop(_vis_only_gbuffer(vb), width, height)
     gb = _shade_band(scene, info, ibl_maps, env_oct, vb, fused_px,
@@ -647,6 +670,113 @@ def render_gbuffer(scene: ScenePrimitives, info: RenderInfo, ibl_maps,
                      two_pass=two_pass, enable_clearcoat=enable_clearcoat,
                      emit_debug=emit_debug)
     return _crop(gb, width, height)
+
+
+def _raster_stage(scene: ScenePrimitives, info: RenderInfo, atlas, *,
+                  pad_w: int, pad_h: int, cfg: RasterizerConfig,
+                  use_textures: bool, fuse: str = "auto"):
+    """The G-buffer's visibility over the whole padded frame (JAX
+    deferred.py:680): the fused K1 raster, or the two-pass K4 raster with
+    the alpha-mask resolve (`_fuse_ok` chooses).  Returns (vb, fused
+    channels or None, two_pass = (clip, winv, packed attrs) or None)."""
+    if _fuse_ok(scene, fuse, use_textures):
+        vb, fused_px, _stats = _fused_raster(
+            scene, info, pad_w=pad_w, pad_h=pad_h, cfg=cfg,
+            use_textures=use_textures)
+        return vb, fused_px, None
+    vb, *two_pass = _two_pass_raster(scene, info, pad_w=pad_w, pad_h=pad_h,
+                                     cfg=cfg, atlas=atlas,
+                                     use_textures=use_textures)
+    return vb, None, two_pass
+
+
+def render_gbuffer_banded(scene: ScenePrimitives, info: RenderInfo, ibl_maps,
+                          env_oct, *, width: int, height: int,
+                          cfg: RasterizerConfig, bands: int = 4,
+                          use_ibl: bool = True, use_lights: bool = True,
+                          shadow_mode=None, pcf_kernel_size: int = 3,
+                          atlas=None, use_textures: bool = False,
+                          enable_clearcoat: bool = False,
+                          fast_env: bool = False,
+                          light_shadow_kinds: tuple = (),
+                          fuse: str = "auto") -> GBufferData:
+    """render_gbuffer as one raster of the padded frame and `bands`
+    shading passes over its row bands, concatenated and cropped (JAX
+    deferred.py:712).  `bands` drops to the largest count that divides
+    the padded height.  Shading is pixel-local, so each band's rows equal
+    render_gbuffer's, but for fast_env's background, whose half-resolution
+    upsample edge-clamps at each band's last row."""
+    if shadow_mode is not None and info.shadow_attribs is None:
+        raise ValueError("shadow_mode needs info.shadow_attribs and maps")
+    pad_w, pad_h = rz.pad_viewport(width, height, cfg)
+    while pad_h % bands:
+        bands -= 1
+    band_h = pad_h // bands
+    vb, fused_px, two_pass = _raster_stage(scene, info, atlas, pad_w=pad_w,
+                                           pad_h=pad_h, cfg=cfg,
+                                           use_textures=use_textures,
+                                           fuse=fuse)
+    parts = [_shade_band(scene, info, ibl_maps, env_oct, vb, fused_px,
+                         pad_w=pad_w, pad_h=pad_h, use_ibl=use_ibl,
+                         use_lights=use_lights, fast_env=fast_env,
+                         atlas=atlas, use_textures=use_textures,
+                         shadow_mode=shadow_mode,
+                         pcf_kernel_size=pcf_kernel_size,
+                         light_shadow_kinds=light_shadow_kinds,
+                         two_pass=two_pass,
+                         enable_clearcoat=enable_clearcoat, row0=b * band_h,
+                         band_h=band_h)
+             for b in range(bands)]
+    gb = GBufferData(*(torch.cat(xs, dim=0) if xs[0] is not None else None
+                       for xs in zip(*parts)))
+    return _crop(gb, width, height)
+
+
+def render_gbuffer_band_sp(scene: ScenePrimitives, info: RenderInfo,
+                           ibl_maps, env_oct, *, width: int, band_h: int,
+                           full_height: int, band_y0: int,
+                           cfg: RasterizerConfig, use_ibl: bool = True,
+                           use_lights: bool = True, shadow_mode=None,
+                           pcf_kernel_size: int = 3, atlas=None,
+                           use_textures: bool = False,
+                           enable_clearcoat: bool = False,
+                           fast_env: bool = False,
+                           light_shadow_kinds: tuple = (),
+                           fuse: str = "auto") -> GBufferData:
+    """One row band of the G-buffer (JAX deferred.py:749): raster the
+    band's viewport window, rows [band_y0, band_y0 + band_h) of a
+    width x full_height frame (K1 or K4 at screen_offset (0, band_y0)),
+    and shade it band-locally.  As in the JAX package, the two-pass route
+    rasterizes the opaque prefix without the alpha-mask resolve."""
+    if width % cfg.tile_w or band_h % cfg.tile_h:
+        raise ValueError(f"a {width} x {band_h} band is not tile-aligned "
+                         f"({cfg.tile_w} x {cfg.tile_h} tiles)")
+    if shadow_mode is not None and info.shadow_attribs is None:
+        raise ValueError("shadow_mode needs info.shadow_attribs and maps")
+    window = dict(screen_size=(width, full_height),
+                  screen_offset=(0, int(band_y0)))
+    two_pass = None
+    if _fuse_ok(scene, fuse, use_textures):
+        vb, fused_px, _stats = _fused_raster(
+            scene, info, pad_w=width, pad_h=band_h, cfg=cfg,
+            use_textures=use_textures, **window)
+    else:
+        clip, winv, packed, _ = _vertex_inputs(scene, info, use_textures,
+                                               include_pos=True)
+        n_op = scene.num_opaque
+        vb, _stats = rz.rasterize(clip, scene.indices[:n_op], width=width,
+                                  height=band_h, cfg=cfg,
+                                  double_sided=scene.tri_double_sided[:n_op],
+                                  **window)
+        fused_px, two_pass = None, (clip, winv, packed)
+    return _shade_band(scene, info, ibl_maps, env_oct, vb, fused_px,
+                       pad_w=width, pad_h=full_height, use_ibl=use_ibl,
+                       use_lights=use_lights, fast_env=fast_env, atlas=atlas,
+                       use_textures=use_textures, shadow_mode=shadow_mode,
+                       pcf_kernel_size=pcf_kernel_size,
+                       light_shadow_kinds=light_shadow_kinds,
+                       two_pass=two_pass, enable_clearcoat=enable_clearcoat,
+                       row0=int(band_y0), band_h=band_h, vb_local=True)
 
 
 def _crop(gb: GBufferData, width: int, height: int) -> GBufferData:

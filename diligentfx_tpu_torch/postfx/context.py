@@ -3,11 +3,14 @@ diligentfx_tpu/postfx/context.py): analytic noise, TAA jitter, depth
 utilities, motion dilation and the history-disocclusion mask, whose
 previous-depth tap is the warp kernel's first caller.
 
-The row-band (multi-chip) variants are not ported.
+The row-band forms (`BandCtx`; `row0` / `full_h` of the pixel grids) let
+the same effects run on one row band of a frame
+(parallel/tiling.py render_frame_banded): noise and positions are keyed
+on global rows, so a band evaluates the whole frame's values.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -16,6 +19,22 @@ from diligentfx_tpu_torch.attribs import CameraAttribs
 from diligentfx_tpu_torch.ops.sampling import bilinear_sample
 
 Tensor = torch.Tensor
+
+
+class BandCtx(NamedTuple):
+    """Row-band context of the screen-space effects (JAX context.py:29):
+    the band holds global rows [y0, y0 + h) of a full_h-row frame.
+
+    extend(x, halo, wrap): x (one of the band's tensors, rows first) with
+    `halo` rows of the neighbouring bands above and below.  wrap=True is
+    the ring (band 0's top halo is the last band's bottom rows), so
+    halo'd 3x3 windows equal the whole frame's torch.roll windows;
+    wrap=False clamps to the frame's edge rows, bilinear_sample's clamp
+    for the history warps."""
+    extend: Callable[..., torch.Tensor]
+    y0: int
+    full_h: int
+    halo: int = 16
 
 
 class PostFXResources(NamedTuple):
@@ -29,17 +48,23 @@ class PostFXResources(NamedTuple):
     frame_index: int
 
 
-def pixel_grid(h: int, w: int, device):
-    """(y, x) float32 pixel indices of an (h, w) grid."""
-    y = torch.arange(h, dtype=torch.float32, device=device)[:, None].expand(h, w)
+def pixel_grid(h: int, w: int, device, row0: int = 0):
+    """(y, x) float32 pixel indices of an (h, w) grid whose first row is
+    row `row0` of the frame."""
+    y = torch.arange(h, dtype=torch.float32, device=device)
+    if row0:
+        y = y + float(row0)
+    y = y[:, None].expand(h, w)
     x = torch.arange(w, dtype=torch.float32, device=device)[None, :].expand(h, w)
     return y, x
 
 
 def interleaved_gradient_noise(height: int, width: int, frame_index: int,
-                               device=None) -> Tensor:
-    """Jimenez interleaved gradient noise, temporally scrambled."""
-    y, x = pixel_grid(height, width, device)
+                               device=None, row0: int = 0) -> Tensor:
+    """Jimenez interleaved gradient noise, temporally scrambled; keyed on
+    global rows (row0: the frame row of local row 0), so a band evaluates
+    the whole frame's pattern."""
+    y, x = pixel_grid(height, width, device, row0)
     f = float(frame_index % 64)
     x = x + 5.588238 * f
     y = y + 5.588238 * f
@@ -67,19 +92,20 @@ def depth_to_camera_z(depth: Tensor, camera: CameraAttribs,
     return n * f / torch.clamp(f - d * (f - n), min=1e-12)
 
 
-def _ndc_grid(h: int, w: int, full_h: int, device):
-    y, x = pixel_grid(h, w, device)
+def _ndc_grid(h: int, w: int, full_h: int, device, row0: int = 0):
+    y, x = pixel_grid(h, w, device, row0)
     x = (x + 0.5) / w * 2.0 - 1.0
     y = 1.0 - (y + 0.5) / (full_h or h) * 2.0
     return x, y
 
 
 def reconstruct_world_pos(depth: Tensor, camera: CameraAttribs,
-                          full_h: int = 0) -> Tensor:
+                          row0: int = 0, full_h: int = 0) -> Tensor:
     """Per-pixel world position from NDC depth through view_proj_inv (the
-    exact inverse of the rasterization transform, jitter included)."""
+    exact inverse of the rasterization transform, jitter included); the
+    local rows are rows [row0, row0 + h) of a full_h-row frame."""
     h, w = depth.shape
-    x, y = _ndc_grid(h, w, full_h, depth.device)
+    x, y = _ndc_grid(h, w, full_h, depth.device, row0)
     ndc = torch.stack([x, y, depth, torch.ones_like(depth)], dim=-1)
     world = m3.vec_mat4(ndc, camera.view_proj_inv)
     return world[..., :3] / world[..., 3:4]
@@ -174,10 +200,12 @@ def apply_jitter_to_proj(proj: Tensor, jitter_ndc: Tensor) -> Tensor:
 
 
 def reprojected_depth(depth: Tensor, camera: CameraAttribs,
-                      prev_view_proj: Tensor) -> Tensor:
-    """The NDC depth each current surface point had in the previous frame."""
+                      prev_view_proj: Tensor, row0: int = 0,
+                      full_h: int = 0) -> Tensor:
+    """The NDC depth each current surface point had in the previous frame
+    (row0 / full_h: the band's rows of the frame)."""
     h, w = depth.shape
-    x, y = _ndc_grid(h, w, 0, depth.device)
+    x, y = _ndc_grid(h, w, full_h, depth.device, row0)
     ndc = torch.stack([x, y, depth, torch.ones_like(depth)], dim=-1)
     world = m3.vec_mat4(ndc, camera.view_proj_inv)
     ww = world[..., 3:4]
@@ -200,13 +228,22 @@ def edge_pad(x: Tensor, pad_h: int, pad_w: int) -> Tensor:
 def disocclusion_mask(depth: Tensor, prev_depth: Tensor, motion: Tensor,
                       camera: CameraAttribs, prev_view_proj: Tensor, *,
                       relative_tolerance: float = 0.05,
-                      use_pallas: bool = False) -> Tensor:
+                      use_pallas: bool = False,
+                      band: Optional[BandCtx] = None) -> Tensor:
     """True where the history tap at (uv - motion) does not see the same
     surface: the previous depth buffer, sampled at the reprojected
     location, disagrees with the depth this surface should have had there
     (JAX context.py:251).  use_pallas routes the previous-depth tap through
-    the bounded warp kernel (ops/warp.py), as the TPU path does."""
+    the bounded warp kernel (ops/warp.py), as the TPU path does.
+
+    band: the band's rows of the frame; prev_depth is the band's slice,
+    tapped bilinearly on halo-extended rows with the vertical motion
+    clamped to the halo (use_pallas does not apply, as in the JAX
+    package)."""
     h, w = depth.shape
+    if band is not None:
+        return _disocclusion_band(depth, prev_depth, motion, camera,
+                                  prev_view_proj, relative_tolerance, band)
     zexp = reprojected_depth(depth, camera, prev_view_proj)
     y, x = pixel_grid(h, w, depth.device)
     prev_uv = torch.stack([(x + 0.5) / w, (y + 0.5) / h], dim=-1) - motion
@@ -222,6 +259,32 @@ def disocclusion_mask(depth: Tensor, prev_depth: Tensor, motion: Tensor,
                               halo_c=64)[:h, :w]
     else:
         zprev = bilinear_sample(prev_depth[..., None], prev_uv)[..., 0]
+    le = depth_to_camera_z(zexp, camera)
+    lp = depth_to_camera_z(zprev, camera)
+    mismatch = torch.abs(le - lp) > relative_tolerance * torch.minimum(le, lp)
+    oob = ((prev_uv[..., 0] < 0) | (prev_uv[..., 0] > 1)
+           | (prev_uv[..., 1] < 0) | (prev_uv[..., 1] > 1))
+    return mismatch | oob
+
+
+def _disocclusion_band(depth: Tensor, prev_depth: Tensor, motion: Tensor,
+                       camera: CameraAttribs, prev_view_proj: Tensor,
+                       relative_tolerance: float, band: BandCtx) -> Tensor:
+    """disocclusion_mask on a row band (JAX context.py:266-281)."""
+    h, w = depth.shape
+    fh, halo, y0 = band.full_h, band.halo, float(band.y0)
+    zexp = reprojected_depth(depth, camera, prev_view_proj, row0=band.y0,
+                             full_h=fh)
+    ext = band.extend(prev_depth, halo, wrap=False)
+    yg, x = pixel_grid(h, w, depth.device, band.y0)
+    x = (x + 0.5) / w
+    yg = yg + 0.5
+    my = torch.clamp(motion[..., 1] * fh, -(halo - 1.0), halo - 1.0)
+    prev_uv = torch.stack([x - motion[..., 0], (yg - my) / fh], dim=-1)
+    # tap the extended band at the band-local row
+    ext_uv = torch.stack([prev_uv[..., 0],
+                          (yg - my - y0 + halo) / (h + 2.0 * halo)], dim=-1)
+    zprev = bilinear_sample(ext[..., None], ext_uv)[..., 0]
     le = depth_to_camera_z(zexp, camera)
     lp = depth_to_camera_z(zprev, camera)
     mismatch = torch.abs(le - lp) > relative_tolerance * torch.minimum(le, lp)

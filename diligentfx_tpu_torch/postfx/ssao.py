@@ -13,8 +13,11 @@ Two routes compute the horizon taps, as in the JAX package:
     package's DFX_GTAO_FUSED switch.
 On a CPU tensor the kernel route runs the kernels' plain versions.
 
-The row-band arguments (`row0`, `full_h`, `max_tap_px`, `band`) serve the
-JAX package's multi-chip bands and raise NotImplementedError.
+The row-band arguments run the same code on one row band of a frame
+(parallel/tiling.py): `row0` / `full_h` key the noise and the positions on
+global rows, `max_tap_px` keeps the horizon taps inside a halo, and
+`band` (a context.BandCtx) gives the temporal stage halo rows of the
+history and of the AO.
 """
 from __future__ import annotations
 
@@ -30,7 +33,8 @@ from diligentfx_tpu_torch.ops import warp
 from diligentfx_tpu_torch.ops.gtao import gtao_fused
 from diligentfx_tpu_torch.ops.sampling import (bilinear_sample,
                                                upsample_bilinear)
-from diligentfx_tpu_torch.postfx.context import (depth_to_camera_z, edge_pad,
+from diligentfx_tpu_torch.postfx.context import (BandCtx, depth_to_camera_z,
+                                                 edge_pad,
                                                  interleaved_gradient_noise,
                                                  pixel_grid)
 
@@ -61,24 +65,15 @@ class SSAOState(NamedTuple):
     depth_history: Optional[Tensor] = None  # (H, W)
 
 
-def _no_bands(row0=0, full_h: int = 0, h: int = 0, max_tap_px=None,
-              band=None) -> None:
-    if row0 != 0 or full_h not in (0, h) or max_tap_px is not None \
-            or band is not None:
-        raise NotImplementedError(
-            "row bands (row0, full_h, max_tap_px, band) serve the JAX "
-            "package's multi-chip path and are not ported")
-
-
-def view_space_position(depth: Tensor, camera: CameraAttribs, row0=0,
+def view_space_position(depth: Tensor, camera: CameraAttribs, row0: int = 0,
                         full_h: int = 0) -> Tensor:
-    """Per-pixel view-space position (x right, y up, looking down -Z)."""
+    """Per-pixel view-space position (x right, y up, looking down -Z); the
+    local rows are rows [row0, row0 + h) of a full_h-row frame."""
     h, w = depth.shape
-    _no_bands(row0, full_h, h)
     z = depth_to_camera_z(depth, camera)
-    y, x = pixel_grid(h, w, depth.device)
+    y, x = pixel_grid(h, w, depth.device, row0)
     x_ndc = (x + 0.5) / w * 2 - 1
-    y_ndc = 1 - (y + 0.5) / h * 2
+    y_ndc = 1 - (y + 0.5) / (full_h or h) * 2
     return torch.stack([x_ndc * z / camera.proj[0, 0],
                         y_ndc * z / camera.proj[1, 1], -z], dim=-1)
 
@@ -151,9 +146,10 @@ def _radius_px(view_z: Tensor, camera: CameraAttribs, settings: SSAOSettings,
 
 def _tap_offset(noise: Tensor, radius_px: Tensor, s: int, sgn: float,
                 step: int, num_slices: int, num_steps: int,
-                use_pallas: bool) -> Tensor:
+                use_pallas: bool, max_tap_px=None) -> Tensor:
     """Pixel offset (..., 2) = (dx, dy) of horizon tap `step` on side `sgn`
-    of slice `s`; on the kernel route clamped to the warp's halo."""
+    of slice `s`; on the kernel route clamped to the warp's halo, and
+    with max_tap_px to (+-dx, +-dy)."""
     phi_s = (s + noise) * (PI / num_slices)
     d_px = torch.stack([torch.cos(phi_s), -torch.sin(phi_s)], dim=-1)
     t = (step + 0.5 + 0.5 * noise) / num_steps
@@ -164,6 +160,10 @@ def _tap_offset(noise: Tensor, radius_px: Tensor, s: int, sgn: float,
         # position too
         off = torch.stack([torch.clamp(off[..., 0], -63.0, 63.0),
                            torch.clamp(off[..., 1], -15.0, 15.0)], -1)
+    if max_tap_px is not None:
+        mx, my = (float(v) for v in max_tap_px)
+        off = torch.stack([torch.clamp(off[..., 0], -mx, mx),
+                           torch.clamp(off[..., 1], -my, my)], -1)
     return off
 
 
@@ -196,32 +196,43 @@ def compute_gtao(depth: Tensor, normal_vs: Tensor, camera: CameraAttribs,
 
     fused=True (kernel route only) computes the same integral in the fused
     GTAO kernel (ops/gtao.py): mip-0 taps, the same clamps, a polynomial
-    arccos."""
+    arccos.
+
+    row0 / full_h: the depth holds rows [row0, row0 + h) of a full_h-row
+    frame (noise and positions on global rows; the taps read the band's
+    own rows, edge-clamped); max_tap_px clamps the tap offsets to (+-dx,
+    +-dy) px, a halo's size; use_mips=False taps mip 0 only (a band's
+    pyramid cannot match the frame's)."""
     h, w = depth.shape
-    _no_bands(row0, full_h, h, max_tap_px)
+    fh = full_h or h
     if fused:
         if not use_pallas:
             raise ValueError("fused=True selects the fused GTAO kernel, an "
                              "option of the kernel route (use_pallas=True)")
+        if row0 != 0 or max_tap_px is not None:
+            raise ValueError("fused=True takes the whole frame: the fused "
+                             "GTAO kernel has no row0 or max_tap_px")
         return gtao_fused(depth, normal_vs,
                           gtao_scalars(camera, frame_index, settings),
                           num_slices=num_slices, num_steps=num_steps,
                           fh_log=h, w_log=w)
-    pos = view_space_position(depth, camera)
+    pos = view_space_position(depth, camera, row0, fh)
     view_z = -pos[..., 2]
     v = normalize(-pos)
-    noise = interleaved_gradient_noise(h, w, frame_index, device=depth.device)
+    # noise keyed on global rows: a band evaluates the frame's pattern
+    noise = interleaved_gradient_noise(h, w, frame_index, device=depth.device,
+                                       row0=row0)
 
     radius = f32(np.float32(settings.effect_radius)
                  * np.float32(settings.radius_multiplier))
-    radius_px = _radius_px(view_z, camera, settings, h, w)
+    radius_px = _radius_px(view_z, camera, settings, fh, w)
     falloff_range = f32(np.float32(settings.effect_falloff_range)
                         * np.float32(radius))
     falloff_from = f32(np.float32(radius)
                        * (np.float32(1.0)
                           - np.float32(settings.effect_falloff_range)))
 
-    y, x = pixel_grid(h, w, depth.device)
+    y, x = pixel_grid(h, w, depth.device, row0)
     xi, yi = x + 0.5, y + 0.5
     # prefiltered mips: near third of the steps taps mip 0, the middle
     # third mip 1, the far third mip 2 (the kernel route keeps mip 0)
@@ -254,17 +265,18 @@ def compute_gtao(depth: Tensor, normal_vs: Tensor, camera: CameraAttribs,
                        else min((3 * step) // max(num_steps, 1),
                                 len(depth_pyr) - 1))
                 off = _tap_offset(noise, radius_px, s, sgn, step,
-                                  num_slices, num_steps, use_pallas)
+                                  num_slices, num_steps, use_pallas,
+                                  max_tap_px)
                 if mip == 0:
                     d = _tap_depth(depth, off[..., 0], off[..., 1],
                                    use_pallas)
                 else:
                     uv_m = torch.stack([(xi + off[..., 0]) / w,
-                                        (yi + off[..., 1]) / h], dim=-1)
+                                        (yi + off[..., 1]) / fh], dim=-1)
                     d = bilinear_sample(depth_pyr[mip][..., None],
                                         uv_m)[..., 0]
                 uv = torch.stack([(xi + off[..., 0]) / w,
-                                  (yi + off[..., 1]) / h], dim=-1)
+                                  (yi + off[..., 1]) / fh], dim=-1)
                 delta = _uv_depth_to_view(uv, d, camera) - pos
                 dist = torch.sqrt(torch.clamp(torch.sum(delta * delta, -1),
                                               min=1e-10))
@@ -310,14 +322,25 @@ def bilateral_blur(ao: Tensor, depth: Tensor, camera: CameraAttribs,
     return out
 
 
-def convolved_depth(depth: Tensor, band=None) -> Tensor:
+def _window_source(x: Tensor, band: Optional[BandCtx]) -> Tensor:
+    """x, or with `band` x on one wrap-exchanged halo row a side: rolled
+    and cropped to rows [1, 1 + h), its 3x3 windows equal the whole
+    frame's torch.roll windows."""
+    return x if band is None else band.extend(x, 1, wrap=True)
+
+
+def convolved_depth(depth: Tensor, band: Optional[BandCtx] = None
+                    ) -> Tensor:
     """Depth blurred to the AO filter footprint (3x3 mean, wrap-around):
-    the history-validation metric of the reference's denoiser."""
-    _no_bands(band=band)
+    the history-validation metric of the reference's denoiser (JAX
+    ssao.py:349)."""
+    h = depth.shape[0]
+    src = _window_source(depth, band)
     conv = torch.zeros_like(depth)
     for dy in (-1, 0, 1):
         for dx in (-1, 0, 1):
-            conv = conv + torch.roll(depth, (dy, dx), dims=(0, 1))
+            s = torch.roll(src, (dy, dx), dims=(0, 1))
+            conv = conv + (s if band is None else s[1:1 + h])
     return conv / 9.0
 
 
@@ -326,37 +349,67 @@ def ssao_temporal(ao: Tensor, conv_depth: Tensor, state: Optional[SSAOState],
                   settings: SSAOSettings = SSAOSettings(), *,
                   use_pallas: bool = False,
                   disocclusion: Optional[Tensor] = None,
-                  band=None) -> Tuple[Tensor, SSAOState]:
+                  band: Optional[BandCtx] = None
+                  ) -> Tuple[Tensor, SSAOState]:
     """Variance-guided temporal accumulation with convolved-depth-validated
     resampled history (JAX ssao.py:365).  On the kernel route the history
     (AO and convolved depth, 2 channels) is reprojected by the bounded warp
-    with halo (8, 64)."""
-    _no_bands(band=band)
+    with halo (8, 64).  With `band`, the history warp reads halo-extended
+    rows (vertical motion clamped to halo - 1 px) and the moment window a
+    wrap halo: one implementation for the frame and its bands."""
     if state is None or motion is None:
         return ao, SSAOState(history=ao, depth_history=conv_depth)
     h, w = ao.shape
     y, x = pixel_grid(h, w, ao.device)
-    prev_uv = torch.stack([(x + 0.5) / w, (y + 0.5) / h], dim=-1) - motion
-    hist_src = torch.stack([state.history,
-                            (state.depth_history
-                             if state.depth_history is not None
-                             else torch.zeros_like(state.history))], dim=-1)
-    if use_pallas:
+    xg = (x + 0.5) / w
+    depth_hist = state.depth_history
+    if band is None:
+        prev_uv = torch.stack([xg, (y + 0.5) / h], dim=-1) - motion
+        hist_src = torch.stack([state.history,
+                                (depth_hist if depth_hist is not None
+                                 else torch.zeros_like(state.history))],
+                               dim=-1)
+        samp_uv = prev_uv
         off_px = -motion * torch.tensor([w, h], dtype=torch.float32,
                                         device=ao.device)
-        warped = warp.warp_bilinear(hist_src.contiguous(), off_px.contiguous(),
-                               halo_r=8, halo_c=64)
     else:
-        warped = bilinear_sample(hist_src, prev_uv)
+        halo, fh, y0 = band.halo, band.full_h, float(band.y0)
+        ygp = y + y0 + 0.5
+        my = torch.clamp(motion[..., 1] * fh, -(halo - 1.0), halo - 1.0)
+        prev_uv = torch.stack([xg - motion[..., 0], (ygp - my) / fh], dim=-1)
+        # each channel extended alone: the same rows as one extend of the
+        # stack
+        hist = band.extend(state.history, halo, wrap=False)
+        hist_src = torch.stack([hist, (band.extend(depth_hist, halo,
+                                                   wrap=False)
+                                       if depth_hist is not None
+                                       else torch.zeros_like(hist))], dim=-1)
+        samp_uv = torch.stack([prev_uv[..., 0],
+                               (ygp - my - y0 + halo) / (h + 2.0 * halo)],
+                              dim=-1)
+        off_px = torch.stack([-motion[..., 0] * w, -my], dim=-1)
+    if use_pallas:
+        if band is not None:
+            off_px = torch.nn.functional.pad(off_px, (0, 0, 0, 0, band.halo,
+                                                      band.halo))
+        warped = warp.warp_bilinear(hist_src.contiguous(), off_px.contiguous(),
+                                    halo_r=8, halo_c=64)
+        if band is not None:
+            warped = warped[band.halo:band.halo + h]
+    else:
+        warped = bilinear_sample(hist_src, samp_uv)
     hist = warped[..., 0]
     hist_cd = warped[..., 1] if state.depth_history is not None else None
 
     # clamp the reprojected history to the current 3x3 AO distribution
+    src = _window_source(ao, band)
     acc = torch.zeros_like(ao)
     acc2 = torch.zeros_like(ao)
     for dy in (-1, 0, 1):
         for dx in (-1, 0, 1):
-            s = torch.roll(ao, (dy, dx), dims=(0, 1))
+            s = torch.roll(src, (dy, dx), dims=(0, 1))
+            if band is not None:
+                s = s[1:1 + h]
             acc = acc + s
             acc2 = acc2 + s * s
     mean = acc / 9.0

@@ -3,8 +3,9 @@ variance-clipped history accumulation in YCoCg with Gaussian neighbourhood
 moments, history reprojected through the bounded warp kernel (PALLAS_WARP)
 or Catmull-Rom / bilinear taps, and a sample-count blend ramp.
 
-State = the accumulated color + per-pixel sample count.  The row-band
-variant is not ported.
+State = the accumulated color + per-pixel sample count.  With a
+context.BandCtx the same accumulation runs on one row band of a frame
+(parallel/tiling.py).
 """
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from diligentfx_tpu_torch.ops.sampling import bilinear_sample
-from diligentfx_tpu_torch.postfx.context import PostFXResources
+from diligentfx_tpu_torch.postfx.context import BandCtx, PostFXResources
 
 Tensor = torch.Tensor
 
@@ -55,13 +56,20 @@ def ycocg_to_rgb(c: Tensor) -> Tensor:
 _GAUSS = ((1.0, 2.0, 1.0), (2.0, 4.0, 2.0), (1.0, 2.0, 1.0))
 
 
-def _neighborhood_moments(color: Tensor, gaussian: bool = True):
-    """3x3 mean / standard deviation via wrap-around shifts."""
+def _neighborhood_moments(color: Tensor, gaussian: bool = True,
+                          src: Optional[Tensor] = None):
+    """3x3 mean / standard deviation via wrap-around shifts.  `src`: color
+    on one wrap-exchanged halo row a side (a band, JAX taa.py:59), whose
+    rolled rows [1, 1 + h) equal the whole frame's windows."""
+    h = color.shape[0]
     m1 = torch.zeros_like(color)
     m2 = torch.zeros_like(color)
     for dy in (-1, 0, 1):
         for dx in (-1, 0, 1):
-            c = torch.roll(color, (-dy, -dx), dims=(0, 1))
+            if src is None:
+                c = torch.roll(color, (-dy, -dx), dims=(0, 1))
+            else:
+                c = torch.roll(src, (-dy, -dx), dims=(0, 1))[1:1 + h]
             ww = (_GAUSS[dy + 1][dx + 1] / 16.0) if gaussian else 1.0 / 9.0
             m1 = m1 + c * ww
             m2 = m2 + c * c * ww
@@ -110,35 +118,65 @@ def taa_accumulate(color: Tensor, state: Optional[TAAState],
                    feature_flags: int = (TAAFeatureFlags.BICUBIC_FILTER
                                          | TAAFeatureFlags.YCOCG_COLOR_SPACE
                                          | TAAFeatureFlags.GAUSSIAN_WEIGHTING),
-                   disocclusion: Optional[Tensor] = None
+                   disocclusion: Optional[Tensor] = None,
+                   band: Optional[BandCtx] = None
                    ) -> Tuple[Tensor, TAAState]:
     """One temporal accumulation step (JAX taa.py:128).  Returns
-    (antialiased, new_state)."""
+    (antialiased, new_state).
+
+    band: run on a row band.  The history warp reads halo-extended rows
+    with the vertical motion clamped to halo - 3 px (room for the
+    Catmull-Rom's +-2 footprint); the moment window reads a wrap halo.
+    The same accumulation runs either way."""
     h, w = color.shape[:2]
     dev = color.device
     if state is None:
         return color, TAAState(color=color,
                                sample_count=torch.ones((h, w), device=dev))
-    ys = (torch.arange(h, dtype=torch.float32, device=dev) + 0.5) / h
+    ys = torch.arange(h, dtype=torch.float32, device=dev)
     xs = (torch.arange(w, dtype=torch.float32, device=dev) + 0.5) / w
-    grid = torch.stack([xs[None, :].expand(h, w), ys[:, None].expand(h, w)],
-                       dim=-1)
-    prev_uv = grid - resources.closest_motion
-    hist_src = torch.cat([state.color, state.sample_count[..., None]], dim=-1)
+    x = xs[None, :].expand(h, w)
+    m = resources.closest_motion
+    if band is None:
+        y = ((ys + 0.5) / h)[:, None].expand(h, w)
+        prev_uv = torch.stack([x, y], dim=-1) - m
+        hist_src = torch.cat([state.color, state.sample_count[..., None]],
+                             dim=-1)
+        samp_uv = prev_uv
+        off_px = -m * torch.tensor([w, h], dtype=torch.float32, device=dev)
+    else:
+        halo, fh, y0 = band.halo, band.full_h, float(band.y0)
+        yg = (ys + y0 + 0.5)[:, None].expand(h, w)
+        my = torch.clamp(m[..., 1] * fh, -(halo - 3.0), halo - 3.0)
+        prev_uv = torch.stack([x - m[..., 0], (yg - my) / fh], dim=-1)
+        # each part extended alone: the same rows as one extend of both
+        hist_src = torch.cat([
+            band.extend(state.color, halo, wrap=False),
+            band.extend(state.sample_count, halo, wrap=False)[..., None]],
+            dim=-1)
+        # band-local uv into the extended rows; the integer row shift
+        # (y0 - halo) keeps every filter's fractional weights
+        samp_uv = torch.stack([prev_uv[..., 0],
+                               (yg - my - y0 + halo) / (h + 2.0 * halo)],
+                              dim=-1)
+        off_px = torch.stack([-m[..., 0] * w, -my], dim=-1)
 
     if feature_flags & TAAFeatureFlags.PALLAS_WARP:
         from diligentfx_tpu_torch.ops.warp import warp_bilinear
-        off_px = (-resources.closest_motion
-                  * torch.tensor([w, h], dtype=torch.float32, device=dev))
+        if band is not None:
+            off_px = torch.nn.functional.pad(off_px, (0, 0, 0, 0, band.halo,
+                                                      band.halo))
         warped = warp_bilinear(hist_src.contiguous(), off_px.contiguous(),
                                halo_r=8, halo_c=64)
+        if band is not None:
+            warped = warped[band.halo:band.halo + h]
         hist, hist_count = warped[..., :3], warped[..., 3]
     elif feature_flags & TAAFeatureFlags.BICUBIC_FILTER:
-        hist = _sample_history_catmull_rom(hist_src[..., :3], prev_uv)
-        hist_count = bilinear_sample(hist_src[..., 3:4], prev_uv)[..., 0]
+        hist = _sample_history_catmull_rom(hist_src[..., :3], samp_uv)
+        hist_count = bilinear_sample(hist_src[..., 3:4], samp_uv)[..., 0]
     else:
-        hist = bilinear_sample(hist_src[..., :3], prev_uv)
-        hist_count = bilinear_sample(hist_src[..., 3:4], prev_uv)[..., 0]
+        hist = bilinear_sample(hist_src[..., :3], samp_uv)
+        hist_count = bilinear_sample(hist_src[..., 3:4], samp_uv)[..., 0]
 
     in_bounds = ((prev_uv[..., 0] >= 0.0) & (prev_uv[..., 0] <= 1.0)
                  & (prev_uv[..., 1] >= 0.0) & (prev_uv[..., 1] <= 1.0))
@@ -146,12 +184,16 @@ def taa_accumulate(color: Tensor, state: Optional[TAAState],
         in_bounds = in_bounds & ~disocclusion
 
     use_ycocg = bool(feature_flags & TAAFeatureFlags.YCOCG_COLOR_SPACE)
-    cur_cs = rgb_to_ycocg(color) if use_ycocg else color
-    hist_cs = (rgb_to_ycocg(torch.clamp(hist, min=0.0)) if use_ycocg
-               else hist)
+    to_cs = rgb_to_ycocg if use_ycocg else (lambda c: c)
+    cur_cs = to_cs(color)
+    hist_cs = to_cs(torch.clamp(hist, min=0.0)) if use_ycocg else hist
+    # the colour is extended, then converted: per pixel, the same values as
+    # the converted colour extended
     mean, std = _neighborhood_moments(
         cur_cs, gaussian=bool(feature_flags
-                              & TAAFeatureFlags.GAUSSIAN_WEIGHTING))
+                              & TAAFeatureFlags.GAUSSIAN_WEIGHTING),
+        src=None if band is None else to_cs(band.extend(color, 1,
+                                                        wrap=True)))
     if not settings.skip_rejection:
         gamma = settings.variance_gamma
         hist_cs = torch.minimum(torch.maximum(hist_cs, mean - gamma * std),

@@ -322,14 +322,13 @@ def test_gtao_fused_raises_where_the_halo_collapses(shape):
 
 
 def test_fused_needs_the_kernel_route_and_bands_raise():
+    """fused=True selects K5, an option of the kernel route; the row-band
+    arguments are ported (tests/test_torch_postfx_bands.py), and the fused
+    kernel takes the whole frame only."""
     depth, normal, cam = _scene(H, W)
     args = (torch.from_numpy(depth), torch.from_numpy(normal),
             cv.camera_from_jax(cam), 0)
     with pytest.raises(ValueError, match="use_pallas"):
         tssao.compute_gtao(*args, fused=True)
-    with pytest.raises(NotImplementedError):
-        tssao.compute_gtao(*args, row0=8)
-    with pytest.raises(NotImplementedError):
-        tssao.compute_gtao(*args, max_tap_px=(8.0, 8.0))
-    with pytest.raises(NotImplementedError):
-        tssao.convolved_depth(args[0], band=object())
+    with pytest.raises(ValueError, match="row0 or max_tap_px"):
+        tssao.compute_gtao(*args, use_pallas=True, fused=True, row0=8)
