@@ -15,8 +15,10 @@ bounds, the debug views), a Hydra stage through the Hydrogent front end
 (the pxr adapter, the render delegate, AsyncFramePipeline) and an atrium
 through the Radient front end (engine, ECS scene, async assets, resolver,
 drawable cache, C API), the 4K cfg5 frame through execute_split with the
-G-buffer in row bands, and the row-banded frame of parallel/tiling.py,
-and checks them.
+G-buffer in row bands, the row-banded frame of parallel/tiling.py, and
+the inverse-rendering step of diligentfx_tpu_torch/entry.py (a gradient
+step on the bench scene's base colours over a dp x sp mesh), and checks
+them.
 
 Phases (any failure exits non-zero; no phase is skipped):
   1. build csrc/*.cu with nvcc (one process per source, all at once);
@@ -239,7 +241,18 @@ Phases (any failure exits non-zero; no phase is skipped):
      execute frames;
  33. the 256x128 cfg5 frame through execute_split with 4 bands and the
      256x128 banded frame with 2 bands on the GPU against the port's CPU
-     path.
+     path;
+ 34. the inverse-rendering step (entry.py train_step) on the bench scene
+     at 1920x1088, four orbit views over a dp 2 x sp 4 mesh of the one
+     card: the raster statistics of every view and band (no drop); K4 at
+     each band of one view against its plain version; the targets at the
+     scene's colours, the parameters from seeded noise; a warm-up step,
+     then --frames timed steps with the counts zeroed just before and read
+     just after (K4 16, K1 0 a step), forward and backward timed apart
+     (backward K4 0), the peak memory of a step; the loss falling; loss
+     and gradients against a 1 x 1 mesh (1e-5); the dry run's 64x64 step
+     on the card against the CPU path (1e-5 relative, 1e-4 of the largest
+     gradient) and entry()'s frame above 50 dB against the CPU path.
 
 Prints the median frame times, one JSON line with each kernel's launches,
 times and bound, the card's name and power limit, and last
@@ -258,14 +271,15 @@ Usage: python3 chip_smoke.py [--frames N] [--out-png PATH] [--profile PATH]
        python3 chip_smoke.py --only radient [--profile PATH] [--root DIR]
        python3 chip_smoke.py --only split4k [--frames N] [--out-png PATH]
        python3 chip_smoke.py --only banded [--frames N]
+       python3 chip_smoke.py --only inverse [--frames N]
 (the second runs phases 1, 3 and 13 alone, K6 on random taps; the third
 phases 1, 2, 8 without the csm frame, and 11 without the full-chain frame;
 the fourth phases 1 and 9; the fifth phase 1, one bench frame for its
 G-buffer, and phases 5 and 6; the sixth phases 1, 15 and 16; the seventh
 phases 1, 18 and 19; the eighth phases 1, 21 and 22; the ninth phases 1,
 24 and 25; the tenth phases 1, 26 and 27; the eleventh phases 1, 28
-and 29; the twelfth phases 1, 30 and 31; the last phases 1, 32 and 33;
-each on the port of
+and 29; the twelfth phases 1, 30 and 31; the thirteenth phases 1, 32 and
+33; the last phases 1 and 34; each on the port of
 the checkout DIR: run it in two checkouts in turn, A B B A, to compare
 them in one call)
 """
@@ -5996,23 +6010,24 @@ def _card_mesh(n):
                             sp=n)
 
 
-def forward_band_inputs(scene, info, cfg, y0, band_h):
-    """K4's inputs in render_forward_banded's band at row y0: the frame's
-    setup at the band's viewport offset, binned over the band; (setup,
-    compact, counts, rects, kernel keywords)."""
+def forward_band_inputs(scene, info, cfg, y0, band_h, width=BANDED_W,
+                        height=BANDED_H):
+    """K4's inputs in render_forward_banded's band at row y0 of a width x
+    height frame: the frame's setup at the band's viewport offset, binned
+    over the band; (setup, compact, counts, rects, kernel keywords)."""
     from diligentfx_tpu_torch import math3d as m3
     from diligentfx_tpu_torch.ops import raster as rz
     from diligentfx_tpu_torch.pbr.renderer import transform_vertices
     world_pos, _, _ = transform_vertices(scene, info.model_transform)
     clip = m3.transform_points(world_pos, info.camera.view_proj)
-    window = dict(screen_size=(BANDED_W, BANDED_H), screen_offset=(0, y0))
+    window = dict(screen_size=(width, height), screen_offset=(0, y0))
     setup, valid, bbox, _, _ = rz._triangle_setup(
-        clip, scene.indices, BANDED_W, band_h, scene.tri_double_sided, True,
+        clip, scene.indices, width, band_h, scene.tri_double_sided, True,
         1e-3, **window)
-    cand, counts, _, _, _ = rz._bin_triangles(valid, bbox, BANDED_W, band_h,
+    cand, counts, _, _, _ = rz._bin_triangles(valid, bbox, width, band_h,
                                               cfg)
-    rects = rz.candidate_rects(setup, BANDED_W, band_h, (0, y0))
-    kw = dict(th=cfg.tile_h, tw=cfg.tile_w, tiles_x=BANDED_W // cfg.tile_w,
+    rects = rz.candidate_rects(setup, width, band_h, (0, y0))
+    kw = dict(th=cfg.tile_h, tw=cfg.tile_w, tiles_x=width // cfg.tile_w,
               chunk=cfg.chunk, screen_offset=(0, y0))
     return (setup, cand, counts, rects), kw
 
@@ -6346,6 +6361,303 @@ def banded_only(frames):
                 phase_seconds=[t1 - t0, time.perf_counter() - t1])
 
 
+INV_W, INV_H, INV_VIEWS = 1920, 1088, 4        # four bands of 272 rows
+INV_DP, INV_SP = 2, 4                          # __graft_entry__.py:117-119
+INV_ORBIT = (7.5, 1.0, 0.5)    # radius, eye height (the bench camera's) and
+#                                the largest angle, rad, of the views
+INV_NOISE = 0.2                # the start colours' seeded noise, +-
+INV_SEED = 15
+# a step on dp 2 x sp 4: K4 once a band of each view; the backward and
+# the update launch no kernel
+INV_LAUNCHES = {**{k: 0 for k in FRAME_LAUNCHES},
+                "raster_tiles": INV_VIEWS * INV_SP}
+INV_MESH_BOUND = 1e-5          # 2 x 4 against 1 x 1: loss relative, and of
+#                                the largest |gradient|
+INV_CPU_BOUND = (1e-5, 1e-4)   # the 64x64 dry run, card against the CPU
+
+
+def inverse_raster_config():
+    """bench_raster_config with 16-row tiles (1088 rows: four bands of 17
+    tile rows) and one sub-bin (K4 bins unsegmented); lists of 512: the
+    longest of the four views' lists, whole or in a band, is 336 (printed
+    by phase 34)."""
+    from diligentfx_tpu_torch.config import RasterizerConfig
+    return RasterizerConfig(tile_h=16, tile_w=128, bin_capacity=512,
+                            max_tiles_per_tri=8, big_tri_capacity=64, chunk=8,
+                            pair_compaction_cap=1 << 17)
+
+
+def inverse_problem(device):
+    """The step's scene (the bench scene, its lights), the viewport and the
+    four views on the orbit around the spheres: (problem, cameras)."""
+    from diligentfx_tpu_torch import entry
+    from diligentfx_tpu_torch.pbr.renderer import default_env_oct
+    radius, eye_y, angle = INV_ORBIT
+    problem = entry.InverseProblem(
+        scene=bench_scene(5, 9, 32, device),
+        info=render_info(INV_W, INV_H, device), env_oct=default_env_oct(device),
+        cfg=inverse_raster_config(), width=INV_W, height=INV_H)
+    cams = entry.make_cams(
+        np.linspace(-angle, angle, INV_VIEWS, dtype=np.float32), width=INV_W,
+        height=INV_H, radius=radius, eye_y=eye_y, far=100.0, device=device)
+    return problem, cams
+
+
+def inverse_raster_stats(problem, cams):
+    """Each view's setup and binning over the whole frame and over each
+    band window: the longest tile list, the dropped pairs and big
+    triangles."""
+    from diligentfx_tpu_torch import math3d as m3
+    from diligentfx_tpu_torch.ops import raster as rz
+    from diligentfx_tpu_torch.parallel.tiling import band_layout
+    from diligentfx_tpu_torch.pbr.renderer import transform_vertices
+    scene, cfg = problem.scene, problem.cfg
+    world_pos, _, _ = transform_vertices(scene)
+    out = []
+    for i, cam in enumerate(cams):
+        clip = m3.transform_points(world_pos, cam.view_proj)
+        for y0, rows in [(0, INV_H)] + band_layout(INV_H, INV_SP, cfg):
+            setup, valid, bbox, _, clip_ovf = rz._triangle_setup(
+                clip, scene.indices, INV_W, rows, scene.tri_double_sided,
+                True, 1e-3, screen_size=(INV_W, INV_H), screen_offset=(0, y0))
+            _, _, most, ovf, big_ovf = rz._bin_triangles(valid, bbox, INV_W,
+                                                         rows, cfg)
+            out.append(dict(view=i, y0=y0, rows=rows, longest=int(most),
+                            bin_overflow=int(ovf) + int(clip_ovf),
+                            big_overflow=int(big_ovf)))
+    return out
+
+
+def _timed_ms(fn):
+    """(result, host ms ending in a synchronize, CUDA events ms) of fn()."""
+    import torch
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ev0.record()
+    out = fn()
+    ev1.record()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3, ev0.elapsed_time(ev1)
+
+
+def inverse_profile(fn, label, top=6):
+    """torch.profiler over one call of fn: its wall ms (ending in a
+    synchronize), the device's busy ms (the kernel rows' self device
+    time), the launches and the `top` kernels by device time.  Taken
+    apart for the forward and the backward: autograd runs the backward's
+    CUDA work on a thread of its own, outside the caller's ranges."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = sorted(((_device_us(e, "self_device_time_total") / 1e3, e.count,
+                    e.key) for e in prof.key_averages()
+                   if str(e.device_type).endswith("CUDA")
+                   and _device_us(e, "self_device_time_total") > 0),
+                  reverse=True)
+    busy = sum(r[0] for r in rows)
+    launches = sum(r[1] for r in rows)
+    print(f"profile inverse {label}: {wall:.3f} ms under the profiler, device"
+          f" busy {busy:.3f} ms ({100 * busy / wall:.1f}%), {launches} kernel"
+          f" launches", flush=True)
+    for ms, n, key in rows[:top]:
+        print(f"profile inverse {label} kernel {ms:.4f} ms x{n} {key[:90]}",
+              flush=True)
+    return out, dict(wall_ms=wall, device_busy_ms=busy, launches=launches,
+                     top=[dict(ms=ms, launches=n, name=key[:90])
+                          for ms, n, key in rows[:top]])
+
+
+def phase_inverse(steps):
+    """Phase 34: the inverse-rendering step of entry.py (the port of
+    __graft_entry__.py's dry run) at full width: the bench scene at 1920 x
+    1088, four views over dp 2 x sp 4 of the one card."""
+    import torch
+    from diligentfx_tpu_torch import entry
+    from diligentfx_tpu_torch.parallel.mesh import make_render_mesh
+    from diligentfx_tpu_torch.utils.image import psnr
+    t_phase = time.perf_counter()
+    card = torch.device(DEVICE, 0)
+    problem, cams = inverse_problem(DEVICE)
+    scene = problem.scene
+    print(f"inverse step: the bench scene, {scene.num_triangles} triangles, "
+          f"{scene.materials.base_color_factor.shape[0]} materials, "
+          f"{INV_VIEWS} views at {INV_W}x{INV_H} over dp {INV_DP} x sp "
+          f"{INV_SP} of one card", flush=True)
+    stats = inverse_raster_stats(problem, cams)
+    longest = max(s["longest"] for s in stats)
+    print(f"inverse step raster: longest list {longest} of "
+          f"{problem.cfg.bin_capacity}; whole frames "
+          f"{[s['longest'] for s in stats if s['rows'] == INV_H]}, bands "
+          f"{[s['longest'] for s in stats if s['rows'] != INV_H]}", flush=True)
+    check(all(s["bin_overflow"] == 0 and s["big_overflow"] == 0
+              for s in stats), f"the inverse step's raster drops: {stats}")
+    # K4 at each band of view 0 against its plain version
+    info0 = problem.info._replace(camera=cams[0])
+    k4_bands = []
+    band_h = INV_H // INV_SP
+    for b in range(INV_SP):
+        args, kw = forward_band_inputs(scene, info0, problem.cfg, b * band_h,
+                                       band_h, INV_W, INV_H)
+        k4_bands.append(dict(k4_against_plain(
+            args, kw, f"at inverse band {b} (screen_offset (0, "
+                      f"{b * band_h}))", may_be_empty=True),
+            screen_offset=[0, b * band_h]))
+    # the targets: the views at the scene's own colours
+    base = scene.materials.base_color_factor
+    with torch.no_grad():
+        targets = torch.stack([entry.render_one(base, c, problem)
+                               for c in cams])
+    rng = np.random.default_rng(INV_SEED)
+    noise = rng.uniform(-INV_NOISE, INV_NOISE, (base.shape[0], 3))
+    params = base.clone()
+    params[:, :3] = torch.clamp(params[:, :3] + torch.as_tensor(
+        noise, dtype=torch.float32, device=DEVICE), 0.0, 1.0)
+    mesh = make_render_mesh(dp=INV_DP, sp=INV_SP,
+                            devices=[card] * (INV_DP * INV_SP))
+    one = make_render_mesh(dp=1, sp=1, devices=[card])
+    # 2 x 4 against 1 x 1 at the start, with each one's launches
+    zero_launches()
+    loss_m, grads_m = entry.loss_and_grad(params, cams, targets, mesh,
+                                          problem)
+    torch.cuda.synchronize()
+    launches_m = read_launches()
+    zero_launches()
+    loss_1, grads_1 = entry.loss_and_grad(params, cams, targets, one, problem)
+    torch.cuda.synchronize()
+    launches_1 = read_launches()
+    g_scale = float(grads_1.abs().max())
+    loss_rel = abs(float(loss_m) - float(loss_1)) / float(loss_1)
+    grad_rel = float((grads_m - grads_1).abs().max()) / g_scale
+    print(f"inverse step, dp {INV_DP} x sp {INV_SP} against 1 x 1: loss "
+          f"{float(loss_m):.9g} / {float(loss_1):.9g} (relative "
+          f"{loss_rel:.3g}), gradients max diff {grad_rel:.3g} of the largest"
+          f" |g| {g_scale:.6g}; K4 launches {launches_m['raster_tiles']} / "
+          f"{launches_1['raster_tiles']}", flush=True)
+    check(bool(torch.isfinite(loss_m)) and bool(torch.isfinite(grads_m).all())
+          and bool(torch.isfinite(grads_1).all()),
+          "the inverse step's loss or gradients are not finite")
+    check(g_scale > 0.0, "the inverse step's gradients are all zero")
+    check(loss_rel <= INV_MESH_BOUND and grad_rel <= INV_MESH_BOUND,
+          f"the inverse step on dp {INV_DP} x sp {INV_SP} differs from 1 x "
+          f"1: {loss_rel} {grad_rel}")
+    check(launches_m == INV_LAUNCHES and launches_1 == {
+        **INV_LAUNCHES, "raster_tiles": INV_VIEWS},
+          f"inverse step launches {launches_m}, 1 x 1 {launches_1}")
+    del grads_m, grads_1
+    # one warm-up step, its peak memory; then the timed steps
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    p, first = entry.train_step(params, cams, targets, mesh, problem)
+    torch.cuda.synchronize()
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    losses = [float(first)]
+    host, dev = [], []
+    zero_launches()
+    for _ in range(steps):
+        (p, loss), h_ms, d_ms = _timed_ms(
+            lambda: entry.train_step(p, cams, targets, mesh, problem))
+        host.append(h_ms)
+        dev.append(d_ms)
+        losses.append(float(loss))
+    launches = read_launches()
+    check(all(launches[k] == n * steps for k, n in INV_LAUNCHES.items()),
+          f"inverse steps: launches {launches} in {steps} steps, expected "
+          f"{INV_LAUNCHES} a step")
+    with torch.no_grad():
+        last = float(entry.loss_fn(p, cams, targets, mesh, problem))
+    losses.append(last)
+    print(f"inverse step losses (warm-up, {steps} steps, after): "
+          f"{[round(x, 9) for x in losses]}", flush=True)
+    check(all(np.isfinite(losses)) and bool(torch.isfinite(p).all()),
+          "the inverse steps went non-finite")
+    check(last < losses[0], f"the loss did not fall: {losses}")
+    # forward and backward apart, as train_step runs them
+    fwd, bwd = [], []
+    for _ in range(3):
+        leaf = p.detach().requires_grad_(True)
+        loss, f_host, f_dev = _timed_ms(
+            lambda: entry.loss_fn(leaf, cams, targets, mesh, problem))
+        zero_launches()
+        _, b_host, b_dev = _timed_ms(lambda: torch.autograd.grad(loss, leaf))
+        bwd_launches = read_launches()
+        check(sum(bwd_launches.values()) == 0,
+              f"the backward launched {bwd_launches}")
+        fwd.append((f_host, f_dev))
+        bwd.append((b_host, b_dev))
+        del loss, leaf
+    # where a step's time goes: the forward and the backward profiled
+    leaf = p.detach().requires_grad_(True)
+    loss, fwd_prof = inverse_profile(
+        lambda: entry.loss_fn(leaf, cams, targets, mesh, problem), "forward")
+    _, bwd_prof = inverse_profile(lambda: torch.autograd.grad(loss, leaf),
+                                  "backward")
+    del loss, leaf
+    # the dry run's 64x64 step, on the card and on the CPU path
+    t_dry = time.perf_counter()
+    r_gpu = entry.dryrun(make_render_mesh(dp=2, sp=4, devices=[card] * 8))
+    r_cpu = entry.dryrun(make_render_mesh(dp=2, sp=4, devices=["cpu"] * 8))
+    d_scale = float(r_cpu.grads.abs().max())
+    d_loss = abs(float(r_gpu.loss) - float(r_cpu.loss)) / float(r_cpu.loss)
+    d_grad = float((r_gpu.grads.cpu() - r_cpu.grads).abs().max()) / d_scale
+    print(f"dry run 64x64 step, card against the CPU path: loss "
+          f"{float(r_gpu.loss):.9g} / {float(r_cpu.loss):.9g} (relative "
+          f"{d_loss:.3g}), gradients max diff {d_grad:.3g} of {d_scale:.6g}",
+          flush=True)
+    check(d_loss <= INV_CPU_BOUND[0] and d_grad <= INV_CPU_BOUND[1],
+          f"the dry run's step on the card differs from the CPU path: "
+          f"{d_loss} {d_grad}")
+    # entry()'s frame, on the card (the fused route) and on the CPU path
+    fn, args = entry.entry()
+    frame = fn(*args).cpu().numpy()
+    fn_cpu, args_cpu = entry.entry(device="cpu")
+    ref = fn_cpu(*args_cpu).numpy()
+    entry_db = psnr(ref, frame)
+    print(f"entry() frame {frame.shape}, card against the CPU path: PSNR "
+          f"{entry_db:.2f} dB, max abs diff {np.abs(ref - frame).max():.3g}",
+          flush=True)
+    check(np.isfinite(frame).all() and entry_db > 50.0,
+          f"entry()'s frame disagrees with the CPU path: {entry_db:.2f} dB")
+    dry_s = time.perf_counter() - t_dry
+    med = {name: float(np.median([x[i] for x in rows]))
+           for name, rows, i in (("fwd_host", fwd, 0), ("fwd_dev", fwd, 1),
+                                 ("bwd_host", bwd, 0), ("bwd_dev", bwd, 1))}
+    step_ms, step_dev = float(np.median(host)), float(np.median(dev))
+    print(f"inverse_step_ms_median {step_ms:.3f} (CUDA events {step_dev:.3f})"
+          f" over {steps} steps; forward {med['fwd_host']:.3f} "
+          f"({med['fwd_dev']:.3f}), backward {med['bwd_host']:.3f} "
+          f"({med['bwd_dev']:.3f}); peak {peak_mb:.1f} MB a step; K4 "
+          f"{launches['raster_tiles'] / steps:g}, K1 "
+          f"{launches['raster_tiles_fused'] / steps:g} a step; phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return dict(k4_bands=k4_bands, raster_longest=longest,
+                launches=launches, steps=steps, step_ms_median=step_ms,
+                step_events_ms_median=step_dev,
+                step_ms=host, step_events_ms=dev,
+                forward_ms_median=med["fwd_host"],
+                forward_events_ms_median=med["fwd_dev"],
+                backward_ms_median=med["bwd_host"],
+                backward_events_ms_median=med["bwd_dev"],
+                peak_mb=peak_mb, losses=losses,
+                profile=dict(forward=fwd_prof, backward=bwd_prof),
+                mesh_loss_rel=loss_rel, mesh_grad_rel=grad_rel,
+                dryrun_loss_rel=d_loss, dryrun_grad_rel=d_grad,
+                entry_psnr=entry_db, dryrun_entry_seconds=dry_s,
+                seconds=time.perf_counter() - t_phase)
+
+
+def inverse_only(steps):
+    """Phase 34 alone: the inverse-rendering step."""
+    return dict(inverse=phase_inverse(steps))
+
+
 # goals of the tile rasters' redesign, device ms (torch.profiler kernel
 # rows): K4 over the four cascades, K1 at each of its three inputs
 RASTER_GOALS_MS = {"raster_tiles": 0.45, "bench": 0.15, "csm": 0.20,
@@ -6463,7 +6775,8 @@ def main() -> int:
     ap.add_argument("--only", choices=("warp", "raster", "csm",
                                         "march_gtao", "oit", "lights",
                                         "ext_skin", "editor", "hydra",
-                                        "radient", "split4k", "banded"),
+                                        "radient", "split4k", "banded",
+                                        "inverse"),
                     help="warp: run only phases 1, 3 and 13 (K6 on random "
                          "taps within the halo); raster: only phases 1, 2, "
                          "8 (without the csm frame) and 11; csm: only "
@@ -6477,7 +6790,8 @@ def main() -> int:
                          "25 (likewise); hydra: only phases 1, 26 and 27 "
                          "(likewise); radient: only phases 1, 28 and 29 "
                          "(likewise); split4k: only phases 1, 30 and 31; "
-                         "banded: only phases 1, 32 and 33; and print "
+                         "banded: only phases 1, 32 and 33; inverse: only "
+                         "phases 1 and 34 (--frames steps); and print "
                          "their JSON line")
     ap.add_argument("--async-child", metavar="BUILD_DIR", default="",
                     help="phase 26's AsyncFramePipeline run alone, its "
@@ -6568,6 +6882,11 @@ def main() -> int:
         return 0
     if args.only == "banded":
         print(json.dumps({"root": args.root, **banded_only(args.frames)},
+                         default=str))
+        print(card, flush=True)
+        return 0
+    if args.only == "inverse":
+        print(json.dumps({"root": args.root, **inverse_only(args.frames)},
                          default=str))
         print(card, flush=True)
         return 0
@@ -6692,6 +7011,7 @@ def main() -> int:
     split_banded_psnr = phase_split_banded_reference()
     split_s = [t_banded - t_split, t_ref - t_banded,
                time.perf_counter() - t_ref]
+    inverse = phase_inverse(args.frames)
     k1["banded_inputs"] = {key: banded["k1"][key] for key in (
         "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
         "candidate_pixel_tests", "raster_stats")}
@@ -6701,6 +7021,7 @@ def main() -> int:
                               for b in banded["k1"]["band_inputs"]))
     k4["forward_banded_inputs"] = banded["k4_bands"]
     k4["forward_banded_launches"] = banded["forward_launches"]["raster_tiles"]
+    k4["inverse_band_inputs"] = inverse["k4_bands"]
     k3["gathered_inputs"] = banded["k3"]
     for k in (k1, k2, k3):
         k["launches"] = launches[k["name"]]
@@ -6723,6 +7044,8 @@ def main() -> int:
         k["split4k_frames"] = args.frames
         k["banded_frame_launches"] = banded["launches"][k["name"]]
         k["banded_frames"] = args.frames
+        k["inverse_step_launches"] = inverse["launches"][k["name"]]
+        k["inverse_steps"] = args.frames
     k4["launches"] = csm_launches["raster_tiles"]
     k4["frames"] = args.frames
     k4["launches_per_frame"] = csm_launches["raster_tiles"] / args.frames
@@ -6739,7 +7062,9 @@ def main() -> int:
                   "EDGES frame, one (edges_frame_launches, over "
                   "edges_frames frames); the Radient atrium frame none "
                   "(radient_frame_launches); render_forward_banded, one a "
-                  "band (forward_banded_launches)")
+                  "band (forward_banded_launches); the inverse-rendering "
+                  "step, one a band of each view, 16 a step "
+                  "(inverse_step_launches over inverse_steps steps)")
     k5["frame_launches"] = launches["gtao_fused"]
     k5["launches_per_frame"] = 0.0
     k6["frame_launches"] = launches["warp_bilinear_multi"]
@@ -6836,6 +7161,13 @@ def main() -> int:
           f"path {json.dumps(split_banded_psnr)}; phases 30-31, 32 and 33 "
           f"{split_s[0]:.1f}, {split_s[1]:.1f} and {split_s[2]:.1f} s on "
           f"{card}; total run {time.perf_counter() - t_start:.1f} s")
+    print(f"inverse_step_ms_median {inverse['step_ms_median']:.3f} (CUDA "
+          f"events {inverse['step_events_ms_median']:.3f}) over {args.frames}"
+          f" steps at {INV_W}x{INV_H}, {INV_VIEWS} views on dp {INV_DP} x sp "
+          f"{INV_SP}; forward {inverse['forward_ms_median']:.3f}, backward "
+          f"{inverse['backward_ms_median']:.3f}; peak "
+          f"{inverse['peak_mb']:.1f} MB; phase 34 {inverse['seconds']:.1f} s "
+          f"on {card}; total run {time.perf_counter() - t_start:.1f} s")
     if DEVICE_MS_FROM_EVENTS:
         print(f"device_ms from CUDA events, the profiler showing no device "
               f"time, for kernels named {DEVICE_MS_FROM_EVENTS}")

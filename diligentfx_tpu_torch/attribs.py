@@ -172,6 +172,11 @@ def stack_materials(mats: Sequence[NamedTuple], device=None):
                  for f in cls._fields))
 
 
+def gather_material(batched: NamedTuple, index):
+    """One material's attribs of a stacked tuple (stack_materials)."""
+    return type(batched)(*(x[index] for x in batched))
+
+
 class PBRLightAttribs(NamedTuple):
     """PBRLightAttribs (PBR_Structures.fxh:316-334) with a leading light
     dimension."""

@@ -8,6 +8,7 @@ sides the same scene, IBL maps and frame state.
 from __future__ import annotations
 
 import dataclasses
+from typing import List
 
 import numpy as np
 import torch
@@ -96,6 +97,16 @@ def ibl_maps_from_jax(maps, device=None) -> IBLMaps:
 
 def camera_from_jax(cam, device=None) -> CameraAttribs:
     return _fields(cam, CameraAttribs, device)
+
+
+def cameras_from_jax(batched_cams, device=None) -> List[CameraAttribs]:
+    """The views of a batched CameraAttribs (jax.vmap of a camera maker:
+    every field with a leading view axis), one port camera each."""
+    fields = {f: np.asarray(getattr(batched_cams, f))
+              for f in CameraAttribs._fields}
+    return [CameraAttribs(**{f: tensor(a[i], device)
+                             for f, a in fields.items()})
+            for i in range(fields["view"].shape[0])]
 
 
 def lights_from_jax(lights, device=None) -> PBRLightAttribs:

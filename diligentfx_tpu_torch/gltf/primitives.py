@@ -1,6 +1,6 @@
 """Procedural mesh primitives (the port's own copy of the JAX package's
 gltf/primitives.py: uv_sphere, plane and cube, the meshes of the bench
-scene and of the full-chain frame's atrium).
+scene and of the full-chain frame's atrium, and merge and transform_mesh).
 
 Pure numpy on host — meshes are built once and uploaded as tensors.
 
@@ -133,3 +133,36 @@ def cube(size: float = 1.0) -> MeshData:
         idx += [[base, base + 1, base + 2], [base, base + 2, base + 3]]
     return _with_tangents(np.asarray(pos, np.float64), np.asarray(nrm, np.float64),
                           np.asarray(uv, np.float64), np.asarray(idx, np.int32))
+
+
+def merge(meshes) -> MeshData:
+    """Concatenate meshes into one (indices offset)."""
+    off = 0
+    pos, nrm, uv, idx, tan = [], [], [], [], []
+    for m in meshes:
+        pos.append(m.positions)
+        nrm.append(m.normals)
+        uv.append(m.uvs)
+        tan.append(m.tangents)
+        idx.append(m.indices + off)
+        off += m.positions.shape[0]
+    return MeshData(np.concatenate(pos), np.concatenate(nrm),
+                    np.concatenate(uv), np.concatenate(idx),
+                    np.concatenate(tan))
+
+
+def transform_mesh(mesh: MeshData, matrix: np.ndarray) -> MeshData:
+    """Apply a 4x4 row-vector transform on the host: positions by the
+    matrix, normals by the inverse transpose of its 3x3 block (row vectors:
+    n' = n @ inv(M).T), tangents by the block, both renormalised."""
+    p4 = np.concatenate([mesh.positions,
+                         np.ones_like(mesh.positions[:, :1])], axis=-1)
+    pos = (p4 @ matrix)[:, :3]
+    nrm = mesh.normals @ np.linalg.inv(matrix[:3, :3]).T
+    nrm = nrm / np.maximum(np.linalg.norm(nrm, axis=-1, keepdims=True), 1e-12)
+    tan3 = mesh.tangents[:, :3] @ matrix[:3, :3]
+    tan3 = tan3 / np.maximum(np.linalg.norm(tan3, axis=-1, keepdims=True),
+                             1e-12)
+    tan = np.concatenate([tan3, mesh.tangents[:, 3:]], axis=-1)
+    return MeshData(pos.astype(np.float32), nrm.astype(np.float32), mesh.uvs,
+                    mesh.indices, tan.astype(np.float32))

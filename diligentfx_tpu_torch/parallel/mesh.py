@@ -71,16 +71,21 @@ def make_render_mesh(n_devices: Optional[int] = None, dp: Optional[int] = None,
                       ("dp", "sp"))
 
 
-def band_sharding(mesh: RenderMesh, axis_name: str = "sp"
+def band_sharding(mesh: RenderMesh, axis_name: str = "sp", index: int = 0
                   ) -> List[torch.device]:
     """The devices of the bands along `axis_name`, in band order: the
-    leading (height) dimension of an image is split over them.  Along the
-    other axes the JAX package replicates the same work, so the bands run
-    on the grid's first row."""
+    leading (height) dimension of an image is split over them.  `index`
+    picks the row of the grid along its other axes (row-major over them:
+    on a ('dp', 'sp') mesh, the dp row whose frames these bands render).
+    A frame the JAX package replicates over the other axes runs on the
+    first row."""
     axis = mesh.axis_names.index(axis_name)
-    index = tuple(slice(None) if a == axis else 0
-                  for a in range(mesh.devices.ndim))
-    return list(mesh.devices[index])
+    others = [a for a in range(mesh.devices.ndim) if a != axis]
+    coords = iter(np.unravel_index(
+        index, [mesh.devices.shape[a] for a in others]))
+    return list(mesh.devices[tuple(slice(None) if a == axis
+                                   else int(next(coords))
+                                   for a in range(mesh.devices.ndim))])
 
 
 def replicated(mesh: RenderMesh) -> List[torch.device]:

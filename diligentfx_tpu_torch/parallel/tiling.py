@@ -22,9 +22,10 @@ the whole deferred frame of HnTaskManager.execute.
 from __future__ import annotations
 
 import contextlib
-from typing import List, NamedTuple, Optional, Sequence
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from diligentfx_tpu_torch import math3d as m3
 from diligentfx_tpu_torch.config import RasterizerConfig
@@ -87,7 +88,13 @@ def _shade_band(scene: ScenePrimitives, info: RenderInfo, ibl_maps, env_oct,
 
     mat_id = scene.tri_material[torch.clamp(vb.tri_id, min=0).long()].long()
     mats = scene.materials
-    base_color = mats.base_color_factor[mat_id][..., :3]
+    # fetched in float64 by an embedding lookup: the gradient of the base
+    # colours sums each material's pixels (in no fixed order on the card)
+    # and rounds to float32 once, and the lookup's backward reduces the
+    # sorted ids by segments, where index_put_'s accumulation serialises
+    # the many pixels of one material (62 ms a 1920 x 272 band on an H100)
+    base_color = F.embedding(mat_id, mats.base_color_factor.double()[:, :3]
+                             ).float()
     metallic = mats.metallic_factor[mat_id][..., None]
     roughness = mats.roughness_factor[mat_id][..., None]
 
@@ -123,35 +130,71 @@ def _shade_band(scene: ScenePrimitives, info: RenderInfo, ibl_maps, env_oct,
     return torch.where(hit[..., None], color, bg)
 
 
+def band_layout(height: int, n_bands: int, cfg: RasterizerConfig
+                ) -> List[Tuple[int, int]]:
+    """Each band's (first row, rows) in a frame of `height` rows padded to
+    the tile grid (ops/raster.py pad_viewport, as _render_frame pads):
+    the padded frame's tile rows split into `n_bands` runs of whole tiles,
+    the first runs one tile longer where they do not divide."""
+    tiles = rz.pad_viewport(cfg.tile_w, height, cfg)[1] // cfg.tile_h
+    if tiles < n_bands:
+        raise ValueError(f"{height} rows pad to {tiles} tile rows of "
+                         f"{cfg.tile_h}, fewer than the {n_bands} bands")
+    per, extra = divmod(tiles, n_bands)
+    out, y0 = [], 0
+    for b in range(n_bands):
+        rows = (per + (b < extra)) * cfg.tile_h
+        out.append((y0, rows))
+        y0 += rows
+    return out
+
+
+def forward_bands(replicas, devices: Sequence[torch.device], *, width: int,
+                  height: int, cfg: RasterizerConfig,
+                  use_ibl: bool) -> List[Tensor]:
+    """The forward frame's row bands (band_layout), band b on devices[b]
+    from that device's (scene, info, ibl_maps, env_oct), replicas[device]:
+    the two-pass raster (K4) at the band's window of the frame padded to
+    the tile grid, then _shade_band, which with no emission and no tone
+    map computes what _render_frame's two-pass branch does.  Each band is
+    cropped to the frame: `width` columns, no padding row.  Every step is
+    differentiable in the replicas' material tables."""
+    pad_w, pad_h = rz.pad_viewport(width, height, cfg)
+    bands = []
+    for dev, (y0, rows) in zip(devices,
+                               band_layout(height, len(devices), cfg)):
+        scene, info, ibl_maps, env_oct = replicas[dev]
+        with _on(dev):
+            world_pos, world_nrm, _ = transform_vertices(
+                scene, info.model_transform)
+            clip = m3.transform_points(world_pos, info.camera.view_proj)
+            vb, _stats = rz.rasterize(
+                clip, scene.indices, width=pad_w, height=rows, cfg=cfg,
+                double_sided=scene.tri_double_sided,
+                screen_size=(pad_w, pad_h), screen_offset=(0, y0))
+            color = _shade_band(scene, info, ibl_maps, env_oct, vb, clip,
+                                world_pos, world_nrm, y0, pad_w, rows, pad_h,
+                                use_ibl)
+        bands.append(color[:max(0, min(rows, height - y0)), :width])
+    return bands
+
+
 def render_forward_banded(scene: ScenePrimitives, info: RenderInfo, ibl_maps,
                           env_oct, mesh: RenderMesh, *, width: int,
                           height: int,
                           cfg: RasterizerConfig = RasterizerConfig(),
                           use_ibl: bool = True, axis_name: str = "sp"):
-    """One forward frame with the framebuffer row-banded over `axis_name`
-    (JAX tiling.py:77): each band rasterizes its viewport window through
-    the two-pass raster (K4) and shades it.  Returns (the bands' colours,
-    (band_h, width, 3) each on its device; the assembled (height, width,
-    3) image on the first band's device)."""
+    """One forward frame of any viewport with the framebuffer row-banded
+    over `axis_name` (JAX tiling.py:77): padded to the tile grid, each band
+    rasterizes its viewport window through the two-pass raster (K4) and
+    shades it (forward_bands).  Returns (the bands' colours, each on its
+    device and cropped to the frame; the assembled (height, width, 3)
+    image on the first band's device)."""
     devices = band_sharding(mesh, axis_name)
-    band_h = _check_bands(height, len(devices), cfg)
-    copies = {}
-    bands = []
-    for b, dev in enumerate(devices):
-        if dev not in copies:
-            copies[dev] = _replicate((scene, info, ibl_maps, env_oct), dev)
-        scene_, info_, ibl_, env_ = copies[dev]
-        with _on(dev):
-            world_pos, world_nrm, _ = transform_vertices(
-                scene_, info_.model_transform)
-            clip = m3.transform_points(world_pos, info_.camera.view_proj)
-            vb, _stats = rz.rasterize(
-                clip, scene_.indices, width=width, height=band_h, cfg=cfg,
-                double_sided=scene_.tri_double_sided,
-                screen_size=(width, height), screen_offset=(0, b * band_h))
-            bands.append(_shade_band(scene_, info_, ibl_, env_, vb, clip,
-                                     world_pos, world_nrm, b * band_h, width,
-                                     band_h, height, use_ibl))
+    replicas = {dev: _replicate((scene, info, ibl_maps, env_oct), dev)
+                for dev in dict.fromkeys(devices)}
+    bands = forward_bands(replicas, devices, width=width, height=height,
+                          cfg=cfg, use_ibl=use_ibl)
     return bands, _gather(bands, devices[0])
 
 

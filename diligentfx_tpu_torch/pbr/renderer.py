@@ -15,6 +15,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from diligentfx_tpu_torch import math3d as m3
 from diligentfx_tpu_torch.attribs import (CameraAttribs, PBRLightAttribs,
@@ -288,7 +289,9 @@ class PBRRenderer:
         kernel on its accelerator only, and the two-pass path wherever the
         scene has an alpha-mask tail (its resolve rewrites the raster's
         winners); "on" and "off" force a branch ("off" runs K4 on the
-        card; "on" rasterizes the opaque prefix alone)."""
+        card; "on" rasterizes the opaque prefix alone).  The fused branch
+        raises ValueError where a material tensor requires grad: its kernel
+        carries no gradient."""
         if flags is None:
             flags = PSOFlags.DEFAULT()
         use_shadows = bool(self.ci.enable_shadows
@@ -333,6 +336,14 @@ def _render_frame(scene: ScenePrimitives, info: RenderInfo, ibl_maps, env_oct,
     n_op = scene.num_opaque
     fused = fuse == "on" or (fuse == "auto" and dev.type == "cuda"
                              and scene.mask_indices is None)
+    if fused and torch.is_grad_enabled() and any(
+            isinstance(t, Tensor) and t.requires_grad
+            for t in scene.materials):
+        # K1 fetches the material table in the kernel, whose outputs carry
+        # no gradient; its plain version on the CPU would carry one
+        raise ValueError("the fused raster (K1) drops the material "
+                         "table's gradient; render with fuse=\"off\" to "
+                         "differentiate the material parameters")
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     if fused:
         # fused raster + interpolation + material fetch (K1)
@@ -371,7 +382,10 @@ def _render_frame(scene: ScenePrimitives, info: RenderInfo, ibl_maps, env_oct,
         mat_id = scene.tri_material[torch.clamp(vb.tri_id, min=0).long()]
         mats = scene.materials
         mid = mat_id.long()
-        base_color = mats.base_color_factor[mid][..., :3]
+        # float64, by an embedding lookup, for the gradient's sum over the
+        # pixels (parallel/tiling.py _shade_band)
+        base_color = F.embedding(mid, mats.base_color_factor.double()[:, :3]
+                                 ).float()
         metallic = mats.metallic_factor[mid][..., None]
         roughness = mats.roughness_factor[mid][..., None]
         emissive = mats.emissive_factor[mid]

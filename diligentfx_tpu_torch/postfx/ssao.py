@@ -78,6 +78,17 @@ def view_space_position(depth: Tensor, camera: CameraAttribs, row0: int = 0,
                         y_ndc * z / camera.proj[1, 1], -z], dim=-1)
 
 
+def view_space_normal_from_depth(depth: Tensor, camera: CameraAttribs
+                                 ) -> Tensor:
+    """Cross-derivative normal reconstruction, where there is no G-buffer
+    normal (JAX ssao.py:55): the next pixel right and below, wrapping at
+    the edges."""
+    p = view_space_position(depth, camera)
+    dx = torch.roll(p, -1, dims=1) - p
+    dy = torch.roll(p, -1, dims=0) - p
+    return normalize(cross(dy, dx))
+
+
 def build_avg_depth_pyramid(depth: Tensor, levels: int = 3) -> List[Tensor]:
     """Prefiltered (2x2 mean) depth mips: far AO taps read averaged depth."""
     mips = [depth]
