@@ -17,7 +17,9 @@ through the Radient front end (engine, ECS scene, async assets, resolver,
 drawable cache, C API), the 4K cfg5 frame through execute_split with the
 G-buffer in row bands, the row-banded frame of parallel/tiling.py, and
 the inverse-rendering step of diligentfx_tpu_torch/entry.py (a gradient
-step on the bench scene's base colours over a dp x sp mesh), and checks
+step on the bench scene's base colours over a dp x sp mesh), and
+BASELINE.json's configurations 1-3 as the port's
+diligentfx_tpu_torch/examples/benchmark_suite.py builds them, and checks
 them.
 
 Phases (any failure exits non-zero; no phase is skipped):
@@ -252,7 +254,33 @@ Phases (any failure exits non-zero; no phase is skipped):
      (backward K4 0), the peak memory of a step; the loss falling; loss
      and gradients against a 1 x 1 mesh (1e-5); the dry run's 64x64 step
      on the card against the CPU path (1e-5 relative, 1e-4 of the largest
-     gradient) and entry()'s frame above 50 dB against the CPU path.
+     gradient) and entry()'s frame above 50 dB against the CPU path;
+ 35. BASELINE.json configuration 1 (benchmark_suite.config_1_mr_spheres):
+     16 spheres of uv_sphere(0.42, 24, 32) through PBRRenderer.render at
+     512 x 512 with their own small IBL (8 x 128 tiles, lists of 4,096,
+     chunk 32); one warm-up frame whose K1 inputs are recorded: its raster
+     statistics against the CPU path's at the same inputs, K1 against its
+     plain version there; --frames timed frames with the counts zeroed just
+     before and read just after (K1 1 a frame); a 128 x 128 copy on the GPU
+     against the port's CPU path;
+ 36. configuration 2 (config_2_shadows): a sphere of 27,360 triangles over
+     a 40 m plane at 1920 x 1080, per frame four 2048^2 cascades (K4),
+     EVSM2 moments and their blur, then PBRRenderer.render with the
+     cascades (the fused forward, K1); from the warm-up frame K4 bit for
+     bit at each cascade's inputs and K1 at the frame's against their plain
+     versions, each cascade's raster statistics against the CPU path's; the
+     fused forward with EVSM2 against its two-pass branch (K4) on the card;
+     --frames timed frames (K4 4, K1 1 a frame); a 256 x 128 copy with
+     256^2 cascades against the CPU path;
+ 37. configuration 3 (config_3_sponza): the 24-column atrium (165,152
+     triangles) through HnTaskManager.execute at 1920 x 1080 (lists of
+     1,536, sub_bins 1, SSAO on the per-tap warp route, SSR off the kernel
+     route, no TAA or bloom); from the warm-up frame the raster statistics
+     (the pairs and big triangles the lists drop) against the CPU path's
+     at the same inputs, K1 against its plain version and K2 at each of
+     the frame's launches, exactly; --frames timed frames (K1 1, K3 0, K2
+     the warm-up frame's count a frame); a 256 x 128 copy of the atrium
+     with 4 columns against the CPU path.
 
 Prints the median frame times, one JSON line with each kernel's launches,
 times and bound, the card's name and power limit, and last
@@ -272,6 +300,7 @@ Usage: python3 chip_smoke.py [--frames N] [--out-png PATH] [--profile PATH]
        python3 chip_smoke.py --only split4k [--frames N] [--out-png PATH]
        python3 chip_smoke.py --only banded [--frames N]
        python3 chip_smoke.py --only inverse [--frames N]
+       python3 chip_smoke.py --only baseline [--frames N]
 (the second runs phases 1, 3 and 13 alone, K6 on random taps; the third
 phases 1, 2, 8 without the csm frame, and 11 without the full-chain frame;
 the fourth phases 1 and 9; the fifth phase 1, one bench frame for its
@@ -279,7 +308,9 @@ G-buffer, and phases 5 and 6; the sixth phases 1, 15 and 16; the seventh
 phases 1, 18 and 19; the eighth phases 1, 21 and 22; the ninth phases 1,
 24 and 25; the tenth phases 1, 26 and 27; the eleventh phases 1, 28
 and 29; the twelfth phases 1, 30 and 31; the thirteenth phases 1, 32 and
-33; the last phases 1 and 34; each on the port of
+33; the fourteenth phases 1 and 34; the last phases 1 and 35-37, and it
+ends in the kernels line, the card line and the ok line as the whole run
+does; each on the port of
 the checkout DIR: run it in two checkouts in turn, A B B A, to compare
 them in one call)
 """
@@ -438,100 +469,44 @@ def render_info(w, h, device, csm=False):
 
 
 # ---------------------------------------------------------------------------
-# the full-chain configuration (examples/benchmark_suite.py config 4)
+# the full-chain configuration (examples/benchmark_suite.py config 4): the
+# scene builders, configs and cameras come from the port's module
+# diligentfx_tpu_torch/examples/benchmark_suite.py; these are its names here
 # ---------------------------------------------------------------------------
 
 
+def suite():
+    """diligentfx_tpu_torch.examples.benchmark_suite (imported once the
+    port's checkout is on the path)."""
+    from diligentfx_tpu_torch.examples import benchmark_suite
+    return benchmark_suite
+
+
 def full_chain_scene(n_columns=12, wall_segments=24, device=DEVICE):
-    """examples/benchmark_suite.py sponza_like_scene, built from the port's
-    primitives: columns (high-poly capitals on box shafts), a 60 m floor
-    and 40 clutter spheres from rng seed 0; 112,592 triangles at 12
-    columns."""
-    from diligentfx_tpu_torch.pbr.renderer import build_scene
-    return build_scene(full_chain_entries(n_columns, wall_segments),
-                       device=device)
+    """sponza_like_scene: 112,592 triangles at 12 columns."""
+    return suite().sponza_like_scene(n_columns, wall_segments, device=device)
 
 
 def full_chain_entries(n_columns=12, wall_segments=24):
     """full_chain_scene's (mesh, node matrix, material) entries."""
-    from diligentfx_tpu_torch.attribs import PBRMaterialBasicAttribs
-    from diligentfx_tpu_torch.gltf.primitives import cube, plane, uv_sphere
-    rng = np.random.default_rng(0)
-    entries = []
-    col = uv_sphere(0.5, 40, 56)
-    box = cube(1.0)
-    for i in range(n_columns):
-        x = (i % (n_columns // 2)) * 2.5 - (n_columns // 4) * 2.5
-        z = -4.0 if i < n_columns // 2 else 4.0
-        node = np.eye(4, dtype=np.float32)
-        node[3, :3] = [x, 1.8, z]
-        entries.append((col, node, PBRMaterialBasicAttribs.create(
-            base_color_factor=(0.75, 0.7, 0.6, 1.0), roughness_factor=0.55)))
-        shaft = np.diag([0.5, 3.6, 0.5, 1.0]).astype(np.float32)
-        shaft[3, :3] = [x, 0.9, z]
-        entries.append((box, shaft, PBRMaterialBasicAttribs.create(
-            base_color_factor=(0.7, 0.65, 0.55, 1.0), roughness_factor=0.6)))
-    floor = plane(60.0, segments=wall_segments)
-    entries.append((floor, np.eye(4, dtype=np.float32),
-                    PBRMaterialBasicAttribs.create(
-                        base_color_factor=(0.5, 0.45, 0.4, 1.0),
-                        roughness_factor=0.25)))
-    for i in range(40):   # clutter spheres
-        node = np.eye(4, dtype=np.float32)
-        node[3, :3] = [rng.uniform(-12, 12), 0.4, rng.uniform(-3, 3)]
-        entries.append((uv_sphere(0.35, 24, 32), node,
-                        PBRMaterialBasicAttribs.create(
-                            base_color_factor=tuple(rng.uniform(0.2, 0.9, 3))
-                            + (1.0,),
-                            metallic_factor=float(rng.uniform(0, 1)),
-                            roughness_factor=float(rng.uniform(0.1, 0.9)))))
-    return entries
+    return suite().sponza_like_entries(n_columns, wall_segments)
 
 
 def full_chain_raster_config():
-    """benchmark_suite.py:198: the unsegmented binning (sub_bins 1)."""
-    from diligentfx_tpu_torch.config import RasterizerConfig
-    return RasterizerConfig(tile_h=32, tile_w=128, bin_capacity=1536,
-                            max_tiles_per_tri=16, big_tri_capacity=64,
-                            chunk=8)
+    """config 4's: the unsegmented binning (sub_bins 1), lists of 1,536."""
+    return suite().config_4_raster_config()
 
 
 def full_chain_task_manager_ci():
-    """benchmark_suite.py:201-214: SSAO on the per-tap warp route, SSR's
-    non-kernel march, TAA with the warp history, bloom, DoF on the warp
-    route, fast env taps, epipolar light scattering (256 slices x 128
-    samples x 24 steps) and auto exposure."""
-    from diligentfx_tpu_torch.hydrogent.task_manager import \
-        TaskManagerCreateInfo
-    from diligentfx_tpu_torch.postfx.taa import TAAFeatureFlags
-    return TaskManagerCreateInfo(
-        enable_ssao=True, ssao_half_resolution=True, ssao_use_pallas=True,
-        ssao_num_slices=2, ssao_num_steps=4,
-        enable_ssr=True, ssr_half_resolution=True,
-        enable_taa=True, enable_bloom=True, enable_dof=True,
-        dof_use_pallas=True, fast_env_taps=True,
-        enable_light_scattering=True, enable_auto_exposure=True,
-        taa_feature_flags=(TAAFeatureFlags.YCOCG_COLOR_SPACE
-                           | TAAFeatureFlags.GAUSSIAN_WEIGHTING
-                           | TAAFeatureFlags.PALLAS_WARP))
+    """config 4's effects (epipolar light scattering: 256 slices x 128
+    samples x 24 steps)."""
+    return suite().config_4_task_manager_ci()
 
 
 def full_chain_info(i, w, h, device):
     """Frame i of config_4_animated: the camera circles the atrium at 10 m
     (0.02 rad a frame) looking at (0, 1, 0); one directional light."""
-    from diligentfx_tpu_torch import math3d as m3
-    from diligentfx_tpu_torch.attribs import (CameraAttribs, PBRLightAttribs,
-                                              PBRRendererShaderParameters)
-    from diligentfx_tpu_torch.pbr.renderer import RenderInfo
-    a = i * 0.02
-    eye = [10.0 * np.sin(a), 2.0, 10.0 * np.cos(a)]
-    cam = CameraAttribs.create(
-        m3.look_at(eye, [0, 1, 0], device=device),
-        m3.perspective(0.8, w / h, 0.1, 100.0, device=device), eye, 0.1,
-        100.0, w, h, device=device)
-    return RenderInfo(camera=cam, lights=PBRLightAttribs.directional(
-        FULL_CHAIN_SUN, [4, 4, 4], device=device),
-        renderer_params=PBRRendererShaderParameters.create(device=device))
+    return suite().atrium_info(i, w, h, device)
 
 
 # ---------------------------------------------------------------------------
@@ -627,7 +602,7 @@ def _raster_work(k, rects, z, tid, out):
 
 def phase_raster(scene, info, cfg, use_textures=False, label="bench",
                  legacy=False, width=W, height=H, band=None,
-                 outputs=None):
+                 outputs=None, inputs=None):
     """K1 vs its plain version at the main path's shapes: the bench frame's
     inputs, the csm frame's (use_textures: UV-derivative channels) or the
     full-chain frame's (the unsegmented route), at width x height.
@@ -635,7 +610,9 @@ def phase_raster(scene, info, cfg, use_textures=False, label="bench",
     rows [y0, y0 + band_h) of the padded frame (render_gbuffer_band_sp).
     `legacy` (--only raster on a checkout from before the candidate
     rectangles): the kernel takes none, and the tests inside them are not
-    counted.  `outputs`, a list, receives the kernel's (z, tid, out)."""
+    counted.  `outputs`, a list, receives the kernel's (z, tid, out).
+    `inputs`: the FusedKernelInputs a frame built (frame_captures), in
+    place of fused_raster_inputs's of scene and info."""
     import torch
     from diligentfx_tpu_torch.ops import raster as rz
     from diligentfx_tpu_torch.ops.raster_kernel import (
@@ -646,8 +623,9 @@ def phase_raster(scene, info, cfg, use_textures=False, label="bench",
     if band is not None:
         window = dict(screen_size=(pad_w, pad_h), screen_offset=(0, band[0]))
         pad_h = band[1]
-    k = fused_raster_inputs(scene, info, pad_w=pad_w, pad_h=pad_h, cfg=cfg,
-                            use_textures=use_textures, **window)
+    k = inputs if inputs is not None else fused_raster_inputs(
+        scene, info, pad_w=pad_w, pad_h=pad_h, cfg=cfg,
+        use_textures=use_textures, **window)
     st = {f: int(v) for f, v in zip(k.stats._fields, k.stats)}
     print(f"{label} raster stats at {pad_w}x{pad_h}: {st}", flush=True)
     rects = None if legacy else k.rects
@@ -925,23 +903,36 @@ FULL_CHAIN_LAUNCHES = {**FRAME_LAUNCHES, "warp_bilinear": 43,
                        "march_small_table": 0}
 
 
+def frame_captures(fn, **targets):
+    """fn() with each target (module, attribute name) wrapped to record
+    its calls: returns (fn's result, {target: [(args, kwargs, result)]}).
+    The wrapped functions run as always; this only watches them."""
+    calls = {name: [] for name in targets}
+    saved = {name: getattr(mod, attr) for name, (mod, attr) in targets.items()}
+
+    def recorder(name, orig):
+        def record(*args, **kwargs):
+            out = orig(*args, **kwargs)
+            calls[name].append((args, kwargs, out))
+            return out
+        return record
+    for name, (mod, attr) in targets.items():
+        setattr(mod, attr, recorder(name, saved[name]))
+    try:
+        result = fn()
+    finally:
+        for name, (mod, attr) in targets.items():
+            setattr(mod, attr, saved[name])
+    return result, calls
+
+
 def warp_launch_shapes(fn):
     """fn() and the ((h, w, c), halo) of each K2 launch it made, the way
     phase 3 names them (fn runs K2 through its wrapper as always)."""
     from diligentfx_tpu_torch.ops import warp
-    seen = []
-    launch = warp._launch
-
-    def recording(img, offset_px, halo_r, halo_c):
-        shape = tuple(img.shape)
-        seen.append(((shape + (1,))[:3], (halo_r, halo_c)))
-        return launch(img, offset_px, halo_r, halo_c)
-    warp._launch = recording
-    try:
-        out = fn()
-    finally:
-        warp._launch = launch
-    return out, sorted(seen)
+    out, calls = frame_captures(fn, k2=(warp, "_launch"))
+    return out, sorted(((tuple(img.shape) + (1,))[:3], (halo_r, halo_c))
+                       for (img, _, halo_r, halo_c), _, _ in calls["k2"])
 
 
 def frame_args(scene, frame_info):
@@ -5751,34 +5742,19 @@ BANDED_LAUNCHES = {"raster_tiles_fused": BANDED_N, "warp_bilinear": 1,
 
 
 def cfg5_raster_config():
-    """benchmark_suite.py:249-250."""
-    from diligentfx_tpu_torch.config import RasterizerConfig
-    return RasterizerConfig(tile_h=32, tile_w=128, bin_capacity=1024,
-                            max_tiles_per_tri=16, big_tri_capacity=64,
-                            chunk=8)
+    """config 5's: lists of 1,024."""
+    return suite().config_5_raster_config()
 
 
 def cfg5_task_manager_ci():
-    """benchmark_suite.py:252-258: SSAO on the per-tap warp route, SSR at
-    half resolution off the kernel route, TAA with the warp history,
-    YCoCg and Gaussian weighting, bloom."""
-    from diligentfx_tpu_torch.hydrogent.task_manager import \
-        TaskManagerCreateInfo
-    from diligentfx_tpu_torch.postfx.taa import TAAFeatureFlags
-    return TaskManagerCreateInfo(
-        enable_ssao=True, ssao_half_resolution=True, ssao_use_pallas=True,
-        ssao_num_slices=2, ssao_num_steps=4,
-        enable_ssr=True, ssr_half_resolution=True,
-        enable_taa=True, enable_bloom=True,
-        taa_feature_flags=(TAAFeatureFlags.YCOCG_COLOR_SPACE
-                           | TAAFeatureFlags.GAUSSIAN_WEIGHTING
-                           | TAAFeatureFlags.PALLAS_WARP))
+    """config 5's effects: SSAO on the per-tap warp route, SSR off the
+    kernel route, TAA with the warp history, bloom."""
+    return suite().config_5_task_manager_ci()
 
 
 def cfg5_info(w, h, device):
-    """benchmark_suite.py:259-262: the camera at (0, 2, 10) looking at
-    (0, 1, 0), the sun at 4: config 4's frame 0."""
-    return full_chain_info(0, w, h, device)
+    """config 5's camera and sun: config 4's frame 0."""
+    return suite().atrium_info(0, w, h, device)
 
 
 def _clone(obj):
@@ -6658,6 +6634,451 @@ def inverse_only(steps):
     return dict(inverse=phase_inverse(steps))
 
 
+# ---------------------------------------------------------------------------
+# the rest of BASELINE.json: configurations 1-3 of the port's
+# examples/benchmark_suite.py (phases 35-37)
+# ---------------------------------------------------------------------------
+
+CFG1_SIZE = 512                # render_mr_spheres.py at BASELINE.json's size
+CFG2_TRIANGLES = 27362         # uv_sphere(1.2, 96, 144): 27,360, and the plane
+CFG3_TRIANGLES = 165152        # sponza_like_scene(), 24 columns
+NO_LAUNCHES = {"raster_tiles_fused": 0, "warp_bilinear": 0,
+               "march_small_table": 0, "gtao_fused": 0, "raster_tiles": 0,
+               "warp_bilinear_multi": 0}
+# launches a frame: cfg1 the fused forward frame (K1); cfg2 the four
+# cascades (K4) and the fused forward frame (K1); cfg3 execute's fused
+# G-buffer (K1), SSR off the kernel route (K3 0) and K2 at the warm-up
+# frame's count (disocclusion and SSAO taps), printed
+CFG1_LAUNCHES = {**NO_LAUNCHES, "raster_tiles_fused": 1}
+CFG2_LAUNCHES = {**NO_LAUNCHES, "raster_tiles_fused": 1, "raster_tiles": 4}
+CFG3_FIXED = {k: v for k, v in CFG1_LAUNCHES.items() if k != "warp_bilinear"}
+SMALL_IBL = dict(brdf_lut_dim=32, num_brdf_samples=16, irradiance_cube_dim=16,
+                 prefiltered_env_map_dim=32, num_specular_env_samples=16)
+
+
+def _stats_dict(st):
+    return {f: int(v) for f, v in zip(st._fields, st)}
+
+
+def _cpu(x):
+    import torch
+    return x.cpu() if isinstance(x, torch.Tensor) else x
+
+
+def cpu_fused_stats(call):
+    """The raster statistics of a recorded rz.prepare_fused call, its
+    inputs copied to the CPU and set up and binned there (the CPU path)."""
+    from diligentfx_tpu_torch.ops import raster as rz
+    args, kwargs, _ = call
+    k = rz.prepare_fused(*map(_cpu, args),
+                         **{n: _cpu(v) for n, v in kwargs.items()})
+    return _stats_dict(k.stats)
+
+
+def cpu_raster_stats(call):
+    """The raster statistics of a recorded rz.rasterize call (the two-pass
+    raster of a cascade), its inputs copied to the CPU and set up and
+    binned there (rz.rasterize's statistics without its tile raster)."""
+    import torch
+    from diligentfx_tpu_torch.ops import raster as rz
+    (clip, indices), kw, _ = call
+    w, h, cfg = kw["width"], kw["height"], kw["cfg"]
+    ds = kw.get("double_sided")
+    setup, valid, bbox, _, clip_ovf = rz._triangle_setup(
+        clip.cpu(), indices.cpu(), w, h, None if ds is None else ds.cpu(),
+        kw.get("front_ccw", True), kw.get("near_eps", 1e-3))
+    _, _, max_count, overflow, big_overflow = rz._bin_triangles(
+        valid, bbox, w, h, cfg)
+    return _stats_dict(rz.RasterStats(
+        max_bin_count=max_count, bin_overflow=overflow + clip_ovf,
+        big_overflow=big_overflow, num_culled=(~valid).sum()))
+
+
+def stats_against_cpu(device_stats, cpu_stats, label):
+    """Hold the card's raster statistics to the CPU path's, field by
+    field; print both and the (tile, triangle) pairs and big triangles
+    dropped."""
+    print(f"{label} raster statistics on the card {device_stats}, on the "
+          f"CPU path {cpu_stats}; dropped pairs "
+          f"{device_stats['bin_overflow']}, big triangles dropped "
+          f"{device_stats['big_overflow']}", flush=True)
+    check(device_stats == cpu_stats, f"{label}: the card's raster "
+          f"statistics {device_stats} are not the CPU path's {cpu_stats}")
+
+
+def timed_steps(bc, frames, label, expected, warm_launches=None):
+    """`frames` timed bc.step(i) (host clock ending in a synchronise, CUDA
+    events beside it), with the launch counts zeroed just before and read
+    just after, each held to `expected` a frame, and any kernel not in it
+    to `warm_launches` (the warm-up frame's).  Returns (host ms, events ms,
+    launches)."""
+    import torch
+    zero_launches()
+    host_ms, dev_ms = [], []
+    color = None
+    for i in range(frames):
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev0.record()
+        color = bc.step(i)
+        ev1.record()
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        dev_ms.append(ev0.elapsed_time(ev1))
+    launches = read_launches()
+    want = {**(warm_launches or {}), **expected}
+    for name, n in want.items():
+        check(launches[name] == n * frames,
+              f"{label}: {name} launched {launches[name]} times in {frames} "
+              f"frames, expected {n} a frame")
+    _color_ok(color, f"{label} frame", bc.width, bc.height)
+    print(f"{label} frame {bc.width}x{bc.height}: median "
+          f"{np.median(host_ms):.3f} ms host clock, {np.median(dev_ms):.3f} "
+          f"ms CUDA events, min {min(host_ms):.3f}, max {max(host_ms):.3f} "
+          f"({frames} frames), mean color {float(color.mean()):.4f}; "
+          f"launches a frame { {k: v // frames for k, v in launches.items()} }",
+          flush=True)
+    return host_ms, dev_ms, launches
+
+
+def small_baseline_frames(build, device, **kw):
+    """Two frames of a benchmark_suite configuration built small by
+    `build(device, ibl_from=...)` on the CPU path and on `device`, on one
+    small IBL: (cpu colour, colour)."""
+    from diligentfx_tpu_torch.config import PBRRendererCreateInfo
+    from diligentfx_tpu_torch.pbr.renderer import PBRRenderer
+    ref = PBRRenderer(PBRRendererCreateInfo(**SMALL_IBL), device="cpu")
+    colors = []
+    for dev in ("cpu", device):
+        bc = build(dev, ibl_from=ref, **kw)
+        for i in range(2):
+            color = bc.step(i)
+        colors.append(color.cpu().numpy())
+    return colors[0], colors[1]
+
+
+def small_baseline_against_cpu(build, label, **kw):
+    """small_baseline_frames on the card against the CPU path, above 50
+    dB; returns the PSNR."""
+    from diligentfx_tpu_torch.utils.image import psnr
+    cpu, gpu = small_baseline_frames(build, DEVICE, **kw)
+    p = psnr(cpu, gpu)
+    print(f"{label}, GPU vs the port's CPU path: PSNR {p:.2f} dB, max abs "
+          f"diff {np.abs(cpu - gpu).max():.3g}", flush=True)
+    check(np.isfinite(gpu).all(), f"small {label} not finite")
+    check(p > 50.0, f"GPU {label} disagrees with the CPU path: {p:.2f} dB")
+    return p
+
+
+def _warm_up(bc, label, **targets):
+    """bc.step(0) with the launch counts zeroed just before and read just
+    after, its calls of `targets` recorded (frame_captures)."""
+    import torch
+    from diligentfx_tpu_torch.ops import raster as rz
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    _, calls = frame_captures(lambda: bc.step(0),
+                              k1=(rz, "prepare_fused"), **targets)
+    torch.cuda.synchronize()
+    warm = read_launches()
+    print(f"{label} warm-up frame: {time.perf_counter() - t0:.2f} s, "
+          f"launches {warm}", flush=True)
+    check(len(calls["k1"]) == warm["raster_tiles_fused"] == 1,
+          f"{label}: the frame built {len(calls['k1'])} K1 input sets and "
+          f"launched K1 {warm['raster_tiles_fused']} times, expected 1")
+    return warm, calls
+
+
+def _phase_result(bc, host_ms, dev_ms, launches, frames, t0, **more):
+    return dict(frame_ms_median=float(np.median(host_ms)),
+                frame_events_ms_median=float(np.median(dev_ms)),
+                frame_ms_mean=float(np.mean(host_ms)), launches=launches,
+                frames=frames, width=bc.width, height=bc.height,
+                triangles=bc.scene.num_triangles, metric=bc.metric,
+                seconds=time.perf_counter() - t0, **more)
+
+
+def phase_cfg1(frames):
+    """Phase 35: configuration 1, the mr_spheres grid (16 spheres of
+    uv_sphere(0.42, 24, 32)) through PBRRenderer.render at 512 x 512 with
+    its own small IBL: K1 (8 x 128 tiles, lists of 4,096, chunk 32) against
+    its plain version at the frame's inputs, the raster statistics against
+    the CPU path's, --frames timed frames (K1 1 a frame), a 128 x 128 copy
+    against the CPU path."""
+    t0 = time.perf_counter()
+    bench = suite()
+    bc = bench.config_1_mr_spheres(device=DEVICE, size=CFG1_SIZE)
+    print(f"cfg1 mr_spheres: {bc.scene.num_triangles} triangles at "
+          f"{CFG1_SIZE}x{CFG1_SIZE}, lists of {bc.cfg.bin_capacity}",
+          flush=True)
+    warm, calls = _warm_up(bc, "cfg1")
+    check(warm == CFG1_LAUNCHES, f"cfg1 warm-up launches {warm}")
+    k = calls["k1"][0][2]
+    stats_against_cpu(_stats_dict(k.stats), cpu_fused_stats(calls["k1"][0]),
+                      "cfg1")
+    k1 = phase_raster(None, None, bc.cfg, label="cfg1", width=CFG1_SIZE,
+                      height=CFG1_SIZE, inputs=k)
+    del calls, k
+    host_ms, dev_ms, launches = timed_steps(bc, frames, "cfg1", CFG1_LAUNCHES)
+    p = small_baseline_against_cpu(bench.config_1_mr_spheres,
+                                   "128x128 cfg1 frame", size=128)
+    return _phase_result(bc, host_ms, dev_ms, launches, frames, t0, k1=k1,
+                         small_psnr=p)
+
+
+def phase_cfg2(frames, ibl_source):
+    """Phase 36: configuration 2, a sphere of 27,360 triangles over a 40 m
+    plane at 1920 x 1080: per frame four 2048^2 cascades (K4), EVSM2
+    moments and their blur, PBRRenderer.render with the cascades (the
+    fused forward, K1).  K4 bit for bit at each cascade's inputs and K1 at
+    the frame's against their plain versions; each cascade's raster
+    statistics against the CPU path's; the fused forward with EVSM2
+    against its two-pass branch on the card; --frames timed frames (K4 4,
+    K1 1 a frame); a 256 x 128 copy with 256^2 cascades against the CPU
+    path."""
+    import torch
+    from diligentfx_tpu_torch.config import ShadowMode
+    from diligentfx_tpu_torch.ops import raster as rz
+    from diligentfx_tpu_torch.ops import raster_tiles as rt
+    from diligentfx_tpu_torch.utils.image import psnr
+    t0 = time.perf_counter()
+    bench = suite()
+    bc = bench.config_2_shadows(device=DEVICE, ibl_from=ibl_source)
+    print(f"cfg2 shadows: {bc.scene.num_triangles} triangles at "
+          f"{bc.width}x{bc.height}, {NUM_CASCADES} cascades of "
+          f"{SHADOW_SIZE}^2", flush=True)
+    check(bc.scene.num_triangles == CFG2_TRIANGLES, "cfg2's triangles")
+    warm, calls = _warm_up(bc, "cfg2", k4=(rt, "_launch"),
+                           cascades=(rz, "rasterize"))
+    check(warm == CFG2_LAUNCHES, f"cfg2 warm-up launches {warm}")
+    check(len(calls["k4"]) == len(calls["cascades"]) == NUM_CASCADES,
+          f"cfg2: {len(calls['k4'])} K4 launches in the warm-up frame")
+    stats = []
+    for i, call in enumerate(calls["cascades"]):
+        st = _stats_dict(call[2][1])
+        stats_against_cpu(st, cpu_raster_stats(call), f"cfg2 cascade {i}")
+        stats.append(st)
+    k4_cascades = []
+    for i, (args, kw, _) in enumerate(calls["k4"]):
+        k4_cascades.append(dict(k4_against_plain(
+            args, kw, f"at cfg2 cascade {i}"), cascade=i))
+    k = calls["k1"][0][2]
+    stats_against_cpu(_stats_dict(k.stats), cpu_fused_stats(calls["k1"][0]),
+                      "cfg2 forward frame")
+    k1 = phase_raster(None, None, bc.cfg, label="cfg2", width=bc.width,
+                      height=bc.height, inputs=k)
+    del calls, k
+    # the fused forward frame with EVSM2 against its two-pass branch (K4)
+    info = bc.last["info"]
+    frames_by = {}
+    for fuse in ("on", "off"):
+        zero_launches()
+        frames_by[fuse] = bc.renderer.render(
+            bc.scene, info, width=bc.width, height=bc.height,
+            shadow_mode=ShadowMode.EVSM2, fuse=fuse)
+        torch.cuda.synchronize()
+        got = read_launches()
+        check(got == {**NO_LAUNCHES, "raster_tiles_fused": int(fuse == "on"),
+                      "raster_tiles": int(fuse == "off")},
+              f"cfg2 forward fuse={fuse} launched {got}")
+    a, b = (frames_by[f].cpu().numpy() for f in ("on", "off"))
+    branch_psnr = psnr(b, a)
+    print(f"cfg2 forward frame, fused (K1) against two-pass (K4) on the "
+          f"card: PSNR {branch_psnr:.2f} dB, max abs diff "
+          f"{np.abs(a - b).max():.3g}", flush=True)
+    check(branch_psnr > 50.0, f"cfg2's fused and two-pass branches differ: "
+                              f"{branch_psnr:.2f} dB")
+    maps = bc.last["shadow_maps"]
+    cover = [round(float((m < 1.0).float().mean()), 4) for m in maps]
+    print(f"cfg2 shadow maps: caster coverage by cascade {cover}", flush=True)
+    check(bool(torch.isfinite(bc.last["shadow_moments"]).all()),
+          "cfg2 moments not finite")
+    del frames_by, info
+    host_ms, dev_ms, launches = timed_steps(bc, frames, "cfg2", CFG2_LAUNCHES)
+    p = small_baseline_against_cpu(bench.config_2_shadows,
+                                   "256x128 cfg2 frame (256^2 cascades)",
+                                   width=SMALL_W, height=SMALL_H,
+                                   shadow_map_size=256)
+    k4 = dict(max_abs_err=0.0, cascades=k4_cascades, cascade_stats=stats,
+              **{key: sum(c[key] for c in k4_cascades)
+                 for key in ("ms", "device_ms", "plain_ms", "bound_ms",
+                             "candidate_pixel_tests")},
+              bound_by="/".join(sorted({c["bound_by"] for c in k4_cascades})))
+    return _phase_result(bc, host_ms, dev_ms, launches, frames, t0, k1=k1,
+                         k4=k4, branch_psnr=branch_psnr, small_psnr=p,
+                         caster_coverage=cover)
+
+
+def k2_launches_against_plain(launches, label):
+    """K2 vs warp_bilinear_plain at each recorded launch (img, offsets,
+    halo rows, halo columns) of a frame, exactly; the set timed (CUDA
+    events and device time) beside its plain version and grid_sample on
+    the same inputs, with its bound (phase 3's count over every pixel of
+    each launch)."""
+    import torch
+    from diligentfx_tpu_torch.ops.warp import warp_bilinear, warp_bilinear_plain
+    shapes = {}
+    for img, off, hr, hc in launches:
+        key = f"{tuple(img.shape)} halo ({hr}, {hc})"
+        shapes[key] = shapes.get(key, 0) + 1
+        a = warp_bilinear(img, off, halo_r=hr, halo_c=hc)
+        torch.cuda.synchronize()
+        b = warp_bilinear_plain(img, off, halo_r=hr, halo_c=hc)
+        err = float((a - b).abs().max())
+        check(err == 0.0, f"K2 differs from its plain version {label} at "
+                          f"{key}: {err}")
+    libs = [_grid_sample_fn(img, off) for img, off, _, _ in launches]
+
+    def k2_all():
+        for img, off, hr, hc in launches:
+            warp_bilinear(img, off, halo_r=hr, halo_c=hc)
+
+    def plain_all():
+        for img, off, hr, hc in launches:
+            warp_bilinear_plain(img, off, halo_r=hr, halo_c=hc)
+
+    def lib_all():
+        for lib in libs:
+            lib()
+    n_bytes = n_ops = 0
+    for img, off, _, _ in launches:
+        px = off.shape[0] * off.shape[1]
+        c = img.shape[2] if img.dim() == 3 else 1
+        n_bytes += 4 * px * (2 * c + 2)
+        n_ops += px * (20 + 9 * c)
+    b_ms, b_by = bound_ms(n_bytes, n_ops)
+    res = dict(max_abs_err=0.0, launches_checked=len(launches),
+               shapes=shapes, ms=cuda_ms(k2_all, 20, 2),
+               device_ms=kernel_device_ms(k2_all, K2_KERNELS, 10),
+               plain_ms=cuda_ms(plain_all, 3, 1),
+               library_ms=cuda_ms(lib_all, 20, 2),
+               library_device_ms=kernel_device_ms(lib_all, "grid_sampler", 10),
+               bound_ms=b_ms, bound_by=b_by)
+    print(f"warp_bilinear {label}: {len(launches)} launches {shapes}, all "
+          f"exact; {res['ms']:.4f} ms CUDA events, device "
+          f"{res['device_ms']:.4f}, plain {res['plain_ms']:.3f}, grid_sample "
+          f"{res['library_ms']:.4f} / device {res['library_device_ms']:.4f};"
+          f" bound {b_ms:.4f} ms ({b_by})", flush=True)
+    return res
+
+
+def phase_cfg3(frames, ibl_source):
+    """Phase 37: configuration 3, the 24-column atrium (165,152 triangles)
+    through HnTaskManager.execute at 1920 x 1080 (32 x 128 tiles, lists of
+    1,536, sub_bins 1; SSAO at half resolution on the per-tap warp route,
+    SSR at half resolution off the kernel route, no TAA, no bloom).  The
+    raster statistics (the pairs the lists drop) against the CPU path's at
+    the frame's inputs; K1 against its plain version there and K2 at each
+    of the frame's launches; --frames timed frames (K1 1, K3 0 and K2 the
+    warm-up frame's count a frame); a 256 x 128 copy of the atrium with 4
+    columns against the CPU path."""
+    import torch
+    from diligentfx_tpu_torch.ops import warp
+    t0 = time.perf_counter()
+    bench = suite()
+    bc = bench.config_3_sponza(device=DEVICE, ibl_from=ibl_source)
+    print(f"cfg3 atrium: {bc.scene.num_triangles} triangles at "
+          f"{bc.width}x{bc.height}, lists of {bc.cfg.bin_capacity}",
+          flush=True)
+    check(bc.scene.num_triangles == CFG3_TRIANGLES, "cfg3's triangles")
+    warm, calls = _warm_up(bc, "cfg3", k2=(warp, "_launch"))
+    for name, n in CFG3_FIXED.items():
+        check(warm[name] == n, f"cfg3 warm-up: {name} launched {warm[name]}"
+                               f" times, expected {n}")
+    check(warm["warp_bilinear"] == len(calls["k2"]) > 0,
+          f"cfg3 warm-up: K2 {warm['warp_bilinear']} launches, "
+          f"{len(calls['k2'])} recorded")
+    k = calls["k1"][0][2]
+    stats = _stats_dict(k.stats)
+    stats_against_cpu(stats, cpu_fused_stats(calls["k1"][0]), "cfg3")
+    k1 = phase_raster(None, None, bc.cfg, label="cfg3", width=bc.width,
+                      height=bc.height, inputs=k)
+    k2 = k2_launches_against_plain([args for args, _, _ in calls["k2"]],
+                                   "at cfg3's launches")
+    del calls, k
+    out = bc.last["out"]
+    ao = out.state.ssao.history
+    check(bool(torch.isfinite(ao).all()) and float(ao.min()) >= 0.0
+          and float(ao.max()) <= 1.0, "cfg3 SSAO history outside [0, 1]")
+    check(bool(torch.isfinite(out.state.ssr.radiance).all()),
+          "cfg3 SSR not finite")
+    hit = float(out.gbuffer.hit.float().mean())
+    check(0.2 < hit < 1.0, f"cfg3 hit fraction {hit}")
+    del out
+    host_ms, dev_ms, launches = timed_steps(
+        bc, frames, "cfg3", CFG3_FIXED,
+        warm_launches={"warp_bilinear": warm["warp_bilinear"]})
+    p = small_baseline_against_cpu(bench.config_3_sponza,
+                                   "256x128 cfg3 frame (4 columns)",
+                                   width=SMALL_W, height=SMALL_H,
+                                   n_columns=4)
+    return _phase_result(bc, host_ms, dev_ms, launches, frames, t0, k1=k1,
+                         k2=k2, raster_stats=stats, hit=hit, small_psnr=p)
+
+
+def phase_baseline(frames, ibl_source):
+    """Phases 35-37."""
+    return dict(cfg1=phase_cfg1(frames), cfg2=phase_cfg2(frames, ibl_source),
+                cfg3=phase_cfg3(frames, ibl_source))
+
+
+def baseline_kernels(base):
+    """The kernels line of `--only baseline`: K1 at the three frames'
+    inputs (cfg1's as its own numbers), K2 at cfg3's launches and K4 at
+    cfg2's cascades, each with its launches over the three timed runs."""
+    k1 = dict(name="raster_tiles_fused", route="cuda",
+              source="diligentfx_tpu_torch/csrc/raster_fused.cu",
+              replaces="diligentfx_tpu/ops/raster_pallas.py:261",
+              **{key: base["cfg1"]["k1"][key] for key in (
+                  "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                  "library_ms", "device_ms")})
+    merge_k1(k1, base["cfg2"]["k1"], "cfg2_inputs")
+    merge_k1(k1, base["cfg3"]["k1"], "cfg3_inputs")
+    k2 = dict(name="warp_bilinear", route="cuda",
+              source="diligentfx_tpu_torch/csrc/warp.cu",
+              replaces="diligentfx_tpu/ops/warp_pallas.py:34",
+              **base["cfg3"]["k2"])
+    k4 = dict(name="raster_tiles", route="cuda",
+              source="diligentfx_tpu_torch/csrc/raster_tiles.cu",
+              replaces="diligentfx_tpu/ops/raster_pallas.py:35",
+              library_ms=None, **base["cfg2"]["k4"])
+    for k in (k1, k2, k4):
+        k["launches"] = sum(base[c]["launches"][k["name"]]
+                            for c in ("cfg1", "cfg2", "cfg3"))
+        add_baseline_launches(k, base)
+    return [k1, k2, k4]
+
+
+def add_baseline_launches(k, base):
+    """The kernel's launches in each configuration's timed frames."""
+    for c in ("cfg1", "cfg2", "cfg3"):
+        k[f"{c}_frame_launches"] = base[c]["launches"][k["name"]]
+        k[f"{c}_frames"] = base[c]["frames"]
+
+
+def print_baseline(base, card):
+    for c in ("cfg1", "cfg2", "cfg3"):
+        r = base[c]
+        print(f"{r['metric']}: {c}_frame_ms_median {r['frame_ms_median']:.3f}"
+              f" (CUDA events {r['frame_events_ms_median']:.3f}, mean "
+              f"{r['frame_ms_mean']:.3f}) over {r['frames']} frames at "
+              f"{r['width']}x{r['height']}, {r['triangles']} triangles; small "
+              f"copy vs the CPU path {r['small_psnr']:.2f} dB; phase "
+              f"{r['seconds']:.1f} s on {card}", flush=True)
+
+
+def baseline_only(frames):
+    """Phases 35-37 alone, their IBL (cfg2's and cfg3's default
+    create-info) precomputed once."""
+    from diligentfx_tpu_torch.config import PBRRendererCreateInfo
+    from diligentfx_tpu_torch.pbr.renderer import PBRRenderer
+    ibl = PBRRenderer(PBRRendererCreateInfo(), device=DEVICE)
+    return phase_baseline(frames, ibl)
+
+
 # goals of the tile rasters' redesign, device ms (torch.profiler kernel
 # rows): K4 over the four cascades, K1 at each of its three inputs
 RASTER_GOALS_MS = {"raster_tiles": 0.45, "bench": 0.15, "csm": 0.20,
@@ -6776,7 +7197,7 @@ def main() -> int:
                                         "march_gtao", "oit", "lights",
                                         "ext_skin", "editor", "hydra",
                                         "radient", "split4k", "banded",
-                                        "inverse"),
+                                        "inverse", "baseline"),
                     help="warp: run only phases 1, 3 and 13 (K6 on random "
                          "taps within the halo); raster: only phases 1, 2, "
                          "8 (without the csm frame) and 11; csm: only "
@@ -6791,8 +7212,9 @@ def main() -> int:
                          "(likewise); radient: only phases 1, 28 and 29 "
                          "(likewise); split4k: only phases 1, 30 and 31; "
                          "banded: only phases 1, 32 and 33; inverse: only "
-                         "phases 1 and 34 (--frames steps); and print "
-                         "their JSON line")
+                         "phases 1 and 34 (--frames steps); baseline: only "
+                         "phases 1 and 35-37, ending in the ok line; and "
+                         "print their JSON line")
     ap.add_argument("--async-child", metavar="BUILD_DIR", default="",
                     help="phase 26's AsyncFramePipeline run alone, its "
                          "kernels built into the empty BUILD_DIR (phase 26 "
@@ -6889,6 +7311,21 @@ def main() -> int:
         print(json.dumps({"root": args.root, **inverse_only(args.frames)},
                          default=str))
         print(card, flush=True)
+        return 0
+    if args.only == "baseline":
+        base = baseline_only(args.frames)
+        print_baseline(base, card)
+        print(f"phases 1 and 35-37: total run "
+              f"{time.perf_counter() - t_start:.1f} s on {card}", flush=True)
+        if DEVICE_MS_FROM_EVENTS:
+            print(f"device_ms from CUDA events, the profiler showing no "
+                  f"device time, for kernels named {DEVICE_MS_FROM_EVENTS}")
+        print(json.dumps({"root": args.root,
+                          "kernels": baseline_kernels(base)}, default=str))
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
         return 0
     cfg = bench_raster_config()
     scene = bench_scene(5, 9, 32, DEVICE)
@@ -7012,6 +7449,12 @@ def main() -> int:
     split_s = [t_banded - t_split, t_ref - t_banded,
                time.perf_counter() - t_ref]
     inverse = phase_inverse(args.frames)
+    base = phase_baseline(args.frames, tm.renderer)
+    merge_k1(k1, base["cfg1"]["k1"], "cfg1_inputs")
+    merge_k1(k1, base["cfg2"]["k1"], "cfg2_inputs")
+    merge_k1(k1, base["cfg3"]["k1"], "cfg3_inputs")
+    k2["cfg3_launch_set"] = base["cfg3"]["k2"]
+    k4["cfg2_cascades"] = base["cfg2"]["k4"]
     k1["banded_inputs"] = {key: banded["k1"][key] for key in (
         "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
         "candidate_pixel_tests", "raster_stats")}
@@ -7046,6 +7489,7 @@ def main() -> int:
         k["banded_frames"] = args.frames
         k["inverse_step_launches"] = inverse["launches"][k["name"]]
         k["inverse_steps"] = args.frames
+        add_baseline_launches(k, base)
     k4["launches"] = csm_launches["raster_tiles"]
     k4["frames"] = args.frames
     k4["launches_per_frame"] = csm_launches["raster_tiles"] / args.frames
@@ -7064,7 +7508,9 @@ def main() -> int:
                   "(radient_frame_launches); render_forward_banded, one a "
                   "band (forward_banded_launches); the inverse-rendering "
                   "step, one a band of each view, 16 a step "
-                  "(inverse_step_launches over inverse_steps steps)")
+                  "(inverse_step_launches over inverse_steps steps); "
+                  "BASELINE.json config 2's four cascades, 4 a frame "
+                  "(cfg2_frame_launches over cfg2_frames frames)")
     k5["frame_launches"] = launches["gtao_fused"]
     k5["launches_per_frame"] = 0.0
     k6["frame_launches"] = launches["warp_bilinear_multi"]
@@ -7168,6 +7614,8 @@ def main() -> int:
           f"{inverse['backward_ms_median']:.3f}; peak "
           f"{inverse['peak_mb']:.1f} MB; phase 34 {inverse['seconds']:.1f} s "
           f"on {card}; total run {time.perf_counter() - t_start:.1f} s")
+    print_baseline(base, card)
+    print(f"total run {time.perf_counter() - t_start:.1f} s on {card}")
     if DEVICE_MS_FROM_EVENTS:
         print(f"device_ms from CUDA events, the profiler showing no device "
               f"time, for kernels named {DEVICE_MS_FROM_EVENTS}")

@@ -214,13 +214,28 @@ class DryrunResult(NamedTuple):
     new_params: Tensor
 
 
-def dryrun(mesh: Optional[RenderMesh] = None) -> DryrunResult:
+def dryrun_mesh(devices=None) -> RenderMesh:
+    """The dry run's mesh (:126-127) over `devices` (default: every CUDA
+    device): sp 4 where 4 divides their count n, else 2 where 2 does,
+    else 1; dp n / sp.  A device may repeat (["cpu"] * n on the CPU)."""
+    if devices is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("dryrun: no CUDA device; pass devices= "
+                               "(e.g. ['cpu'] * 4) for the CPU")
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+    n = len(devices)
+    sp = 4 if n % 4 == 0 else (2 if n % 2 == 0 else 1)
+    return make_render_mesh(dp=n // sp, sp=sp, devices=devices)
+
+
+def dryrun(mesh: Optional[RenderMesh] = None, devices=None) -> DryrunResult:
     """The dry run's step (:98-176): the scene of build_small(size=64,
     sphere_res=6, ibl=False), one view a dp row at angles
-    linspace(0, 1, dp), targets of 0.5, over `mesh` (default: every CUDA
-    device, make_render_mesh); raises where the loss or a gradient is not
-    finite."""
-    mesh = make_render_mesh() if mesh is None else mesh
+    linspace(0, 1, dp), targets of 0.5, over `mesh` (default: dryrun_mesh
+    over `devices`, every CUDA device unless given); raises where the loss
+    or a gradient is not finite."""
+    mesh = dryrun_mesh(devices) if mesh is None else mesh
     dev = mesh.devices.flat[0]
     renderer, scene, info, cfg, size = build_small(size=64, sphere_res=6,
                                                    ibl=False, device=dev)
